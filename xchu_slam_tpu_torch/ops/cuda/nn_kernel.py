@@ -1,0 +1,138 @@
+"""Masked brute-force nearest neighbour: the CUDA kernel
+`csrc/nn_kernel.cu` and its plain PyTorch version.
+
+Port of `xchu_slam_tpu/ops/pallas/nn_kernel.py::nearest_neighbor`. For each
+source point [N,3]: (index of the nearest valid target point [N] int32,
+squared distance [N] float32); a row with no valid target gives (0, 1e30).
+
+`nearest_neighbor` sends a CUDA tensor to the kernel and a CPU tensor to
+`nearest_neighbor_ref`; it raises on anything it does not take, and never
+falls back from the kernel to the plain version. The kernel is compiled by
+nvcc from the repository's source at first use, into `build/kernels/` keyed
+by the source's hash.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_SRC = Path(__file__).resolve().parents[2] / "csrc" / "nn_kernel.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel launches since the last reset (read and reset by callers that need
+# to show the kernel ran)
+launches = 0
+
+
+def nearest_neighbor_ref(src: torch.Tensor, tgt: torch.Tensor,
+                         tgt_mask: torch.Tensor, chunk: int = 1024):
+    """Plain PyTorch version: the expanded form |s|²+|t|²−2s·t for the
+    argmin (as the reference's XLA branch, ops/icp.py:69-90), then the exact
+    d² = |s − t[idx]|²; rows of `chunk` sources bound the [chunk, M] block."""
+    big = 1e30
+    tsq = torch.sum(tgt * tgt, dim=-1)
+    idx_out, d2_out = [], []
+    for i0 in range(0, src.shape[0], chunk):
+        rows = src[i0:i0 + chunk]
+        d2 = (torch.sum(rows * rows, -1)[:, None] + tsq[None, :]
+              - 2.0 * rows @ tgt.T)
+        d2 = torch.where(tgt_mask[None, :], d2, big)
+        j = torch.argmin(d2, dim=1)
+        d2_exact = torch.sum((rows - tgt[j]) ** 2, -1)
+        d2_out.append(torch.where(tgt_mask[j], d2_exact, big))
+        idx_out.append(j.to(torch.int32))
+    return torch.cat(idx_out), torch.cat(d2_out)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the NN kernel cannot be built")
+    return path
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile `csrc/nn_kernel.cu` unless the library for this source and
+    these flags exists. Returns (library path, build seconds, nvcc output)."""
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"nn_kernel-{key}.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    lib.nn_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.nn_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(src, tgt, tgt_mask):
+    if src.device != tgt.device or src.device != tgt_mask.device:
+        raise ValueError("src, tgt and tgt_mask must share one device")
+    if src.dtype != torch.float32 or tgt.dtype != torch.float32 \
+            or tgt_mask.dtype != torch.bool:
+        raise TypeError("expected float32 src/tgt and a bool mask")
+    if src.ndim != 2 or src.shape[1] != 3 or tgt.ndim != 2 or tgt.shape[1] != 3 \
+            or tgt_mask.shape != (tgt.shape[0],):
+        raise ValueError(f"bad shapes {tuple(src.shape)} {tuple(tgt.shape)} "
+                         f"{tuple(tgt_mask.shape)}")
+    if tgt.shape[0] == 0:
+        raise ValueError("empty target cloud")
+
+
+def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
+    """(idx [N] int32, d2 [N] float32) of the nearest valid target per
+    source point. CUDA tensors run the kernel; CPU tensors the plain
+    version."""
+    global launches
+    _check(src, tgt, tgt_mask)
+    if src.device.type == "cpu":
+        return nearest_neighbor_ref(src, tgt, tgt_mask)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    if not (src.is_contiguous() and tgt.is_contiguous() and tgt_mask.is_contiguous()):
+        raise ValueError("src, tgt and tgt_mask must be contiguous")
+    n, m = src.shape[0], tgt.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(n, dtype=torch.float32, device=src.device)
+    lib = _library()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = lib.nn_launch(src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
+                           n, m, idx.data_ptr(), d2.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"nn_kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return idx, d2
