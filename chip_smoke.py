@@ -18,10 +18,21 @@ Phases, each printing one line (any failure raises and exits non-zero):
   4. main     the `run-sim` host engine on the 430-scan, 55 m circuit at
               the default config; needs NN kernel launches ≥ 1, loops ≥ 1
               and aligned ATE < 1.0 m
-  5. determinism  the first 60 scans twice from a fresh state: per-scan
+  5. session  the sensor-aided mapping session through the CLI's functions,
+              in a temporary directory: `run-sim` on the same circuit with
+              ISC loops, IMU + wheel + GPS inputs and a checkpoint every 200
+              scans (needs NN launches ≥ 1, loops ≥ 1, aligned ATE < 1.0 m);
+              every export file read back; `eval` of the exported trajectory
+              against a ground-truth TUM file within 1e-3 of the run's own
+              ATE; `localize` of 12 fresh scans against the checkpoint read
+              from disk (≥ 1 found, median error of the found < 1.5 m, NN
+              launches ≥ 1); the checkpoint resumed for 5 scans, poses
+              bit-identical to the uninterrupted run's
+  6. determinism  the first 60 scans twice from a fresh state: per-scan
               poses bit-identical
-Then one JSON line of kernel records and, last, the result line.
-`--kernel-only` stops after phase 3 and prints no result line.
+Then one JSON line of kernel records (with the NN launches of each path)
+and, last, the result line. `--kernel-only` stops after phase 3 and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +51,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SCANS, RADIUS, SEED = 430, 55.0, 0
 DET_SCANS = 60
+CHECKPOINT_EVERY, RESUME_SCANS, QUERIES = 200, 5, 12
+FITNESS_THRESH = 1.5     # `localize`'s ICP gate for one sparse sim scan
 TOL = 1e-4
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 FP32_FLOPS = 67e12
@@ -274,6 +288,126 @@ def phase_main() -> int:
     return launches
 
 
+def _count_launches(fn):
+    """(fn's result, NN kernel launches it made): the count is set to 0 just
+    before and read just after."""
+    from xchu_slam_tpu_torch.ops.cuda import nn_kernel
+
+    nn_kernel.launches = 0
+    out = fn()
+    return out, nn_kernel.launches
+
+
+def phase_session() -> dict:
+    """NN launches of the session run, of `localize` and of the resume."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io import export, kitti
+    from xchu_slam_tpu_torch.utils import checkpoint, sim
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    last_ckpt = (SCANS - 1) // CHECKPOINT_EVERY * CHECKPOINT_EVERY
+    keep = range(last_ckpt + 1, last_ckpt + 1 + RESUME_SCANS)
+    kept = {}
+
+    def on_scan(i, res, scan):
+        if i in keep:
+            kept[i] = (scan, res["pose"])
+
+    with tempfile.TemporaryDirectory(prefix="xchu_session_") as tmp:
+        timers = StageTimers("cuda")
+        (pipe, summary), launches = _count_launches(lambda: cli.run_sim(
+            SCANS, RADIUS, SEED, "cuda", on_scan=on_scan, loop_method="isc",
+            imu=True, wheel=True, gps=True, out=tmp,
+            checkpoint_every=CHECKPOINT_EVERY, timers=timers))
+        paths = summary.pop("artifacts")
+        summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
+                       gps_factors=int(pipe.graph.gps_mask.sum()),
+                       artifacts=sorted(paths))
+        print("session: " + json.dumps(summary))
+        print(timers.report(), file=sys.stderr)
+        _, _, kf_opt = pipe.keyframe_trajectory()
+        if not (np.isfinite(pipe.odometry_trajectory()).all() and np.isfinite(kf_opt).all()):
+            raise AssertionError("session: non-finite poses")
+        if launches < 1:
+            raise AssertionError("the session launched no NN kernel")
+        if summary["loops"] < 1:
+            raise AssertionError("the session closed no ISC loop")
+        if not summary["ate_rmse_m"] < 1.0:
+            raise AssertionError(f"session: aligned ATE {summary['ate_rmse_m']} m ≥ 1.0 m")
+
+        # every artifact reads back
+        missing = [k for k, v in paths.items() if not os.path.getsize(v) > 0]
+        if missing or not {"odom_tum", "lidar_odom", "trajectory_pcd", "final_map_pcd",
+                           "g2o", "markers", "odom_log"} <= set(paths):
+            raise AssertionError(f"artifacts missing or empty: {missing or sorted(paths)}")
+        stamps, est = kitti.read_tum(paths["odom_tum"])
+        map_pts = export.read_pcd(paths["final_map_pcd"])
+        with open(paths["g2o"]) as f:
+            edges = sum(line.startswith("EDGE_SE3:QUAT") for line in f)
+        with open(paths["markers"]) as f:
+            markers = json.load(f)
+        with open(paths["odom_log"]) as f:
+            log_rows = sum(1 for _ in f)
+        print(f"artifacts: odom_tum {len(stamps)} rows, finalMap.pcd {len(map_pts)} "
+              f"points, g2o {edges} edges, markers {len(markers['nodes'])} nodes / "
+              f"{len(markers['loop_edges'])} loop edges, odom_log {log_rows} rows")
+        if len(stamps) != summary["keyframes"] or not np.isfinite(est).all():
+            raise AssertionError("odom_tum.txt does not hold the keyframes")
+        if len(map_pts) == 0 or not np.isfinite(map_pts).all():
+            raise AssertionError("finalMap.pcd is empty or non-finite")
+        if edges != summary["keyframes"] - 1 + summary["loops"] \
+                or len(markers["loop_edges"]) != summary["loops"] \
+                or log_rows != SCANS - 1:
+            raise AssertionError("pose_graph.g2o / markers.json / odom_log.jsonl "
+                                 "do not hold the run's graph")
+
+        # eval of the exported trajectory against the ground truth as a TUM file
+        _stamps, gt, _world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+        cam_T = sim.camera_frame_transform()
+        gt_path = os.path.join(tmp, "gt_tum.txt")
+        kitti.write_tum(gt_path, 0.1 * np.arange(SCANS),
+                        cam_T @ cli._gt_in_map_frame(gt) @ np.linalg.inv(cam_T))
+        ev = cli.evaluate(paths["odom_tum"], gt_path)
+        print("eval: " + json.dumps(ev))
+        if ev["pairs"] != summary["keyframes"] \
+                or abs(ev["ape_rmse_m"] - summary["ate_rmse_m"]) > 1e-3:
+            raise AssertionError("eval of odom_tum.txt disagrees with the run's ATE")
+
+        # localize fresh scans against the checkpoint, read from disk
+        ckpt = os.path.join(tmp, "checkpoint.npz")
+        t0 = time.perf_counter()
+        loc, loc_launches = _count_launches(lambda: cli.localize_sim(
+            ckpt, QUERIES, SCANS, RADIUS, SEED, fitness_thresh=FITNESS_THRESH,
+            device="cuda"))
+        loc_s = time.perf_counter() - t0
+        rows = loc.pop("results")
+        loc.update(session="checkpoint.npz", nn_launches=loc_launches,
+                   seconds=round(loc_s, 2), fitness_thresh=FITNESS_THRESH,
+                   pos_err_m=[r.get("pos_err_m") for r in rows])
+        print("localize: " + json.dumps(loc))
+        if loc["localized"] < 1 or loc_launches < 1:
+            raise AssertionError("localize placed no query")
+        if not loc["median_err_m"] < 1.5:
+            raise AssertionError(f"localize: median error {loc['median_err_m']} m ≥ 1.5 m")
+
+        # the checkpoint resumes to the poses the uninterrupted run logged
+        def resume():
+            again = checkpoint.load_checkpoint(ckpt)
+            if again.scan_count != last_ckpt + 1 or again.device.type != "cuda":
+                raise AssertionError("the checkpoint is not the one of scan "
+                                     f"{last_ckpt} on the card")
+            return [again.process_scan(**kept[i][0])["pose"] for i in keep]
+
+        poses, resume_launches = _count_launches(resume)
+        want = np.stack([kept[i][1] for i in keep])
+        if not np.array_equal(np.stack(poses), want):
+            raise AssertionError("the resumed run's poses differ from the "
+                                 f"uninterrupted run's by {np.abs(np.stack(poses) - want).max()}")
+        print(f"resume: checkpoint of scan {last_ckpt} loaded, scans "
+              f"{keep[0]}-{keep[-1]} bit-identical to the uninterrupted run")
+    return {"session": launches, "localize": loc_launches, "resume": resume_launches}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -281,7 +415,7 @@ def phase_determinism() -> None:
     for _ in range(2):
         poses = []
         run_sim(DET_SCANS, RADIUS, SEED, "cuda",
-                on_scan=lambda i, r: poses.append(r["pose"]))
+                on_scan=lambda i, r, scan: poses.append(r["pose"]))
         runs.append(np.stack(poses))
     if not np.array_equal(runs[0], runs[1]):
         diff = np.abs(runs[0] - runs[1]).max()
@@ -298,11 +432,13 @@ def main() -> int:
     if "--kernel-only" in sys.argv[1:]:
         return 0
     launches = phase_main()
+    by_path = {"main": launches, **phase_session()}
     phase_determinism()
     kernels = [{"name": "nn_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/nn_kernel.cu",
                 "replaces": "xchu_slam_tpu/ops/pallas/nn_kernel.py:29",
-                "launches": launches, **rec, "ptxas": ptxas}]
+                "launches": launches, "launches_by_path": by_path, **rec,
+                "ptxas": ptxas}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

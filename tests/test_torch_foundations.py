@@ -200,23 +200,55 @@ def test_inflate_and_invert_cov_matches_reference(case):
 
 # ------------------------------------------------------ import boundary -- #
 
+PORT_MODULES = [
+    "cli", "config", "convert", "types",
+    "io.export", "io.kitti",
+    "models.odometry", "models.pipeline", "models.pose_graph", "models.relocalize",
+    "ops.filter", "ops.icp", "ops.imu", "ops.isc", "ops.ndt", "ops.ndt_deriv",
+    "ops.scancontext", "ops.voxel_map", "ops.cuda.nn_kernel",
+    "utils.checkpoint", "utils.linalg", "utils.metrics", "utils.profiling",
+    "utils.scatter", "utils.se3", "utils.sim",
+]
+
+
 def test_port_imports_neither_jax_nor_reference():
     """Import every module of the port in a fresh interpreter in which
-    `jax` and `xchu_slam_tpu` cannot be imported."""
+    `jax` and `xchu_slam_tpu` cannot be imported; the modules found are
+    exactly the list above (a new module joins the list, and this check)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['xchu_slam_tpu'] = None\n"
         "import xchu_slam_tpu_torch as pkg\n"
+        "names = []\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'xchu_slam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    if not m.ispkg:\n"
+        "        names.append(m.name.split('.', 1)[1])\n"
         "bad = [n for n in sys.modules if n == 'jax' and sys.modules[n] is not None\n"
         "       or n.startswith(('jax.', 'jaxlib', 'xchu_slam_tpu.'))]\n"
         "assert not bad, bad\n"
-        "print('ok')\n"
+        "print(' '.join(sorted(names)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == sorted(PORT_MODULES)
+
+
+def test_port_sources_name_neither_jax_nor_reference():
+    """Imports made inside functions run only when the function does, so the
+    sources are read too: no module of the port, and not chip_smoke.py, has
+    an import statement of `jax` or of the reference package."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xchu_slam_tpu)(\.|\s|$)", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "xchu_slam_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > len(PORT_MODULES)
+    for path in paths:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path

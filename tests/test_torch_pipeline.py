@@ -125,6 +125,7 @@ def _ref_db(rng, K=24, P=256, count=17):
     return db._replace(poses=jnp.asarray(poses), opt_poses=jnp.asarray(poses + 0.1),
                        stamps=jnp.arange(K, dtype=jnp.float32),
                        clouds=jnp.asarray(clouds), cloud_mask=jnp.asarray(mask),
+                       isc_db=jnp.asarray(rng.random(db.isc_db.shape).astype(np.float32)),
                        count=jnp.int32(count))
 
 
@@ -154,20 +155,25 @@ def test_keyframe_db_helpers_match_reference():
 def test_convert_kfdb_roundtrip():
     jdb = _ref_db(np.random.default_rng(5))
     ref = type(jdb)(*(np.asarray(a) for a in jdb))
-    back = convert.kfdb_to_ref(convert.kfdb_from_ref(ref), ref.isc_db.shape[1:])
+    back = convert.kfdb_to_ref(convert.kfdb_from_ref(ref))
     for f in ref._fields:
         assert np.array_equal(back[f], getattr(ref, f)), f
+    assert back["isc_db"].any()      # the ISC images are carried both ways
 
 
-def test_cli_run_sim_on_cpu(capsys):
+def test_cli_run_sim_on_cpu(capsys, tmp_path):
     """The CLI's summary on a short circuit at reduced capacities."""
     cli.main(["run-sim", "--scans", "12", "--radius", "20", "--device", "cpu",
+              "--out", str(tmp_path / "sim"),
               "--set", "filter.max_points=4096", "--set", "pgo.max_keyframes=64"])
-    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out = json.loads(capsys.readouterr().out)
     assert set(out) == {"scans", "keyframes", "loops", "ate_rmse_m",
-                        "ate_unaligned_m", "scans_per_sec"}
+                        "ate_unaligned_m", "rpe_rmse_m", "end_drift_m", "length_m",
+                        "drift_pct", "scans_per_sec", "artifacts"}
     assert out["scans"] == 12 and out["keyframes"] >= 3
     assert out["ate_rmse_m"] < 0.1
+    assert all((tmp_path / "sim").joinpath(name).exists()
+               for name in ("odom_tum.txt", "finalMap.pcd", "pose_graph.g2o"))
 
 
 def test_no_cpu_fallback_without_a_card():

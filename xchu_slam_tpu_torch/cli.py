@@ -1,17 +1,35 @@
 """Command-line interface of the port.
 
-  python -m xchu_slam_tpu_torch.cli run-sim --scans 430 --radius 55 --device cuda
+  python -m xchu_slam_tpu_torch.cli run-sim  --scans 430 --radius 55 --out out/sim
+  python -m xchu_slam_tpu_torch.cli run-sim  --loop-method isc --imu --wheel --gps \\
+                                             --checkpoint-every 200 --out out/sim
+  python -m xchu_slam_tpu_torch.cli eval     --est out/sim/odom_tum.txt --gt gt_tum.txt
+  python -m xchu_slam_tpu_torch.cli localize --session out/sim/checkpoint.npz \\
+                                             --scans 430 --radius 55
+  python -m xchu_slam_tpu_torch.cli info
 
 `run-sim` runs the host engine (`models/pipeline.SlamPipeline`) on the
-synthetic squircle circuit with the same config overrides and world /
-trajectory setup as `xchu_slam_tpu.cli run-sim`, and prints one JSON line of
-summary metrics. It writes no export files yet.
+synthetic squircle circuit with the config overrides and the world /
+trajectory / sensor-feed setup of `xchu_slam_tpu.cli run-sim`, writes the
+run's export files (`io/export.save_run`) and prints a JSON summary. One
+random generator is consumed in a fixed order (IMU windows, wheel windows,
+GPS altimeter noise and dropouts, then every scan), so that a run sees the
+scans and sensor feeds the reference CLI makes for the same arguments.
+`eval` compares two trajectory files, `localize` places fresh scans in a
+saved session's map, `info` prints versions, devices and the default config.
+
+Every subcommand that computes takes `--device` (default `cuda`, an error
+without a card; `cpu` runs the kernels' plain versions). Not ported, and so
+not accepted: `run-kitti`, and `run-sim`'s `--engine device`, `--mesh`,
+`--continue-session`, `--realism`, `--trajectory`, `--render-procs` and the
+chunk / prefetch flags of the device engine.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -31,88 +49,355 @@ def _apply_overrides(cfg, pairs):
     return cfg.override(overrides) if overrides else cfg
 
 
-def sim_config(overrides=()):
+def sim_config(overrides=(), loop_method: str = "sc", imu: bool = False,
+               wheel: bool = False, gps: bool = False):
     """The `run-sim` config: the defaults plus the reference CLI's sim
     overrides (denser-filter and looser-gate settings for sparse simulated
-    scans; see `xchu_slam_tpu/cli.py:51-71`)."""
+    scans; see `xchu_slam_tpu/cli.py:51-71`), the sensor switches, then the
+    caller's `key=value` overrides."""
     from xchu_slam_tpu_torch.config import default_config
 
     cfg = default_config().override({
         "filter.max_points": 8192,
         "filter.max_raw_points": 32768,
         "filter.outlier_method": "statistical",
-        "loop.method": "sc",
+        "loop.method": loop_method,
         "pgo.odom_noise_trans": 1e-3,
         "pgo.odom_noise_rot": 1e-3,
         "loop.icp_fitness_thresh": 1.0,
         "sc.dist_thresh": 0.35,
+        "odom.use_imu": imu,
+        "odom.use_odom": wheel,
+        "pgo.use_gps": gps,
     })
     return _apply_overrides(cfg, overrides)
 
 
+def _check_device(device: str) -> None:
+    if str(device).startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+
+def _sim_world_and_traj(scans: int, radius: float, seed: int):
+    """World and trajectory, shared by run-sim and localize: `localize` is
+    right only if its world is the mapping run's (a pure function of radius
+    and seed)."""
+    from xchu_slam_tpu_torch.utils import sim
+
+    n_scans = scans or 400
+    world = sim.make_world(seed, extent=radius * 2.5)
+    gt = sim.loop_trajectory(n_scans=n_scans, radius=radius, speed=1.0)
+    return 0.1 * np.arange(n_scans), gt, world
+
+
+def _gt_in_map_frame(gt: np.ndarray) -> np.ndarray:
+    """Ground-truth poses [N,4,4] relative to the first (the map frame)."""
+    from xchu_slam_tpu_torch.utils import se3
+
+    gtT = se3.pose_to_matrix(torch.from_numpy(gt)).numpy()
+    return np.einsum("ab,nbc->nac", np.linalg.inv(gtT[0]), gtT)
+
+
+def _sim_sensor_windows(cfg, gt, gt_stamps, rng) -> dict:
+    """Per-scan IMU / wheel-odometry windows along the sim trajectory, with
+    measurement noise (IMU first: the order the generator is consumed in)."""
+    from xchu_slam_tpu_torch.utils import sim
+
+    out = {}
+    M = cfg.odom.imu_samples
+    if cfg.odom.use_imu:
+        out["imu"] = sim.imu_windows(gt, gt_stamps, samples=M, rng=rng,
+                                     gyro_noise=0.002, accel_noise=0.05)
+    if cfg.odom.use_odom:
+        out["wheel"] = sim.wheel_windows(gt, gt_stamps, samples=M, rng=rng,
+                                         vel_noise=0.03, gyro_noise=0.002)
+    return out
+
+
+def _scan_windows(sensor_windows: dict, i: int):
+    """(ImuWindow, OdomWindow) for scan i (None when the mode is off)."""
+    from xchu_slam_tpu_torch.ops.imu import ImuWindow, OdomWindow
+
+    imu_w = wheel_w = None
+    if "imu" in sensor_windows:
+        imu_w = ImuWindow(*(torch.from_numpy(a[i]) for a in sensor_windows["imu"]))
+    if "wheel" in sensor_windows:
+        wheel_w = OdomWindow(*(torch.from_numpy(a[i]) for a in sensor_windows["wheel"]))
+    return imu_w, wheel_w
+
+
 def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
-            device: str = "cuda", overrides=(), on_scan=None):
+            device: str = "cuda", overrides=(), on_scan=None,
+            loop_method: str = "sc", imu: bool = False, wheel: bool = False,
+            gps: bool = False, out: str | None = None,
+            checkpoint_every: int = 0, verbose: bool = False, timers=None):
     """Run the host engine over the circuit. Returns (pipeline, summary
-    dict); `on_scan(i, result)` is called after each scan."""
+    dict). `on_scan(i, result, scan)` is called after each scan with the
+    keyword arguments `process_scan` was given. With `out`, the run's
+    artifacts are written there (and `checkpoint.npz` every
+    `checkpoint_every` scans). `timers` (a `StageTimers` for `device`)
+    collects the stage times."""
+    from xchu_slam_tpu_torch.io.export import save_run
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.utils import metrics, se3, sim
+    from xchu_slam_tpu_torch.utils.checkpoint import save_checkpoint
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
-    cfg = sim_config(overrides)
-    world = sim.make_world(seed, extent=radius * 2.5)
-    gt = sim.loop_trajectory(n_scans=scans, radius=radius, speed=1.0)
-    gt_stamps = 0.1 * np.arange(scans)
+    _check_device(device)
+    cfg = sim_config(overrides, loop_method, imu, wheel, gps)
+    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
+    n_scans = len(gt)
     rng = np.random.default_rng(seed)
+    sensor_windows = _sim_sensor_windows(cfg, gt, gt_stamps, rng)
+    gps_alts = None
+    if cfg.pgo.use_gps:
+        # synthetic altimeter along the trajectory: noisy, with 20 % dropouts
+        gps_alts = gt[:, 2] + rng.normal(0.0, 0.5, n_scans)
+        gps_alts[rng.random(n_scans) < 0.2] = np.nan
+    if out:
+        os.makedirs(out, exist_ok=True)
+    elif checkpoint_every:
+        raise ValueError("checkpoint_every needs an output directory")
 
+    timers = timers if timers is not None else StageTimers(device)
     pipe = SlamPipeline(cfg, kf_points=4096, device=device)
     t0 = time.perf_counter()
     for i, p in enumerate(gt):
-        xyz, inten = sim.render_scan(world, p, rng, n_points=24_000)
-        res = pipe.process_scan(xyz, inten, stamp=float(gt_stamps[i]))
+        with timers.time("render"):
+            xyz, inten = sim.render_scan(world, p, rng, n_points=24_000)
+        imu_w, wheel_w = _scan_windows(sensor_windows, i)
+        galt = None
+        if gps_alts is not None and np.isfinite(gps_alts[i]):
+            galt = float(gps_alts[i])
+        scan = dict(xyz=xyz, intensity=inten, stamp=float(gt_stamps[i]),
+                    gps_alt=galt, imu=imu_w, wheel=wheel_w)
+        with timers.time("slam"):
+            res = pipe.process_scan(**scan)
         if on_scan is not None:
-            on_scan(i, res)
-    pipe.finalize()
-    if pipe.device.type == "cuda":
-        torch.cuda.synchronize(pipe.device)
+            on_scan(i, res, scan)
+        if verbose and i % 25 == 0:
+            print(f"scan {i}: kf={pipe.kf_count} loops={pipe.loop_count}",
+                  file=sys.stderr)
+        if checkpoint_every and i and i % checkpoint_every == 0:
+            with timers.time("checkpoint"):
+                save_checkpoint(pipe, os.path.join(out, "checkpoint.npz"))
+    with timers.time("finalize"):
+        pipe.finalize()
     wall = time.perf_counter() - t0
 
-    gtT = se3.pose_to_matrix(torch.from_numpy(gt)).numpy()
-    gt_rel = np.einsum("ab,nbc->nac", np.linalg.inv(gtT[0]), gtT)
+    paths = None
+    if out:
+        with timers.time("save"):
+            # camera-frame TUM export, so that `eval --est odom_tum.txt
+            # --gt <camera-frame GT file>` compares directly
+            paths = save_run(pipe, out, cam_T=sim.camera_frame_transform())
+
+    gt_rel = _gt_in_map_frame(gt)
     stamps, _kf_odo, kf_opt = pipe.keyframe_trajectory()
     ei, idx = metrics.associate(stamps, gt_stamps, max_diff=0.05)
     kf_opt = kf_opt[ei]
-    ate = metrics.ape_rmse(kf_opt[:, :3], gt_rel[idx, :3, 3], align=True)
-    ate_raw = metrics.ape_rmse(kf_opt[:, :3], gt_rel[idx, :3, 3], align=False)
+    estT = se3.pose_to_matrix(torch.from_numpy(kf_opt)).numpy()
+    gt_xyz = gt_rel[idx, :3, 3]
+    # SE(3)-aligned APE (the evo_ape -a convention); unaligned alongside
+    ate = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=True)
+    ate_raw = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=False)
+    drift, length = metrics.end_drift(kf_opt[:, :3], gt_xyz)
     summary = {
-        "scans": scans,
+        "scans": n_scans,
         "keyframes": pipe.kf_count,
         "loops": pipe.loop_count,
         "ate_rmse_m": round(float(ate), 4),
         "ate_unaligned_m": round(float(ate_raw), 4),
-        "scans_per_sec": round(scans / wall, 2),
+        "rpe_rmse_m": round(metrics.rpe_rmse(estT, gt_rel[idx]), 4),
+        "end_drift_m": round(drift, 3),
+        "length_m": round(length, 1),
+        "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
+        "scans_per_sec": round(n_scans / wall, 2),
     }
+    if paths is not None:
+        summary["artifacts"] = paths
     return pipe, summary
 
 
 def cmd_run_sim(args):
-    device = args.device
-    if device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
-    _pipe, summary = run_sim(args.scans or 400, args.radius, args.seed, device,
-                             args.set)
-    print(json.dumps(summary))
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    timers = StageTimers(args.device)
+    _pipe, summary = run_sim(args.scans, args.radius, args.seed, args.device,
+                            args.set, loop_method=args.loop_method,
+                            imu=args.imu, wheel=args.wheel, gps=args.gps,
+                            out=args.out, checkpoint_every=args.checkpoint_every,
+                            verbose=args.verbose, timers=timers)
+    print(json.dumps(summary, indent=2))
+    print(timers.report(), file=sys.stderr)
+
+
+def localize_sim(session: str, queries: int = 12, scans: int = 0,
+                 radius: float = 55.0, seed: int = 0, query_seed: int = 99,
+                 fitness_thresh: float | None = None, device: str = "cuda") -> dict:
+    """Localize `queries` fresh scans, rendered along the mapping run's
+    trajectory in its world (pass that run's scans / radius / seed) with
+    independent noise, against the session saved in checkpoint `session`."""
+    from xchu_slam_tpu_torch.models.relocalize import localizer_from_checkpoint
+    from xchu_slam_tpu_torch.utils import sim
+
+    _check_device(device)
+    loc = localizer_from_checkpoint(session, device=device)
+    if fitness_thresh is not None:
+        # ICP fitness is density-dependent; single-scan-vs-submap refinement
+        # may need a looser gate than the session's in-run loop gate
+        loc.cfg = loc.cfg.override({"loop.icp_fitness_thresh": fitness_thresh})
+    _stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
+    gt_rel = _gt_in_map_frame(gt)   # the session's odometry starts at gt[0]
+
+    qi = np.linspace(0, len(gt) - 1, queries).round().astype(int)
+    rng = np.random.default_rng(query_seed)
+    rows, errs = [], []
+    for i in qi:
+        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
+        r = loc.localize(xyz, inten)
+        row = {"query_pose_idx": int(i), "found": r.found, "kf_idx": r.kf_idx,
+               "sc_dist": round(r.sc_dist, 4) if np.isfinite(r.sc_dist) else None,
+               "icp_fitness": round(r.icp_fitness, 4)
+               if np.isfinite(r.icp_fitness) else None}
+        if r.found:
+            err = float(np.linalg.norm(r.pose[:3] - gt_rel[i, :3, 3]))
+            row["pos_err_m"] = round(err, 3)
+            errs.append(err)
+        rows.append(row)
+    found = sum(r["found"] for r in rows)
+    return {
+        "session": session,
+        "queries": len(rows),
+        "localized": found,
+        "success_rate": round(found / max(len(rows), 1), 3),
+        "mean_err_m": round(float(np.mean(errs)), 3) if errs else None,
+        "median_err_m": round(float(np.median(errs)), 3) if errs else None,
+        "results": rows,
+    }
+
+
+def cmd_localize(args):
+    print(json.dumps(localize_sim(args.session, args.queries, args.scans,
+                                  args.radius, args.seed, args.query_seed,
+                                  args.fitness_thresh, args.device), indent=2))
+
+
+def evaluate(est: str, gt: str, gt_format: str = "tum", t_max_diff: float = 0.05,
+             scan_dt: float = 0.1) -> dict:
+    """APE / RPE / drift between a TUM trajectory file `est` and a ground
+    truth file `gt` (TUM, or KITTI 12-float rows, one per scan),
+    timestamp-associated."""
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.utils import metrics
+
+    s1, est_T = kitti.read_tum(est)
+    if gt.endswith(".txt") and gt_format == "kitti":
+        gt_T = kitti.read_kitti_poses(gt)
+        s2 = np.arange(len(gt_T), dtype=np.float64)
+        s1 = np.round(np.asarray(s1) / scan_dt)  # stamp → scan index
+    else:
+        s2, gt_T = kitti.read_tum(gt)
+    ei, gi = metrics.associate(s1, s2, max_diff=t_max_diff)
+    if len(ei) < 2:  # stamps not comparable → positional fallback
+        ei = gi = np.arange(min(len(est_T), len(gt_T)))
+    est_T, gt_T = est_T[ei], gt_T[gi]
+    drift, length = metrics.end_drift(est_T[:, :3, 3], gt_T[:, :3, 3])
+    return {
+        "pairs": int(len(ei)),
+        "ape_rmse_m": round(metrics.ape_rmse(est_T[:, :3, 3], gt_T[:, :3, 3]), 4),
+        "rpe_rmse_m": round(metrics.rpe_rmse(est_T, gt_T), 4),
+        "end_drift_m": round(drift, 3),
+        "length_m": round(length, 1),
+        "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
+    }
+
+
+def cmd_eval(args):
+    print(json.dumps(evaluate(args.est, args.gt, args.gt_format,
+                              args.t_max_diff, args.scan_dt), indent=2))
+
+
+def cmd_info(args):
+    from xchu_slam_tpu_torch import __version__
+    from xchu_slam_tpu_torch.config import default_config
+
+    print(json.dumps({
+        "version": __version__,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "devices": [torch.cuda.get_device_name(i)
+                    for i in range(torch.cuda.device_count())],
+        "default_config": json.loads(default_config().to_json()),
+    }, indent=2))
+
+
+def _add_device(parser):
+    parser.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="xchu_slam_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
     ps = sub.add_parser("run-sim", help="run SLAM on the synthetic circuit")
-    ps.add_argument("--scans", type=int, default=0, help="scans (default 400)")
+    ps.add_argument("--scans", type=int, default=0, help="scans (0 = 400)")
     ps.add_argument("--radius", type=float, default=55.0)
     ps.add_argument("--seed", type=int, default=0)
-    ps.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
+    ps.add_argument("--loop-method", default="sc",
+                    choices=["sc", "isc", "radius", "none"])
+    ps.add_argument("--out", default="out/sim")
+    ps.add_argument("--gps", action="store_true",
+                    help="altitude GPS factors from a synthetic noisy "
+                    "altimeter with dropouts")
+    ps.add_argument("--imu", action="store_true",
+                    help="IMU-integrated NDT guess from simulated gyro/accel")
+    ps.add_argument("--wheel", action="store_true",
+                    help="wheel-odometry NDT guess from simulated twist")
+    ps.add_argument("--checkpoint-every", type=int, default=0,
+                    help="write <out>/checkpoint.npz every N scans")
+    ps.add_argument("--verbose", action="store_true")
+    _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
     ps.set_defaults(fn=cmd_run_sim)
+
+    pe = sub.add_parser("eval", help="APE/RPE between trajectories "
+                        "(timestamp-associated, like evo)")
+    pe.add_argument("--est", required=True)
+    pe.add_argument("--gt", required=True)
+    pe.add_argument("--gt-format", default="tum", choices=["tum", "kitti"])
+    pe.add_argument("--t-max-diff", type=float, default=0.05,
+                    help="max timestamp difference for association (s)")
+    pe.add_argument("--scan-dt", type=float, default=0.1,
+                    help="scan period for KITTI-format GT (maps est stamps "
+                    "to scan indices)")
+    pe.set_defaults(fn=cmd_eval)
+
+    pl = sub.add_parser("localize", help="multi-session place recognition: "
+                        "localize fresh scans against a saved session's map "
+                        "(checkpoint.npz from run-sim --checkpoint-every)")
+    pl.add_argument("--session", required=True,
+                    help="checkpoint .npz of the mapped session")
+    pl.add_argument("--queries", type=int, default=12,
+                    help="number of query poses sampled along the trajectory")
+    pl.add_argument("--scans", type=int, default=0,
+                    help="trajectory length (match the mapping run)")
+    pl.add_argument("--radius", type=float, default=55.0,
+                    help="circuit radius (match the mapping run)")
+    pl.add_argument("--seed", type=int, default=0,
+                    help="world seed (must match the mapping run)")
+    pl.add_argument("--query-seed", type=int, default=99,
+                    help="sensor-noise seed for the query scans")
+    pl.add_argument("--fitness-thresh", type=float, default=None,
+                    help="override the ICP verification gate (fitness is "
+                    "density-dependent; sim clouds need ~1.2-1.5)")
+    _add_device(pl)
+    pl.set_defaults(fn=cmd_localize)
+
+    pi = sub.add_parser("info", help="version / devices / config")
+    pi.set_defaults(fn=cmd_info)
+
     args = p.parse_args(argv)
     args.fn(args)
 

@@ -83,8 +83,6 @@ def odom_state_to_ref(st: OdomState, spec: GridSpec) -> dict:
 
 
 def kfdb_from_ref(db, device="cpu") -> KfDb:
-    """The reference's `isc_db` has no counterpart yet (ISC is not ported)
-    and is dropped."""
     return KfDb(poses=_t(db.poses, device, np.float32),
                 opt_poses=_t(db.opt_poses, device, np.float32),
                 stamps=_t(db.stamps, device, np.float32),
@@ -92,18 +90,16 @@ def kfdb_from_ref(db, device="cpu") -> KfDb:
                 clouds=_t(db.clouds, device, np.float32),
                 cloud_mask=_t(db.cloud_mask, device, bool),
                 sc_db=_t(db.sc_db, device, np.float32),
+                isc_db=_t(db.isc_db, device, np.float32),
                 count=int(db.count))
 
 
-def kfdb_to_ref(db: KfDb, isc_shape: tuple[int, int]) -> dict:
-    """`isc_db` comes back as zeros of [K, *isc_shape] (descriptors the
-    reference fills only with loop.method="isc")."""
-    K = db.poses.shape[0]
+def kfdb_to_ref(db: KfDb) -> dict:
     return {"poses": _np(db.poses), "opt_poses": _np(db.opt_poses),
             "stamps": _np(db.stamps), "travel": _np(db.travel),
             "clouds": _np(db.clouds), "cloud_mask": _np(db.cloud_mask),
             "sc_db": _np(db.sc_db),
-            "isc_db": np.zeros((K, *isc_shape), np.float32),
+            "isc_db": _np(db.isc_db),
             "count": np.int32(db.count)}
 
 

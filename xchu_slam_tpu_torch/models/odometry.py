@@ -85,16 +85,20 @@ def init_state(spec: OdomSpec, init_pose: torch.Tensor, xyz, mask) -> OdomState:
     )
 
 
-def _guess(state: OdomState) -> torch.Tensor:
-    """Constant-velocity prediction with roll/pitch held at the previous
-    values and yaw wrapped."""
-    g = state.pose + state.diff
+def _guess(state: OdomState, ext_delta=None) -> torch.Tensor:
+    """Initial-guess prediction with roll/pitch held at the previous values
+    and yaw wrapped: the constant-velocity model, or, given `ext_delta`, the
+    delta of an external provider (IMU / wheel odometry, see ops/imu.py)."""
+    g = state.pose + (state.diff if ext_delta is None else ext_delta)
     return torch.cat([g[:3], state.pose[3:5], se3.wrap_angle(g[5:6])])
 
 
-def step(state: OdomState, xyz, mask, spec: OdomSpec):
-    """One odometry scan step. Returns (new_state, OdomOutput)."""
-    guess = _guess(state)
+def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
+         use_ext: bool = False):
+    """One odometry scan step. Returns (new_state, OdomOutput). With
+    `use_ext`, `ext_delta` (float32[6] on the state's device) replaces the
+    constant-velocity delta in the NDT guess."""
+    guess = _guess(state, ext_delta if use_ext else None)
     res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec)
     pose = res.pose
     diff = pose - state.pose

@@ -3,13 +3,19 @@
 
 Per scan: filter and NDT odometry on the device; a keyframe every
 `keyframe_gap` metres of odometric travel; every `detect_period`-th
-keyframe a Scan Context query over the whole database, ICP verification of
-the candidate against a ±`submap_half_width` keyframe submap at the
-optimized poses, and a pose-graph solve per accepted loop. Between solves,
-new keyframes chain onto the last optimized pose.
+keyframe a loop query over the whole database (Scan Context, Intensity Scan
+Context or a radius search), ICP verification of the candidate against a
+±`submap_half_width` keyframe submap at the optimized poses, and a
+pose-graph solve per accepted loop. Between solves, new keyframes chain onto
+the last optimized pose.
 
-Ported: synchronous mode, loop methods "sc" and "radius", no IMU / wheel /
-GPS / ground branches. The keyframe database and the factor graph are
+Ported: the synchronous host engine with loop methods "sc", "isc", "radius"
+and "none"; the IMU / wheel-odometry NDT guess (`odom.use_imu`,
+`odom.use_odom`; integrated on the host, see ops/imu.py); GPS altitude
+factors (`pgo.use_gps`); `assemble_map`. Not ported, and refused by the
+constructor: `loop.async_detect` (the loop-closure worker thread) and
+`filter.detect_ground`. Also not ported: `defer_sync`, device-staged `Cloud`
+input, the device engine. The keyframe database and the factor graph are
 preallocated at full capacity and updated in place.
 """
 
@@ -22,7 +28,7 @@ import torch
 
 from xchu_slam_tpu_torch.config import SlamConfig
 from xchu_slam_tpu_torch.models import odometry, pose_graph as pg
-from xchu_slam_tpu_torch.ops import icp, scancontext as sc
+from xchu_slam_tpu_torch.ops import icp, imu as imu_ops, isc as isc_ops, scancontext as sc
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import Cloud, make_cloud
 from xchu_slam_tpu_torch.utils import se3
@@ -38,6 +44,7 @@ class KfDb(NamedTuple):
     clouds: torch.Tensor      # [K,P,3] body-frame keyframe clouds
     cloud_mask: torch.Tensor  # [K,P]
     sc_db: torch.Tensor       # [K,R,S]
+    isc_db: torch.Tensor      # [K,Ri,Si] (filled only with loop.method="isc")
     count: int                # live keyframes
 
 
@@ -50,7 +57,8 @@ def empty_db(cfg: SlamConfig, kf_points: int, device="cpu") -> KfDb:
     return KfDb(poses=z(K, 6), opt_poses=z(K, 6), stamps=z(K), travel=z(K),
                 clouds=z(K, kf_points, 3),
                 cloud_mask=z(K, kf_points, dtype=torch.bool),
-                sc_db=z(K, cfg.sc.num_ring, cfg.sc.num_sector), count=0)
+                sc_db=z(K, cfg.sc.num_ring, cfg.sc.num_sector),
+                isc_db=z(K, cfg.isc.num_ring, cfg.isc.num_sector), count=0)
 
 
 def subsample_cloud(xyz: torch.Tensor, mask: torch.Tensor, n_out: int):
@@ -73,8 +81,9 @@ def subsample_cloud(xyz: torch.Tensor, mask: torch.Tensor, n_out: int):
 
 
 def _add_keyframe(db: KfDb, pose6, stamp, travel, cloud_xyz, cloud_mask,
-                  sc_desc, opt_pose6) -> KfDb:
-    """Write keyframe `db.count` in place; returns the db with count + 1."""
+                  sc_desc, isc_desc, opt_pose6) -> KfDb:
+    """Write keyframe `db.count` in place; returns the db with count + 1.
+    `isc_desc=None` leaves the row's ISC image at its zeros."""
     k = db.count
     db.poses[k] = pose6
     db.opt_poses[k] = opt_pose6
@@ -83,6 +92,8 @@ def _add_keyframe(db: KfDb, pose6, stamp, travel, cloud_xyz, cloud_mask,
     db.clouds[k] = cloud_xyz
     db.cloud_mask[k] = cloud_mask
     db.sc_db[k] = sc_desc
+    if isc_desc is not None:
+        db.isc_db[k] = isc_desc
     return db._replace(count=k + 1)
 
 
@@ -101,6 +112,12 @@ def build_submap(db: KfDb, centre_idx: int, frame_idx: int, half_width: int,
     pts = se3.transform_points(T_rel, db.clouds[ksc])        # [W,P,3]
     mask = db.cloud_mask[ksc] & ok[:, None]
     return subsample_cloud(pts.reshape(-1, 3), mask.reshape(-1), out_n)
+
+
+def _transform_all_clouds(poses6: torch.Tensor, clouds: torch.Tensor) -> torch.Tensor:
+    """Batched keyframe-cloud → map-frame transform: poses6 [n,6], clouds
+    [n,P,3] → [n,P,3]."""
+    return se3.transform_points(se3.pose_to_matrix(poses6), clouds)
 
 
 def _radius_candidate(db: KfDb, cur_idx: int, cur_stamp: float, radius: float,
@@ -139,16 +156,18 @@ class SlamPipeline:
 
     def __init__(self, cfg: SlamConfig, kf_points: int = 4096,
                  device: torch.device | str = "cpu"):
-        loop = cfg.loop
-        if loop.method not in ("sc", "radius") or loop.async_detect \
-                or cfg.odom.use_imu or cfg.odom.use_odom or cfg.pgo.use_gps \
-                or cfg.filter.detect_ground:
-            raise ValueError("only the synchronous sc/radius engine without "
-                             "IMU, wheel, GPS or ground branches is ported")
+        if cfg.loop.method not in ("sc", "isc", "radius", "none"):
+            raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
+        if cfg.loop.async_detect:
+            raise ValueError("loop.async_detect (the loop-closure worker "
+                             "thread) is not ported")
+        if cfg.filter.detect_ground:
+            raise ValueError("filter.detect_ground (ops/ground.py) is not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.ospec = odometry.spec_from_config(cfg)
         self.scspec = sc.spec_from_config(cfg.sc)
+        self.iscspec = isc_ops.spec_from_config(cfg.isc)
         self.icpspec = icp.spec_from_config(cfg.loop)
         self.gspec = pg.spec_from_config(cfg.pgo)
         self.kf_points = kf_points
@@ -164,17 +183,47 @@ class SlamPipeline:
         self.travel = 0.0
         self.icp_verifications = 0   # ICP verifications run (accepted or not)
         self._last_odom_pose = None
+        self._last_stamp = None
         self._last_kf_odom = None
         self._dirty_graph = False
+        # IMU guess state: the velocity estimate carried between scans
+        self._imu_state = imu_ops.ImuState(velocity=torch.zeros(3))
         self.odom_log: list[dict] = []
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
+    def _ext_guess(self, imu, wheel):
+        """Integrate the per-scan IMU / wheel windows into the delta of the
+        NDT guess, per the configured mode, on the host from the host copy of
+        the current pose. Returns (delta6 on the device | None, use)."""
+        cfg = self.cfg.odom
+        pose0 = self._last_odom_pose
+        d_imu = d_wheel = None
+        if cfg.use_imu and imu is not None:
+            d_imu, self._imu_state = imu_ops.integrate_imu(imu, pose0, self._imu_state)
+        if cfg.use_odom and wheel is not None:
+            d_wheel = imu_ops.integrate_wheel_odom(wheel, pose0)
+        if d_imu is not None and d_wheel is not None:
+            delta = imu_ops.combine_imu_odom(d_imu, d_wheel)
+        elif d_imu is not None:
+            delta = d_imu
+        elif d_wheel is not None:
+            delta = d_wheel
+        else:
+            return None, False
+        return delta.to(self.device), True
+
     # ------------------------------------------------------------------ #
     def process_scan(self, xyz: np.ndarray, intensity: np.ndarray | None,
-                     stamp: float) -> dict:
-        """Feed one scan of raw body-frame points [n,3]."""
+                     stamp: float, gps_alt: float | None = None,
+                     imu: imu_ops.ImuWindow | None = None,
+                     wheel: imu_ops.OdomWindow | None = None) -> dict:
+        """Feed one scan of raw body-frame points [n,3]. `imu` / `wheel`
+        carry the sensor samples since the previous scan; with
+        `odom.use_imu` / `odom.use_odom` they replace the constant-velocity
+        NDT guess. `gps_alt` is the altitude measured at this scan, if any;
+        with `pgo.use_gps` it becomes a factor when the scan is a keyframe."""
         cfg = self.cfg
         cloud = make_cloud(xyz, intensity, capacity=cfg.filter.max_raw_points,
                            device=self.device)
@@ -184,14 +233,17 @@ class SlamPipeline:
             self.odom_state = odometry.init_state(self.ospec, init, filt.xyz, filt.mask)
             pose = np.zeros(6, np.float32)
             self._last_odom_pose = pose
-            self._add_kf(pose, stamp, filt, opt_pose=pose)
+            self._last_stamp = float(stamp)
+            self._add_kf(pose, stamp, filt, opt_pose=pose, gps_alt=gps_alt)
             self.scan_count += 1
             return {"pose": pose, "keyframe": True, "loop": None}
-        self.odom_state, out = odometry.step(self.odom_state, filt.xyz,
-                                             filt.mask, self.ospec)
-        return self._consume(out, filt, stamp)
+        ext_delta, use_ext = self._ext_guess(imu, wheel)
+        self.odom_state, out = odometry.step(self.odom_state, filt.xyz, filt.mask,
+                                             self.ospec, ext_delta, use_ext)
+        return self._consume(out, filt, stamp, gps_alt)
 
-    def _consume(self, out: odometry.OdomOutput, filt: Cloud, stamp: float) -> dict:
+    def _consume(self, out: odometry.OdomOutput, filt: Cloud, stamp: float,
+                 gps_alt: float | None) -> dict:
         cfg = self.cfg
         # one readback per scan
         host = torch.cat([out.pose, out.matched_frac.reshape(1).float(),
@@ -203,6 +255,15 @@ class SlamPipeline:
         self.kf_gate_accum += step_d
         self._last_odom_pose = pose
         self.scan_count += 1
+        if cfg.odom.use_imu and self._last_stamp is not None:
+            # reset the IMU velocity from the SLAM result every scan: pure
+            # double integration is a velocity random walk that degrades
+            # below constant-velocity
+            dt = float(stamp) - self._last_stamp
+            if dt > 1e-6:
+                self._imu_state = imu_ops.ImuState(velocity=torch.from_numpy(
+                    ((pose[:3] - prev_pose[:3]) / dt).astype(np.float32)))
+        self._last_stamp = float(stamp)
         self.odom_log.append({"stamp": stamp, "pose": pose,
                               "iterations": int(out.iterations),
                               "matched_frac": float(mfrac),
@@ -214,7 +275,7 @@ class SlamPipeline:
         if is_kf:
             self.kf_gate_accum = 0.0
             opt_pose = self._chain_opt_pose(pose)
-            self._add_kf(pose, stamp, filt, opt_pose=opt_pose)
+            self._add_kf(pose, stamp, filt, opt_pose=opt_pose, gps_alt=gps_alt)
             k = self.kf_count - 1
             if k >= 1 and k % cfg.loop.detect_period == 0:
                 loop_rec = self._detect_and_verify(k, stamp)
@@ -235,19 +296,26 @@ class SlamPipeline:
         Z = self._relative(self._last_kf_odom, odom_pose)
         return se3.matrix_to_pose(torch.matmul(T_prev_opt, Z)).cpu().numpy()
 
-    def _add_kf(self, pose, stamp, filt: Cloud, opt_pose):
+    def _add_kf(self, pose, stamp, filt: Cloud, opt_pose, gps_alt=None):
         cxyz, cmask, _ = subsample_cloud(filt.xyz, filt.mask, self.kf_points)
         # descriptors come from the full filtered cloud; the kf_points
         # subsample only bounds the stored submap clouds
         sc_desc = sc.make_descriptor(filt.xyz, filt.mask, self.scspec)
+        isc_desc = None
+        if self.cfg.loop.method == "isc":
+            isc_desc = isc_ops.make_descriptor(filt.xyz, filt.intensity,
+                                               filt.mask, self.iscspec)
         self.db = _add_keyframe(self.db, self._tensor(pose), float(stamp),
-                                self.travel, cxyz, cmask, sc_desc,
+                                self.travel, cxyz, cmask, sc_desc, isc_desc,
                                 self._tensor(opt_pose))
         self.kf_count += 1
         k = self.kf_count - 1
         if k >= 1:
             self.graph.between_T[k] = self._relative(self._last_kf_odom, pose)
         self.graph.kf_mask[k] = True
+        if gps_alt is not None and self.cfg.pgo.use_gps:
+            self.graph.gps_alt[k] = gps_alt
+            self.graph.gps_mask[k] = True
         self._last_kf_odom = np.asarray(pose, np.float32)
 
     # ------------------------------------------------------------------ #
@@ -263,9 +331,17 @@ class SlamPipeline:
             cand = res.idx
             if res.found:
                 yaw = res.yaw
-        else:
+        elif method == "isc":
+            res = isc_ops.detect_loop(db.isc_db[k], db.isc_db, db.count,
+                                      db.poses[:, :3], db.travel, self.iscspec, cur=k)
+            cand = res.idx
+            if res.found:
+                yaw = res.yaw
+        elif method == "radius":
             cand = _radius_candidate(db, k, stamp, cfg.loop.radius_search,
                                      cfg.loop.min_time_diff)
+        else:
+            cand = -1
         if cand < 0:
             return None
 
@@ -344,3 +420,21 @@ class SlamPipeline:
 
     def odometry_trajectory(self) -> np.ndarray:
         return np.array([r["pose"] for r in self.odom_log], np.float32)
+
+    def assemble_map(self, voxel: float = 0.5, max_points: int = 1 << 20) -> np.ndarray:
+        """Aggregate keyframe clouds at optimized poses into one map cloud
+        [n,3]: one batched transform on the device over the live keyframes,
+        one readback of their valid points, then an exact voxel dedup on the
+        host (the first point of each `voxel`-sized cell is kept)."""
+        n = self.kf_count
+        if n == 0:
+            return np.zeros((0, 3), np.float32)
+        pts = _transform_all_clouds(self.db.opt_poses[:n], self.db.clouds[:n])
+        allp = pts[self.db.cloud_mask[:n]].cpu().numpy()
+        if voxel > 0 and len(allp):
+            # packed int64 key: 21 bits per axis, ±1e6 voxels
+            keys = np.floor(allp / voxel).astype(np.int64) + (1 << 20)
+            flat = keys[:, 0] | (keys[:, 1] << 21) | (keys[:, 2] << 42)
+            _, idx = np.unique(flat, return_index=True)
+            allp = allp[idx]
+        return allp[:max_points]

@@ -56,6 +56,16 @@ def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, spec: ScSpec) -> torc
     return torch.where(torch.isfinite(img), img, 0.0)
 
 
+def ring_key(desc: torch.Tensor) -> torch.Tensor:
+    """Row means [.., R] (rotation invariant)."""
+    return torch.mean(desc, dim=-1)
+
+
+def sector_key(desc: torch.Tensor) -> torch.Tensor:
+    """Column means [.., S]."""
+    return torch.mean(desc, dim=-2)
+
+
 def _normalize_cols(desc: torch.Tensor):
     """Unit-normalize columns; zero columns stay zero. desc [..., R, S]."""
     n = torch.linalg.norm(desc, dim=-2, keepdim=True)
@@ -97,13 +107,21 @@ class LoopCandidate(NamedTuple):
     found: bool
 
 
-def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None) -> LoopCandidate:
-    """Best loop candidate for `query` among the entries at least
-    `num_exclude_recent` keyframes older than the query keyframe `cur`
-    (default `db_count-1`). Reads the winner back to the host."""
-    K = db.shape[0]
-    cur = db_count - 1 if cur is None else cur
-    eligible = torch.arange(K, device=db.device) < cur + 1 - spec.num_exclude_recent
+def ring_key_topk(query_key, db_keys, db_mask, k: int = 3):
+    """Ring-key nearest candidates (indices [k], distances [k], nearest
+    first): the prefilter of a two-stage search. `detect_loop` below searches
+    the whole database exhaustively instead."""
+    d = torch.linalg.norm(db_keys - query_key[None, :], dim=-1)
+    d = torch.where(db_mask, d, torch.inf)
+    # a stable sort, so that equal distances keep the lower index first
+    order = torch.sort(d, stable=True).indices[:k]
+    return order, d[order]
+
+
+def _best_candidate(query, db, newest_eligible: int, spec: ScSpec) -> LoopCandidate:
+    """The nearest of the first `newest_eligible` entries over all shifts,
+    found if its distance is under the threshold. One readback."""
+    eligible = torch.arange(db.shape[0], device=db.device) < newest_eligible
     dist, shift = distance_all_rotations(query, db, eligible, spec)
     best = torch.argmin(dist)
     # one readback; indices < 2^24 are exact in float32
@@ -115,3 +133,18 @@ def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None) 
     yaw = torch.atan2(torch.sin(yaw), torch.cos(yaw))     # wrap to (-pi, pi]
     return LoopCandidate(idx=best_i if found else -1, dist=float(best_dist),
                          yaw=float(yaw), found=found)
+
+
+def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None) -> LoopCandidate:
+    """Best loop candidate for `query` among the entries at least
+    `num_exclude_recent` keyframes older than the query keyframe `cur`
+    (default `db_count-1`). Reads the winner back to the host."""
+    cur = db_count - 1 if cur is None else cur
+    return _best_candidate(query, db, cur + 1 - spec.num_exclude_recent, spec)
+
+
+def detect_loop_between_sessions(query, db, db_count: int, spec: ScSpec) -> LoopCandidate:
+    """Multi-session place recognition: the query comes from a different
+    session, so no recency exclusion applies and every stored entry is
+    eligible."""
+    return _best_candidate(query, db, db_count, spec)

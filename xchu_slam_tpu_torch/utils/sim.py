@@ -1,12 +1,14 @@
-"""Synthetic LiDAR world + scan simulator (numpy-only).
+"""Synthetic LiDAR world + scan simulator (numpy on the host).
 
 A copy of the part of `xchu_slam_tpu.utils.sim` that the `run-sim` host path
-uses: the urban-block world, the squircle circuit and the default
-(point-sampled) scan renderer, with its optional `WorldIndex`. The beam-level
-sensor model, moving objects and IMU/wheel windows are not ported yet. For
-the same seed the rendered scans are bit-identical to the reference's (a test
-holds them so), because both draw the same numbers from the same numpy
-generator in the same order.
+uses: the urban-block world, the squircle circuit, the default
+(point-sampled) scan renderer with its optional `WorldIndex`, and the
+per-scan IMU / wheel-odometry sample windows. The beam-level sensor model
+and moving objects are not ported yet. For the same seed the rendered scans
+are bit-identical to the reference's (a test holds them so), because both
+draw the same numbers from the same numpy generator in the same order; the
+sensor windows agree to 1e-6 (their one float32 rotation is the port's
+`se3.euler_to_matrix` on a CPU tensor).
 """
 
 from __future__ import annotations
@@ -126,6 +128,22 @@ def closed_lap_trajectory(n_scans: int, radius: float = 85.0) -> np.ndarray:
                            speed=perimeter / n_scans, closed=True)
 
 
+# camera frame (x right, y down, z forward: KITTI cam0, the frame of TUM
+# ground-truth files) → z-up body frame (x forward, y left, z up)
+CAM_TO_WORLD = np.array([[0.0, 0.0, 1.0],
+                         [-1.0, 0.0, 0.0],
+                         [0.0, -1.0, 0.0]])
+
+
+def camera_frame_transform() -> np.ndarray:
+    """The [4,4] similarity that takes a z-up trajectory to the camera frame
+    (a pure axis rotation: the simulator has no lever arm). Poses map as
+    cam_T · T · cam_T⁻¹."""
+    cam_T = np.eye(4, dtype=np.float64)
+    cam_T[:3, :3] = CAM_TO_WORLD.T
+    return cam_T
+
+
 class WorldIndex:
     """2-D cell index over world points: per-scan candidate gathers touch only
     the cells within sensor range instead of the whole world."""
@@ -217,3 +235,113 @@ def render_scan(
     pts_w = world_xyz[take] + rng.normal(0, noise, (len(take), 3))
     body = (pts_w - tpos) @ R  # R⁻¹ = Rᵀ applied on the right
     return body.astype(np.float32), world_inten[take]
+
+
+def _interp_traj(gt: np.ndarray, stamps: np.ndarray):
+    """(pos(t), rpy(t), vel(t), acc(t)) interpolators over a pose trajectory.
+
+    Angles are unwrapped before interpolation; velocities/accelerations come
+    from central differences of the interpolated positions."""
+    stamps = np.asarray(stamps, np.float64)
+    pos = np.asarray(gt[:, :3], np.float64)
+    rpy = np.unwrap(np.asarray(gt[:, 3:6], np.float64), axis=0)
+
+    def pos_t(t):
+        return np.stack([np.interp(t, stamps, pos[:, k]) for k in range(3)], -1)
+
+    def rpy_t(t):
+        return np.stack([np.interp(t, stamps, rpy[:, k]) for k in range(3)], -1)
+
+    def vel_t(t, h=1e-3):
+        return (pos_t(t + h) - pos_t(t - h)) / (2 * h)
+
+    def acc_t(t, h=2e-2):
+        return (vel_t(t + h) - vel_t(t - h)) / (2 * h)
+
+    return pos_t, rpy_t, vel_t, acc_t
+
+
+def _body_rotations(rpy_mid: np.ndarray) -> np.ndarray:
+    """float32 rotation matrices [M,3,3] of euler angles [M,3], computed as
+    the engine computes them."""
+    import torch
+
+    from xchu_slam_tpu_torch.utils import se3
+
+    return se3.euler_to_matrix(
+        torch.from_numpy(np.asarray(rpy_mid, np.float32))).numpy()
+
+
+def imu_windows(gt: np.ndarray, stamps: np.ndarray, samples: int = 16,
+                rng: np.random.Generator | None = None,
+                gyro_noise: float = 0.0, accel_noise: float = 0.0):
+    """Synthesize per-scan IMU sample windows along a pose trajectory.
+
+    Returns numpy arrays shaped for `ops.imu.ImuWindow` with a leading scan
+    axis N: (stamps [N,M], gyro [N,M,3], accel [N,M,3], mask [N,M]). Window i
+    covers (t_{i-1}, t_i]; window 0 is fully masked (no pre-first-scan data).
+    Gyro samples are euler-angle rates; accel is body-frame specific force
+    (gravity included) matching `integrate_imu`'s model."""
+    from xchu_slam_tpu_torch.ops.imu import GRAVITY
+
+    gt = np.asarray(gt, np.float64)
+    stamps = np.asarray(stamps, np.float64)
+    N, M = len(gt), samples
+    pos_t, rpy_t, vel_t, acc_t = _interp_traj(gt, stamps)
+    out_stamps = np.zeros((N, M), np.float32)
+    out_gyro = np.zeros((N, M, 3), np.float32)
+    out_accel = np.zeros((N, M, 3), np.float32)
+    out_mask = np.zeros((N, M), bool)
+    gvec = np.array([0.0, 0.0, GRAVITY])
+    for i in range(1, N):
+        t0, t1 = stamps[i - 1], stamps[i]
+        ts = np.linspace(t0, t1, M)
+        # sample k integrates over (ts[k-1], ts[k]] → evaluate rates/accels at
+        # sub-interval midpoints (sample 0 has dt=0 inside integrate_imu)
+        mid = np.concatenate([[t0], 0.5 * (ts[1:] + ts[:-1])])
+        gyro = np.gradient(rpy_t(ts), ts, axis=0)
+        gyro = np.stack([np.interp(mid, ts, gyro[:, k]) for k in range(3)], -1)
+        aw = acc_t(np.clip(mid, stamps[0] + 0.05, stamps[-1] - 0.05))
+        R = _body_rotations(rpy_t(mid))
+        accel = np.einsum("mba,mb->ma", R, aw + gvec)
+        if rng is not None and (gyro_noise or accel_noise):
+            gyro = gyro + rng.normal(0, gyro_noise, gyro.shape)
+            accel = accel + rng.normal(0, accel_noise, accel.shape)
+        out_stamps[i] = ts
+        out_gyro[i] = gyro
+        out_accel[i] = accel
+        out_mask[i] = True
+    return out_stamps, out_gyro, out_accel, out_mask
+
+
+def wheel_windows(gt: np.ndarray, stamps: np.ndarray, samples: int = 16,
+                  rng: np.random.Generator | None = None,
+                  vel_noise: float = 0.0, gyro_noise: float = 0.0):
+    """Synthesize per-scan wheel-odometry twist windows: body-frame linear
+    velocity + euler rates. Shapes as `ops.imu.OdomWindow` with a leading
+    scan axis; window 0 masked."""
+    gt = np.asarray(gt, np.float64)
+    stamps = np.asarray(stamps, np.float64)
+    N, M = len(gt), samples
+    pos_t, rpy_t, vel_t, _ = _interp_traj(gt, stamps)
+    out_stamps = np.zeros((N, M), np.float32)
+    out_lin = np.zeros((N, M, 3), np.float32)
+    out_ang = np.zeros((N, M, 3), np.float32)
+    out_mask = np.zeros((N, M), bool)
+    for i in range(1, N):
+        t0, t1 = stamps[i - 1], stamps[i]
+        ts = np.linspace(t0, t1, M)
+        mid = np.concatenate([[t0], 0.5 * (ts[1:] + ts[:-1])])
+        vw = vel_t(np.clip(mid, stamps[0] + 0.05, stamps[-1] - 0.05))
+        ang = np.gradient(rpy_t(ts), ts, axis=0)
+        ang = np.stack([np.interp(mid, ts, ang[:, k]) for k in range(3)], -1)
+        R = _body_rotations(rpy_t(mid))
+        lin = np.einsum("mba,mb->ma", R, vw)
+        if rng is not None and (vel_noise or gyro_noise):
+            lin = lin + rng.normal(0, vel_noise, lin.shape)
+            ang = ang + rng.normal(0, gyro_noise, ang.shape)
+        out_stamps[i] = ts
+        out_lin[i] = lin
+        out_ang[i] = ang
+        out_mask[i] = True
+    return out_stamps, out_lin, out_ang, out_mask
