@@ -6,19 +6,29 @@
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA
               versions; fails if there is no CUDA device or TF32 is on
-  2. build    nvcc-compiles the NN kernel (csrc/nn_kernel.cu, sm_90a) and
-              prints ptxas's registers, shared memory and spills (none allowed)
-  3. kernel   the kernel against its first version (idx and d² bit-equal)
+  2. build    nvcc-compiles both kernels (csrc/nn_kernel.cu, csrc/ndt_kernel.cu,
+              sm_90a), one nvcc each, started together; prints ptxas's
+              registers, shared memory and spills (none allowed in the NN
+              kernels)
+  3. kernel   the NN kernel against its first version (idx and d² bit-equal)
               and its plain PyTorch version (d² to rtol = atol = 1e-4, valid
               indices, ties at the lowest index) on the card, over shapes and
               masks that walk the edges of its split of the targets; then
               the wrapper's host cost and, at the ICP shape 4096 × 16384, ms
               per launch over many launches per CUDA-event pair, in turns:
               first version, kernel, kernel, first version, plain, library
-  4. main     the `run-sim` host engine on the 430-scan, 55 m circuit at
+  4. ndt_kernel  the NDT align kernel against its plain version (the host
+              route of `ndt.align`) on the state of the circuit's first scans
+              at full width: one pass ((L, g, H) within 1e-5 of the largest
+              entry), then 64 whole aligns, each from the host engine's own
+              state and guess (|Δpose| ≤ 1e-4 on every one, the same
+              iteration count on ≥ 9 in 10, reruns bit-identical); ms per
+              align and per single pass from CUDA-graph replays, beside the
+              plain route on the host's clock
+  5. main     the `run-sim` host engine on the 430-scan, 55 m circuit at
               the default config; needs NN kernel launches ≥ 1, loops ≥ 1
               and aligned ATE < 1.0 m
-  5. session  the sensor-aided mapping session through the CLI's functions,
+  6. session  the sensor-aided mapping session through the CLI's functions,
               in a temporary directory: `run-sim` on the same circuit with
               ISC loops, IMU + wheel + GPS inputs and a checkpoint every 200
               scans (needs NN launches ≥ 1, loops ≥ 1, aligned ATE < 1.0 m);
@@ -28,11 +38,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
               from disk (≥ 1 found, median error of the found < 1.5 m, NN
               launches ≥ 1); the checkpoint resumed for 5 scans, poses
               bit-identical to the uninterrupted run's
-  6. determinism  the first 60 scans twice from a fresh state: per-scan
+  7. determinism  the first 60 scans twice from a fresh state: per-scan
               poses bit-identical
-Then one JSON line of kernel records (with the NN launches of each path)
-and, last, the result line. `--kernel-only` stops after phase 3 and prints
-no result line.
+  8. device   the device engine (`models/device_pipeline.py`): Part A of two
+              staged chunks under `torch.cuda.set_sync_debug_mode("error")`
+              (one eager scan, the capture, CUDA-graph replays, one readback
+              a chunk); launches, synchronisations, kernels and the card's
+              busy share over 4 warm chunks and over Part A alone
+              (torch.profiler); `run-sim --engine device --chunk 16` on the
+              circuit with `--out` (keyframes within ±2 of the host
+              engine's, loops ≥ 1, aligned ATE < 0.10 m, NDT launches ≥ one a
+              scan, the export read back), its rate beside the host
+              engine's of phase 5; a 64-scan run with the radius retrieval
+              and GPS factors; 64 scans twice, poses bit-identical
+Then one JSON line of kernel records (both kernels, with the launches of
+each path) and, last, the result line. `--kernel-only` stops after phase 3,
+`--kernels-only` after phase 4, `--device-only` runs phases 1, 2, 5 and 8;
+none of the three prints a result line.
 """
 
 from __future__ import annotations
@@ -60,7 +82,8 @@ HBM_BYTES_PER_S = 3.35e12
 # mangled-name fragments of csrc/nn_kernel.cu's kernels, and what they are
 PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("nn_merge_kernel", "merge"),
-               ("nn_kernel", "scan"))
+               ("nn_kernel", "scan"),
+               ("ndt_align_kernel", "ndt align"))
 
 
 def phase_device() -> str:
@@ -80,27 +103,33 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Build the kernels; print what ptxas says of each (registers, shared
-    memory, spills) and fail on a spill."""
-    from xchu_slam_tpu_torch.ops.cuda import nn_kernel
+    """Build the kernels, one nvcc per source, both started together; print
+    what ptxas says of each (registers, shared memory, spills) and fail on a
+    spill."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    lib, secs, log = nn_kernel.build()
-    print(f"build: {lib.name} in {secs:.2f} s")
-    print(log.strip(), file=sys.stderr)
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(nn_kernel.build), pool.submit(ndt_kernel.build)]
+        builds = [b.result() for b in builds]
     figures = {}
-    for entry, spill, regs, rest in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
-            r"Used (\d+) registers([^\n]*)", log, re.S):
-        name = next(n for tag, n in PTXAS_NAMES if tag in entry)
-        smem = re.search(r"(\d+) bytes smem", rest)
-        figures[name] = {"registers": int(regs),
-                         "smem_bytes": int(smem.group(1)) if smem else 0,
-                         "spill_bytes": int(spill)}
+    for lib, secs, log in builds:
+        print(f"build: {lib.name} in {secs:.2f} s")
+        print(log.strip(), file=sys.stderr)
+        for entry, spill, regs, rest in re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+                r"Used (\d+) registers([^\n]*)", log, re.S):
+            name = next(n for tag, n in PTXAS_NAMES if tag in entry)
+            smem = re.search(r"(\d+) bytes smem", rest)
+            figures[name] = {"registers": int(regs),
+                             "smem_bytes": int(smem.group(1)) if smem else 0,
+                             "spill_bytes": int(spill)}
     print("ptxas: " + json.dumps(figures))
     if set(figures) != {n for _tag, n in PTXAS_NAMES}:
         raise AssertionError("ptxas reported no figures for a kernel")
-    if any(f["spill_bytes"] for f in figures.values()):
-        raise AssertionError("a kernel spills registers")
+    if any(f["spill_bytes"] for n, f in figures.items() if n != "ndt align"):
+        raise AssertionError("an NN kernel spills registers")
     return figures
 
 
@@ -265,7 +294,139 @@ def phase_kernel() -> dict:
             "simple_ms": simple_ms, "loop_ms": loop_ms, "host_us": host_us}
 
 
-def phase_main() -> int:
+# FP32 operations of the NDT kernel's passes, per source point with 7 valid
+# neighbours (a multiply-add counts 2): the Hessian pass forms Bδ, δᵀBδ, the
+# exponential, a6 and the 21 + 9 running sums per pair (~75 multiply-adds each)
+# and J-terms once per point (~150); the gradient pass ~30 per pair and ~40
+# per point; the fitness pass ~6 per pair.
+NDT_FLOP_HESS = 2 * (7 * 75 + 150)
+NDT_FLOP_GRAD = 2 * (7 * 30 + 40)
+NDT_FLOP_FIT = 2 * (7 * 6 + 10)
+NDT_ALIGNS = 64
+NDT_POSE_TOL = 1e-4      # m and rad, per align from the host engine's own state
+NDT_PASS_TOL = 1e-5      # of the largest |entry| of (L, g, H): the sums' order differs
+
+
+def ndt_bound_ms(n: int, iterations: float, trials: float) -> tuple[float, str, float, float]:
+    """The least time the card could take for one align with this run's trip
+    counts: bytes (source points, mask and the 7 gathered rows of each point
+    read once, the record written once) at 3.35 TB/s against the passes' FP32
+    operations at 67 TFLOP/s. Returns (bound, what bounds it, bytes ms,
+    operations ms). Neither reaches a microsecond: what the kernel really
+    waits for is latency (a launch and one grid barrier per pass), which the
+    contract's bound does not count."""
+    bytes_ms = 1e3 * (n * 12 + n + n * 7 * 40 + 64 * 4) / HBM_BYTES_PER_S
+    flop = n * (iterations * NDT_FLOP_HESS + trials * NDT_FLOP_GRAD + NDT_FLOP_FIT)
+    ops_ms = 1e3 * flop / FP32_FLOPS
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations",
+            bytes_ms, ops_ms)
+
+
+def phase_ndt_kernel() -> dict:
+    """The NDT align kernel against its plain version (the host route of
+    `ndt.align`) on the state of the circuit's first scans: one pass, then
+    whole aligns, each from the host engine's own state and guess."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import odometry
+    from xchu_slam_tpu_torch.ops import ndt, ndt_deriv
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import make_cloud
+    from xchu_slam_tpu_torch.utils import sim
+
+    dev = torch.device("cuda")
+    cfg = cli.sim_config()
+    _stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    rng = np.random.default_rng(SEED)
+    ospec = odometry.spec_from_config(cfg)
+    g, nspec = ospec.gspec, ospec.nspec
+    d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    slot = ndt_kernel.RECORD
+
+    def filtered(i):
+        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
+        return filter_scan(make_cloud(xyz, inten, capacity=cfg.filter.max_raw_points,
+                                      device=dev), cfg.filter)
+
+    f0 = filtered(0)
+    state = odometry.init_state(ospec, torch.zeros(6, device=dev), f0.xyz, f0.mask)
+    max_dpose, same_iters, pass_err, rows = 0.0, 0, None, []
+    for i in range(1, NDT_ALIGNS + 1):
+        filt = filtered(i)
+        guess = odometry._guess(state)
+        grid = state.grid_a
+        args = (state.grid_a.fin, state.grid_a.origin, filt.xyz, filt.mask, guess,
+                g, nspec, d1, d2)
+        if i == 1:
+            # one pass: (L, g, H) of the kernel against the plain pass
+            L, gr, H = ndt_kernel.hessian_pass(*args)
+            Lp, gp, Hp = ndt_deriv.ndt_value_grad_hess(
+                guess, filt.xyz, filt.mask, state.grid_a, g, d1, d2)
+            torch.cuda.synchronize()
+            got = torch.cat([L.reshape(1), gr, H.reshape(36)]).cpu().numpy()
+            want = torch.cat([Lp.reshape(1), gp, Hp.reshape(36)]).cpu().numpy()
+            pass_err = float(np.abs(got - want).max() / np.abs(want).max())
+            if not np.isfinite(got).all() or pass_err > NDT_PASS_TOL:
+                raise AssertionError(f"ndt pass: (L, g, H) off by {pass_err:.3g} of "
+                                     f"the largest entry (> {NDT_PASS_TOL})")
+        rec = ndt_kernel.align_record(*args)
+        again = ndt_kernel.align_record(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(rec, again):
+            raise AssertionError(f"ndt align {i}: a rerun is not bit-identical: "
+                                 f"{rec.cpu().numpy()} against {again.cpu().numpy()}")
+        state, out = odometry.step(state, filt.xyz, filt.mask, ospec)  # host route
+        rec_h = rec.cpu().numpy()
+        dpose = float(np.abs(rec_h[slot["pose"]] - out.pose.cpu().numpy()).max())
+        max_dpose = max(max_dpose, dpose)
+        same_iters += int(rec_h[slot["iterations"]]) == out.iterations
+        rows.append((int(rec_h[slot["iterations"]]), int(rec_h[slot["trials"]]),
+                     out.iterations))
+        if not np.isfinite(rec_h[:12]).all() or dpose > NDT_POSE_TOL:
+            raise AssertionError(f"ndt align {i}: |Δpose| {dpose:.3g} against the "
+                                 f"plain route (> {NDT_POSE_TOL}); record {rec_h[:12]}")
+    if same_iters < 0.9 * NDT_ALIGNS:
+        raise AssertionError(f"ndt align: only {same_iters} of {NDT_ALIGNS} aligns "
+                             "took the plain route's iteration count")
+    iters = float(np.mean([r[0] for r in rows]))
+    trials = float(np.mean([r[1] for r in rows]))
+    print(f"ndt_kernel: one pass within {pass_err:.3g} of the largest entry; "
+          f"{NDT_ALIGNS} aligns from the host engine's state: max |Δpose| "
+          f"{max_dpose:.3g}, same iteration count on {same_iters}, reruns "
+          f"bit-identical; mean {iters:.3f} Newton iterations and {trials:.3f} "
+          f"line-search trials an align")
+
+    # times on the last align's inputs, from CUDA-graph replays (a cooperative
+    # launch is captured like any other); the plain route on the host's clock
+    ms = _graph_ms(lambda: ndt_kernel.align_record(*args), calls=20)
+    pass_ms = _graph_ms(lambda: ndt_kernel.hessian_pass(*args), calls=20)
+    last = rows[-1]
+    plain_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ndt.align(grid, filt.xyz, filt.mask, guess, g, nspec)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+    plain_ms = 1e3 * float(np.median(plain_s))
+    host_us = _host_us(lambda: ndt_kernel.align_record(*args), calls=200)
+    bound_ms, bound_by, bytes_ms, ops_ms = ndt_bound_ms(
+        int(filt.xyz.shape[0]), last[0], last[1])
+    print(f"ndt_kernel: {ms:.5f} ms per align on the card ({last[0]} iterations, "
+          f"{last[1]} trials: {last[0] + last[1] + 1} passes and barriers), "
+          f"{pass_ms:.5f} ms per launch of one Hessian pass; bound {bound_ms:.5f} ms "
+          f"by {bound_by} (bytes {bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: "
+          f"latency is what it waits for); wrapper host cost {host_us:.2f} us; "
+          f"plain route {plain_ms:.3f} ms for the same align on the host's clock "
+          f"(median of 5, a readback per pass)")
+    return {"max_abs_err": max_dpose, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "pass_ms": pass_ms, "pass_rel_err": pass_err, "host_us": host_us,
+            "same_iterations": same_iters, "aligns": NDT_ALIGNS,
+            "mean_iterations": iters, "mean_trials": trials}
+
+
+def phase_main() -> tuple[int, dict]:
     from xchu_slam_tpu_torch.cli import run_sim
     from xchu_slam_tpu_torch.ops.cuda import nn_kernel
 
@@ -285,7 +446,7 @@ def phase_main() -> int:
         raise AssertionError("the circuit closed no loop")
     if not summary["ate_rmse_m"] < 1.0:
         raise AssertionError(f"aligned ATE {summary['ate_rmse_m']} m ≥ 1.0 m")
-    return launches
+    return launches, summary
 
 
 def _count_launches(fn):
@@ -408,6 +569,183 @@ def phase_session() -> dict:
     return {"session": launches, "localize": loc_launches, "resume": resume_launches}
 
 
+DEV_CHUNK = 16
+DEV_RERUN_SCANS = 64
+DEV_PROFILE_CHUNKS = 4
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+SYNC_APIS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def _staged_chunks(n_chunks: int, cfg):
+    """The circuit's first chunks, rendered and staged in this thread (no
+    staging thread runs beside what is measured or checked)."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io.prefetch import ChunkStager
+    from xchu_slam_tpu_torch.utils import sim
+
+    gt_stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    lazy = sim.RenderedScans(world, gt, seed=SEED, n_points=24_000)
+    stager = ChunkStager(cfg.filter.max_raw_points, DEV_CHUNK, n_buffers=n_chunks,
+                         device="cuda")
+    out = []
+    for c in range(n_chunks):
+        lo = c * DEV_CHUNK
+        clouds, n_real = stager.stage([lazy[i] for i in range(lo, lo + DEV_CHUNK)])
+        out.append((clouds, gt_stamps[lo:lo + DEV_CHUNK], n_real))
+    torch.cuda.synchronize()
+    return out
+
+
+def _profile_window(fn, scans: int) -> dict:
+    """Launch and synchronisation calls the host made, kernels the card ran
+    and the card's busy share while `fn()` ran and the card drained
+    (torch.profiler; the window ends in a device synchronise of its own, which
+    is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = syncs = kernels = 0
+    device_us = 0.0
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.self_device_time_total
+            kernels += e.count
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total
+        elif e.key in LAUNCH_APIS:
+            launches += e.count
+        elif e.key in SYNC_APIS:
+            syncs += e.count
+    return {"scans": scans, "wall_s": round(wall, 4),
+            "host_launch_calls_per_scan": round(launches / scans, 2),
+            "host_sync_calls_per_scan": round((syncs - 1) / scans, 3),
+            "device_kernels_per_scan": round(kernels / scans, 1),
+            "device_ms_per_scan": round(1e-3 * device_us / scans, 4),
+            "device_busy_share": round(1e-6 * device_us / wall, 4),
+            "top_kernels_ms_per_scan": {
+                k[:90]: round(1e-3 * v / scans, 4)
+                for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}}
+
+
+def phase_device_engine(host_summary: dict) -> dict:
+    """The device engine through the CLI's functions at full width, and what
+    its Part A costs. Returns the launches of both kernels by path."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+
+    def counted(fn):
+        ndt_kernel.launches = nn_kernel.launches = 0
+        out = fn()
+        return out, ndt_kernel.launches, nn_kernel.launches
+
+    # Part A under sync debug mode "error": a first chunk (seed, one eager
+    # scan, the capture, replays) and a second (replays only)
+    cfg = cli.sim_config()
+    chunks = _staged_chunks(2 + DEV_PROFILE_CHUNKS, cfg)
+    pipe = DeviceSlamPipeline(cfg, log_capacity=8192, device="cuda", check_sync=True)
+    for clouds, stamps, n_real in chunks[:2]:
+        pipe.process_chunk(clouds, stamps, n_real)
+    torch.cuda.synchronize()
+    if pipe.part_a_replays != 2 * DEV_CHUNK - 2 or pipe.chunk_readbacks != 2:
+        raise AssertionError(f"Part A: {pipe.part_a_replays} graph replays and "
+                             f"{pipe.chunk_readbacks} readbacks over 2 chunks")
+    print(f"device: Part A of {2 * DEV_CHUNK - 1} scans under "
+          f"set_sync_debug_mode('error') without raising: 1 eager, "
+          f"{pipe.part_a_replays} CUDA-graph replays, {pipe.chunk_readbacks} "
+          f"readbacks (one a chunk)")
+
+    # the same engine, warm: 4 chunks under the profiler, then Part A alone
+    pipe.check_sync = False
+    rest = chunks[2:]
+    prof = _profile_window(
+        lambda: [pipe.process_chunk(c, st, n) for c, st, n in rest],
+        DEV_PROFILE_CHUNKS * DEV_CHUNK)
+    clouds, stamps, _n = rest[-1]
+    one = type(clouds)(*(t[0] for t in clouds))
+    stamp = torch.zeros((), device="cuda")
+    prof_a = _profile_window(
+        lambda: [pipe._run_part_a(one, stamp) for _ in range(DEV_CHUNK)], DEV_CHUNK)
+    print("device: 4 warm chunks (Part A + readback + Part B) " + json.dumps(prof))
+    print("device: Part A alone, 16 replays " + json.dumps(prof_a))
+    del pipe, chunks, rest
+    torch.cuda.empty_cache()
+
+    # the circuit through run-sim --engine device, with its export
+    with tempfile.TemporaryDirectory(prefix="xchu_device_") as tmp:
+        (pipe, summary), ndt_n, nn_n = counted(lambda: cli.run_sim(
+            SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK, out=tmp))
+        paths = summary.pop("artifacts")
+        summary.update(icp_verifications=pipe.icp_verifications, ndt_launches=ndt_n,
+                       nn_launches=nn_n, part_a_replays=pipe.part_a_replays,
+                       chunk_readbacks=pipe.chunk_readbacks,
+                       host_engine_scans_per_sec=host_summary["scans_per_sec"],
+                       mean_newton_iterations=round(float(np.mean(
+                           [r["iterations"] for r in pipe.odom_log[1:]])), 3))
+        print("device: " + json.dumps(summary))
+        odo = pipe.odometry_trajectory()
+        _, _, kf_opt = pipe.keyframe_trajectory()
+        if odo.shape != (SCANS, 6) or not np.isfinite(odo).all() \
+                or not np.isfinite(kf_opt).all():
+            raise AssertionError("device: trajectory has the wrong shape or "
+                                 "non-finite poses")
+        if ndt_n < SCANS - 1 or nn_n < 1:
+            raise AssertionError(f"device: {ndt_n} NDT and {nn_n} NN launches")
+        if abs(summary["keyframes"] - host_summary["keyframes"]) > 2:
+            raise AssertionError(f"device: {summary['keyframes']} keyframes against "
+                                 f"the host engine's {host_summary['keyframes']}")
+        if summary["loops"] < 1:
+            raise AssertionError("device: the circuit closed no loop")
+        if not summary["ate_rmse_m"] < 0.10:
+            raise AssertionError(f"device: aligned ATE {summary['ate_rmse_m']} m ≥ 0.10 m")
+        stamps, est = kitti.read_tum(paths["odom_tum"])
+        with open(paths["odom_log"]) as f:
+            log_rows = sum(1 for _ in f)
+        if len(stamps) != summary["keyframes"] or not np.isfinite(est).all() \
+                or log_rows != SCANS:
+            raise AssertionError("device: --out does not hold the run")
+        print(f"device: --out read back: odom_tum {len(stamps)} rows, odom_log "
+              f"{log_rows} rows, {len(paths)} files")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # a short run with the radius retrieval and GPS factors
+    (pipe, short), ndt_r, nn_r = counted(lambda: cli.run_sim(
+        DEV_RERUN_SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK,
+        loop_method="radius", gps=True))
+    short.update(gps_factors=int(pipe.graph.gps_mask.sum()), ndt_launches=ndt_r)
+    print("device: radius + gps " + json.dumps(short))
+    if short["keyframes"] < 2 or short["gps_factors"] < 1 or ndt_r < DEV_RERUN_SCANS - 1 \
+            or not np.isfinite(pipe.keyframe_trajectory()[2]).all():
+        raise AssertionError("device: the radius + gps run is not right")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # a rerun from a fresh state is bit-identical
+    runs = []
+    for _ in range(2):
+        pipe, _s = cli.run_sim(DEV_RERUN_SCANS, RADIUS, SEED, "cuda", engine="device",
+                               chunk=DEV_CHUNK)
+        runs.append(pipe.odometry_trajectory())
+        del pipe
+        torch.cuda.empty_cache()
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("device: reruns differ (max |Δpose| "
+                             f"{np.abs(runs[0] - runs[1]).max()})")
+    print(f"device: {DEV_RERUN_SCANS} scans twice, poses bit-identical")
+    return {"ndt": {"device": ndt_n, "device_radius_gps": ndt_r},
+            "nn": {"device": nn_n, "device_radius_gps": nn_r},
+            "profile": prof, "profile_part_a": prof_a, "summary": summary}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -428,17 +766,32 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     ptxas = phase_build()
-    rec = phase_kernel()
+    only_device = "--device-only" in sys.argv[1:]
+    rec = None if only_device else phase_kernel()
     if "--kernel-only" in sys.argv[1:]:
         return 0
-    launches = phase_main()
+    ndt_rec = None if only_device else phase_ndt_kernel()
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
+    launches, host_summary = phase_main()
+    if "--device-only" in sys.argv[1:]:
+        phase_device_engine(host_summary)
+        return 0
     by_path = {"main": launches, **phase_session()}
     phase_determinism()
+    dev = phase_device_engine(host_summary)
+    by_path.update(dev["nn"])
     kernels = [{"name": "nn_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/nn_kernel.cu",
                 "replaces": "xchu_slam_tpu/ops/pallas/nn_kernel.py:29",
                 "launches": launches, "launches_by_path": by_path, **rec,
-                "ptxas": ptxas}]
+                "ptxas": {k: v for k, v in ptxas.items() if k != "ndt align"}},
+               {"name": "ndt_kernel", "route": "cuda",
+                "source": "xchu_slam_tpu_torch/csrc/ndt_kernel.cu",
+                "replaces": "none: xchu_slam_tpu/ops/ndt.py:477 and :539 (two "
+                            "lax.while_loop that the reference leaves to XLA)",
+                "launches": dev["ndt"]["device"], "launches_by_path": dev["ndt"],
+                **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

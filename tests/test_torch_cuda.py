@@ -1,8 +1,11 @@
-"""The port's CUDA kernel on the card: built from csrc/ with nvcc and held to
-its plain PyTorch version and, bit for bit, to its first version (the
-oracle entry `nn_launch_simple`); and the card-side code of the mapping
-session (ISC scoring, the map export's batched transform, a checkpoint
-loaded onto the card) against the same functions on the CPU. Marked `cuda`;
+"""The port's CUDA kernels on the card: built from csrc/ with nvcc and held to
+their plain PyTorch versions (the NN kernel also, bit for bit, to its first
+version, the oracle entry `nn_launch_simple`; the NDT align kernel to the
+host route of `ndt.align`); the card-side code of the mapping session (ISC
+scoring, the map export's batched transform, a checkpoint loaded onto the
+card) against the same functions on the CPU; and the device engine's Part A
+(CUDA-graph replay against eager, no synchronisation, staging through the
+pinned ring). Marked `cuda`;
 without a card the tests skip (the check runs inside the fixture, never at
 import). On the card:
 
@@ -16,9 +19,13 @@ import torch
 import nn_cases
 from xchu_slam_tpu_torch import config as tconfig
 from xchu_slam_tpu_torch.models import pipeline as tpipe
-from xchu_slam_tpu_torch.ops import icp, isc
-from xchu_slam_tpu_torch.utils import checkpoint as tckpt
-from xchu_slam_tpu_torch.ops.cuda import nn_kernel
+from xchu_slam_tpu_torch.io import prefetch as tprefetch
+from xchu_slam_tpu_torch.models import device_pipeline as tdp, odometry as todom
+from xchu_slam_tpu_torch.ops import icp, isc, ndt, ndt_deriv, voxel_map as tvm
+from xchu_slam_tpu_torch.ops.filter import filter_scan
+from xchu_slam_tpu_torch.types import make_cloud
+from xchu_slam_tpu_torch.utils import checkpoint as tckpt, sim
+from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +189,182 @@ def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
     assert back.device.type == "cuda" and back.db.clouds.is_cuda and back.kf_count == 40
     for a, b in zip(back.db[:-1] + back.graph, pipe.db[:-1] + pipe.graph):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------ the NDT align kernel -- #
+def _ndt_scene(rng, n, cuda, masked="none"):
+    """A finalized grid of a structured scene (ground and two walls) and a
+    source cloud of the same scene, displaced: tensors on the card."""
+    spec = tvm.GridSpec(gx=40, gy=40, gz=12, resolution=2.0, min_points=6,
+                        eig_inflation=0.01)
+    m = 30_000
+    ground = np.c_[rng.uniform(-30, 30, (m // 2, 2)), rng.normal(0, 0.05, m // 2)]
+    wall1 = np.c_[rng.uniform(-30, 30, m // 4), np.full(m // 4, 12.0) +
+                  rng.normal(0, 0.05, m // 4), rng.uniform(0, 6, m // 4)]
+    wall2 = np.c_[np.full(m // 4, -15.0) + rng.normal(0, 0.05, m // 4),
+                  rng.uniform(-30, 30, m // 4), rng.uniform(0, 6, m // 4)]
+    world = np.vstack([ground, wall1, wall2]).astype(np.float32)
+    pts = torch.from_numpy(world).to(cuda)
+    grid = tvm.make_grid(spec, tvm.centered_origin(spec, torch.zeros(3, device=cuda)))
+    grid = tvm.finalize(tvm.insert_points(grid, pts, torch.ones(len(world), dtype=torch.bool,
+                                                                device=cuda), spec), spec)
+    src = torch.from_numpy(world[rng.choice(len(world), n, replace=False)]).to(cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    if masked == "some":
+        mask[::3] = False
+    elif masked == "all":
+        mask[:] = False
+    guess = torch.tensor([0.25, -0.2, 0.05, 0.004, -0.003, 0.02], device=cuda)
+    return spec, grid, src.contiguous(), mask, guess
+
+
+@pytest.mark.parametrize("n,masked", [(8192, "none"), (1000, "none"), (4096, "some"),
+                                      (37, "none"), (20_000, "some")])
+def test_ndt_kernel_pass_matches_plain_version(cuda, n, masked):
+    """(L, g, H) of one kernel pass within 1e-5 of the largest entry of the
+    plain pass (the sums run in another order)."""
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(n), n, cuda, masked)
+    nspec = ndt.NdtSpec()
+    d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    before = ndt_kernel.launches
+    L, g, H = ndt_kernel.hessian_pass(grid.fin, grid.origin, src, mask, guess, spec,
+                                      nspec, d1, d2)
+    assert ndt_kernel.launches == before    # the single-pass mode is not counted
+    Lp, gp, Hp = ndt_deriv.ndt_value_grad_hess(guess, src, mask, grid, spec, d1, d2)
+    torch.cuda.synchronize()
+    got = torch.cat([L.reshape(1), g, H.reshape(36)])
+    want = torch.cat([Lp.reshape(1), gp, Hp.reshape(36)])
+    assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    assert torch.equal(H, H.T)
+
+
+@pytest.mark.parametrize("n,masked", [(8192, "none"), (1000, "some"), (37, "none"),
+                                      (20_000, "none")])
+def test_ndt_kernel_align_matches_plain_route(cuda, n, masked):
+    """A whole align on the card against the host route from the same state
+    and guess: pose within 1e-4, the same trip count, a bit-identical rerun,
+    and no value read back on the way."""
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(n + 1), n, cuda, masked)
+    nspec = ndt.NdtSpec()
+    before = ndt_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ndt.align(grid, src, mask, guess, spec, nspec, on_device=True)
+        again = ndt.align(grid, src, mask, guess, spec, nspec, on_device=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ndt_kernel.launches == before + 2
+    want = ndt.align(grid, src, mask, guess, spec, nspec)
+    assert all(isinstance(v, torch.Tensor) and v.is_cuda for v in res)
+    assert torch.equal(res.pose, again.pose) and torch.equal(res.score, again.score)
+    torch.testing.assert_close(res.pose, want.pose, rtol=0, atol=1e-4)
+    assert int(res.iterations) == want.iterations >= 1
+    assert bool(res.converged) == want.converged
+    assert float(res.score) == pytest.approx(want.score, rel=1e-4)
+    torch.testing.assert_close(res.matched_frac, want.matched_frac.float(), rtol=0, atol=1e-6)
+    # fitness is a mean of d² ≈ 0.6 m² at poses up to 1e-4 m apart: 2·d·Δ ≈ 3e-4 of it
+    torch.testing.assert_close(res.fitness, want.fitness, rtol=1e-3, atol=1e-6)
+    # it moved towards the scene's true pose (the identity)
+    assert float(res.pose[:3].norm()) < float(guess[:3].norm())
+
+
+def test_ndt_kernel_all_masked_scan_is_a_no_op(cuda):
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(3), 2048, cuda, "all")
+    res = ndt.align(grid, src, mask, guess, spec, ndt.NdtSpec(), on_device=True)
+    assert torch.equal(res.pose, guess) and int(res.iterations) == 1
+    assert bool(res.converged) and float(res.score) == 0.0
+    assert float(res.matched_frac) == 0.0 and float(res.fitness) == 0.0
+
+
+def test_ndt_kernel_takes_only_what_it_checks(cuda):
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(4), 512, cuda)
+    nspec = ndt.NdtSpec()
+    ok = (grid.fin, grid.origin, src, mask, guess, spec, nspec, -1.0, 1.0)
+    for i, bad in ((2, src.cpu()), (0, grid.fin[:-1]), (2, src.T.contiguous().T),
+                   (4, guess[:5])):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            ndt_kernel.align_record(*args)
+    with pytest.raises(TypeError):
+        ndt_kernel.align_record(grid.fin, grid.origin, src.double(), mask, guess, spec,
+                                nspec, -1.0, 1.0)
+    with pytest.raises(ValueError, match="ported"):
+        ndt_kernel.align_record(grid.fin, grid.origin, src, mask, guess, spec,
+                                nspec._replace(ls_mode="mt_exact"), -1.0, 1.0)
+
+
+# ------------------------------------------------- the device engine -- #
+_SMALL = {"filter.max_raw_points": 8192, "filter.max_points": 4096,
+          "filter.outlier_method": "statistical", "ndt.grid_x": 48, "ndt.grid_y": 48,
+          "ndt.grid_z": 16, "pgo.max_keyframes": 64, "pgo.max_loops": 8,
+          "loop.submap_points": 2048, "loop.submap_half_width": 4}
+
+
+def _small_scans(n=24):
+    world = sim.make_world(4, extent=50.0, ground_pts=40_000)
+    gt = sim.loop_trajectory(n, radius=15.0, speed=1.0)
+    rng = np.random.default_rng(4)
+    return [sim.render_scan(world, p, rng, n_points=6000) for p in gt]
+
+
+def test_odometry_step_on_the_card_matches_the_host_branches(cuda):
+    """The on-device step (kernel align, flagged map updates) against the
+    host-branch step (plain align) from the same state, scan by scan: poses
+    within 1e-4, the same trip counts and insert / swap decisions, the same
+    grid origin and map travel."""
+    cfg = tconfig.default_config().override(_SMALL)
+    ospec = todom.spec_from_config(cfg)
+    scans = _small_scans(14)
+    f0 = filter_scan(make_cloud(*scans[0], capacity=8192, device=cuda), cfg.filter)
+    state = todom.init_state(ospec, torch.zeros(6, device=cuda), f0.xyz, f0.mask)
+    for xyz, inten in scans[1:]:
+        f = filter_scan(make_cloud(xyz, inten, capacity=8192, device=cuda), cfg.filter)
+        dev_state, dev_out = todom.step(state, f.xyz, f.mask, ospec, on_device=True)
+        state, out = todom.step(state, f.xyz, f.mask, ospec)
+        torch.testing.assert_close(dev_out.pose, out.pose, rtol=0, atol=1e-4)
+        assert (bool(dev_out.inserted), bool(dev_out.swapped)) == (out.inserted, out.swapped)
+        assert int(dev_out.iterations) == out.iterations
+        torch.testing.assert_close(dev_state.grid_a.origin, state.grid_a.origin)
+        torch.testing.assert_close(dev_state.localmap_travel, state.localmap_travel,
+                                   rtol=0, atol=1e-4)
+
+
+def test_part_a_graph_replay_equals_eager_and_does_not_synchronise(cuda):
+    """Part A as CUDA-graph replays gives the poses of Part A run eagerly,
+    bit for bit, and neither makes a host synchronisation."""
+    cfg = tconfig.default_config().override(_SMALL)
+    scans = _small_scans(24)
+    stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=cuda)
+    chunks = [stager.stage(scans[lo:lo + 8]) for lo in (0, 8, 16)]
+    runs = []
+    for use_graph in (True, False):
+        pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=cuda,
+                                      use_graph=use_graph, check_sync=True)
+        before = ndt_kernel.launches
+        for c, (clouds, n_real) in enumerate(chunks):
+            pipe.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+        assert ndt_kernel.launches - before == 23
+        assert pipe.part_a_replays == (22 if use_graph else 0)
+        assert pipe.chunk_readbacks == 3
+        pipe.finalize()
+        runs.append((pipe.odometry_trajectory(), pipe.kf_count,
+                     [r["keyframe"] for r in pipe.odom_log]))
+    assert np.array_equal(runs[0][0], runs[1][0])
+    assert runs[0][1:] == runs[1][1:] and runs[0][1] > 3
+
+
+def test_chunk_prefetcher_on_the_card_matches_the_cpu(cuda):
+    """Staging through the pinned ring and the side stream: the same clouds
+    as on the CPU, in order, across more chunks than the ring has buffers."""
+    scans = _small_scans(24)[:21]
+    on_cpu = list(tprefetch.DeviceChunkPrefetcher(scans, capacity=8192, chunk=4, depth=2,
+                                                  threads=2, device="cpu"))
+    with tprefetch.DeviceChunkPrefetcher(scans, capacity=8192, chunk=4, depth=2,
+                                         threads=2, device=cuda) as pf:
+        on_card = [(type(c)(*(t.cpu() for t in c)), n) for c, n in pf]
+    assert [n for _c, n in on_card] == [n for _c, n in on_cpu] == [4, 4, 4, 4, 4, 1]
+    for (a, _), (b, _) in zip(on_card, on_cpu):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

@@ -3,6 +3,8 @@ host engine, a loop circuit on the port alone, the keyframe-database
 helpers, and the CLI."""
 
 import json
+import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +15,7 @@ from xchu_slam_tpu import config as jconfig
 from xchu_slam_tpu.models import pipeline as jpipe
 from xchu_slam_tpu_torch import cli, config as tconfig, convert
 from xchu_slam_tpu_torch.models import pipeline as tpipe
-from xchu_slam_tpu_torch.ops.cuda import nn_kernel
+from xchu_slam_tpu_torch.ops.cuda import _build
 from xchu_slam_tpu_torch.utils import metrics, se3, sim
 
 torch.set_num_threads(2)
@@ -183,7 +185,7 @@ def test_no_cpu_fallback_without_a_card():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(SystemExit):
         cli.main(["run-sim", "--scans", "3", "--device", "cuda"])
-    if nn_kernel.shutil.which("nvcc") is None and not \
-            nn_kernel.os.path.exists("/usr/local/cuda/bin/nvcc"):
+    if shutil.which("nvcc") is None and not \
+            os.path.exists("/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError):
-            nn_kernel._nvcc()
+            _build.nvcc()

@@ -368,10 +368,10 @@ def test_cli_help(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run-sim", "--engine", "device"], ["run-sim", "--mesh", "4"],
+    ["run-sim", "--engine", "device", "--imu"], ["run-sim", "--mesh", "4"],
     ["run-sim", "--continue-session", "x.npz"], ["run-sim", "--realism"],
     ["run-sim", "--trajectory", "gt.txt"], ["run-sim", "--render-procs", "2"],
-    ["run-sim", "--chunk", "16"], ["run-sim", "--loop-method", "kdtree"],
+    ["run-sim", "--sync-every", "4"], ["run-sim", "--loop-method", "kdtree"],
     ["run-kitti", "--velodyne-dir", "x"], ["localize", "--session", "x", "--trajectory", "t"],
 ])
 def test_cli_rejects_what_is_not_ported(argv, capsys):

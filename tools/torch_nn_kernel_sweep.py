@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from xchu_slam_tpu_torch.ops.cuda import nn_kernel  # noqa: E402
+from xchu_slam_tpu_torch.ops.cuda import _build, nn_kernel  # noqa: E402
 
 
 SLICES = [1, 2, 4, 8, 16]   # × 32 source tiles = blocks at the ICP shape
@@ -138,7 +138,7 @@ def main():
                           "ns_per_kpair": 1e9 * ms / (sn * sm_)}))
     if "--sass" in sys.argv[1:]:
         out = sys.argv[sys.argv.index("--sass") + 1]
-        cuobjdump = os.path.join(os.path.dirname(nn_kernel._nvcc()), "cuobjdump")
+        cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                               capture_output=True, text=True, check=False)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -8,21 +8,27 @@
                                              --scans 430 --radius 55
   python -m xchu_slam_tpu_torch.cli info
 
-`run-sim` runs the host engine (`models/pipeline.SlamPipeline`) on the
-synthetic squircle circuit with the config overrides and the world /
-trajectory / sensor-feed setup of `xchu_slam_tpu.cli run-sim`, writes the
-run's export files (`io/export.save_run`) and prints a JSON summary. One
-random generator is consumed in a fixed order (IMU windows, wheel windows,
-GPS altimeter noise and dropouts, then every scan), so that a run sees the
-scans and sensor feeds the reference CLI makes for the same arguments.
+`run-sim` runs the synthetic squircle circuit with the config overrides and
+the world / trajectory / sensor-feed setup of `xchu_slam_tpu.cli run-sim`,
+writes the run's export files (`io/export.save_run`) and prints a JSON
+summary. `--engine host` (default) is `models/pipeline.SlamPipeline`, fed
+scan by scan; one random generator is consumed in a fixed order (IMU
+windows, wheel windows, GPS altimeter noise and dropouts, then every scan),
+so that a run sees the scans and sensor feeds the reference CLI makes for the
+same arguments. `--engine device` is `models/device_pipeline.
+DeviceSlamPipeline`, fed chunks of `--chunk` scans that the staging threads
+of `io/prefetch.DeviceChunkPrefetcher` render lazily (each scan from a
+generator of its own, as the reference's device path does) and copy to the
+card; its summary adds the streaming rate and the per-chunk wait / dispatch
+attribution.
 `eval` compares two trajectory files, `localize` places fresh scans in a
 saved session's map, `info` prints versions, devices and the default config.
 
 Every subcommand that computes takes `--device` (default `cuda`, an error
 without a card; `cpu` runs the kernels' plain versions). Not ported, and so
-not accepted: `run-kitti`, and `run-sim`'s `--engine device`, `--mesh`,
-`--continue-session`, `--realism`, `--trajectory`, `--render-procs` and the
-chunk / prefetch flags of the device engine.
+not accepted: `run-kitti`, and `run-sim`'s `--mesh`, `--continue-session`,
+`--realism`, `--trajectory`, `--render-procs` and `--sync-every`; with
+`--engine device` also `--imu`, `--wheel` and `--checkpoint-every`.
 """
 
 from __future__ import annotations
@@ -126,42 +132,13 @@ def _scan_windows(sensor_windows: dict, i: int):
     return imu_w, wheel_w
 
 
-def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
-            device: str = "cuda", overrides=(), on_scan=None,
-            loop_method: str = "sc", imu: bool = False, wheel: bool = False,
-            gps: bool = False, out: str | None = None,
-            checkpoint_every: int = 0, verbose: bool = False, timers=None):
-    """Run the host engine over the circuit. Returns (pipeline, summary
-    dict). `on_scan(i, result, scan)` is called after each scan with the
-    keyword arguments `process_scan` was given. With `out`, the run's
-    artifacts are written there (and `checkpoint.npz` every
-    `checkpoint_every` scans). `timers` (a `StageTimers` for `device`)
-    collects the stage times."""
-    from xchu_slam_tpu_torch.io.export import save_run
-    from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
-    from xchu_slam_tpu_torch.utils import metrics, se3, sim
+def _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
+                     timers, on_scan, verbose: bool, checkpoint_every: int,
+                     out: str | None) -> None:
+    """Render and feed the circuit scan by scan to the host engine."""
+    from xchu_slam_tpu_torch.utils import sim
     from xchu_slam_tpu_torch.utils.checkpoint import save_checkpoint
-    from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
-    _check_device(device)
-    cfg = sim_config(overrides, loop_method, imu, wheel, gps)
-    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
-    n_scans = len(gt)
-    rng = np.random.default_rng(seed)
-    sensor_windows = _sim_sensor_windows(cfg, gt, gt_stamps, rng)
-    gps_alts = None
-    if cfg.pgo.use_gps:
-        # synthetic altimeter along the trajectory: noisy, with 20 % dropouts
-        gps_alts = gt[:, 2] + rng.normal(0.0, 0.5, n_scans)
-        gps_alts[rng.random(n_scans) < 0.2] = np.nan
-    if out:
-        os.makedirs(out, exist_ok=True)
-    elif checkpoint_every:
-        raise ValueError("checkpoint_every needs an output directory")
-
-    timers = timers if timers is not None else StageTimers(device)
-    pipe = SlamPipeline(cfg, kf_points=4096, device=device)
-    t0 = time.perf_counter()
     for i, p in enumerate(gt):
         with timers.time("render"):
             xyz, inten = sim.render_scan(world, p, rng, n_points=24_000)
@@ -181,6 +158,134 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
         if checkpoint_every and i and i % checkpoint_every == 0:
             with timers.time("checkpoint"):
                 save_checkpoint(pipe, os.path.join(out, "checkpoint.npz"))
+
+
+def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
+                       prefetch_depth: int, prefetch_threads: int, device: str,
+                       timers, verbose: bool) -> dict:
+    """Stream `scans` through the device engine in chunks. Returns the
+    per-chunk times: host wait on the prefetcher (render + stage + copy
+    behind) and time inside `process_chunk` (Part A's enqueue, the chunk's
+    readback, Part B), with each chunk's scan span."""
+    from xchu_slam_tpu_torch.io.prefetch import DeviceChunkPrefetcher
+
+    n_scans = len(scans)
+    wait_s, dispatch_s, span, ts = [], [], [], [time.perf_counter()]
+    base = 0
+    with DeviceChunkPrefetcher(scans, capacity=cfg.filter.max_raw_points,
+                               chunk=chunk, depth=prefetch_depth,
+                               threads=prefetch_threads, device=device) as pf, \
+            timers.time("slam"):
+        it = iter(pf)
+        while True:
+            tw = time.perf_counter()
+            try:
+                clouds, n_real = next(it)
+            except StopIteration:
+                break
+            wait_s.append(time.perf_counter() - tw)
+            idx = np.minimum(base + np.arange(clouds.xyz.shape[0]), n_scans - 1)
+            td = time.perf_counter()
+            pipe.process_chunk(clouds, gt_stamps[idx], n_real,
+                               gps_alts=None if gps_alts is None else gps_alts[idx])
+            dispatch_s.append(time.perf_counter() - td)
+            span.append((base, base + n_real))
+            base += n_real
+            ts.append(time.perf_counter())
+            if verbose:
+                print(f"scan {base}: kf={pipe.state.db.count} "
+                      f"loops={pipe.state.loop_count}", file=sys.stderr)
+    return {"wait_s": wait_s, "dispatch_s": dispatch_s, "span": span, "ts": ts}
+
+
+def _chunk_attribution(chunks: dict, pipe, n_scans: int) -> dict:
+    """The streaming rate and where the chunks' time went."""
+    ts = chunks["ts"]
+    out = {}
+    if len(ts) > 2:
+        out["stream_scans_per_sec"] = round(n_scans / (ts[-1] - ts[0]), 2)
+    wait = 1e3 * np.asarray(chunks["wait_s"])
+    disp = 1e3 * np.asarray(chunks["dispatch_s"])
+    total = wait + disp
+    ver = np.array([sum(1 for r in pipe.odom_log[lo:hi] if r["loop_verify_ran"])
+                    for lo, hi in chunks["span"]])
+
+    def mean(x):
+        return round(float(np.mean(x)), 1) if len(x) else None
+
+    out["chunk_attribution"] = {
+        "chunks": len(total),
+        "p50_ms": round(float(np.median(total)), 1),
+        "p95_ms": round(float(np.quantile(total, 0.95)), 1),
+        "mean_wait_ms": mean(wait),
+        "mean_dispatch_ms": mean(disp),
+        "verify_chunk_mean_ms": mean(total[ver > 0]),
+        "noverify_chunk_mean_ms": mean(total[ver == 0]),
+        "chunks_with_verify": int((ver > 0).sum()),
+    }
+    out["stage_seconds"] = {k: round(v, 3) for k, v in pipe.stage_seconds.items()}
+    return out
+
+
+def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
+            device: str = "cuda", overrides=(), on_scan=None,
+            loop_method: str = "sc", imu: bool = False, wheel: bool = False,
+            gps: bool = False, out: str | None = None,
+            checkpoint_every: int = 0, verbose: bool = False, timers=None,
+            engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
+            prefetch_threads: int = 2):
+    """Run the circuit through the host or the device engine. Returns
+    (pipeline, summary dict). With `out`, the run's artifacts are written
+    there. `timers` (a `StageTimers` for `device`) collects the stage times.
+
+    Host engine: `on_scan(i, result, scan)` is called after each scan with
+    the keyword arguments `process_scan` was given; `checkpoint.npz` is
+    written every `checkpoint_every` scans. Device engine: the scans are
+    rendered lazily inside the staging threads and fed in chunks of `chunk`;
+    the sensor guesses, `on_scan` and checkpoints are not ported to it."""
+    from xchu_slam_tpu_torch.io.export import save_run
+    from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
+    from xchu_slam_tpu_torch.utils import metrics, se3, sim
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    _check_device(device)
+    if engine not in ("host", "device"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "device" and (imu or wheel or checkpoint_every or on_scan):
+        raise ValueError("the device engine takes no IMU / wheel guess, "
+                         "checkpoints or per-scan callback yet")
+    cfg = sim_config(overrides, loop_method, imu, wheel, gps)
+    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
+    n_scans = len(gt)
+    rng = np.random.default_rng(seed)
+    sensor_windows = _sim_sensor_windows(cfg, gt, gt_stamps, rng)
+    gps_alts = None
+    if cfg.pgo.use_gps:
+        # synthetic altimeter along the trajectory: noisy, with 20 % dropouts
+        gps_alts = gt[:, 2] + rng.normal(0.0, 0.5, n_scans)
+        gps_alts[rng.random(n_scans) < 0.2] = np.nan
+    if out:
+        os.makedirs(out, exist_ok=True)
+    elif checkpoint_every:
+        raise ValueError("checkpoint_every needs an output directory")
+
+    timers = timers if timers is not None else StageTimers(device)
+    chunks = None
+    if engine == "device":
+        from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+
+        pipe = DeviceSlamPipeline(cfg, kf_points=4096,
+                                  log_capacity=max(n_scans, 8192), device=device)
+        lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000)
+        t0 = time.perf_counter()
+        chunks = _run_device_engine(pipe, lazy, gt_stamps, gps_alts, cfg, chunk,
+                                    prefetch_depth, prefetch_threads, device,
+                                    timers, verbose)
+    else:
+        pipe = SlamPipeline(cfg, kf_points=4096, device=device)
+        t0 = time.perf_counter()
+        _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
+                         timers, on_scan, verbose, checkpoint_every, out)
     with timers.time("finalize"):
         pipe.finalize()
     wall = time.perf_counter() - t0
@@ -214,6 +319,9 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
         "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
         "scans_per_sec": round(n_scans / wall, 2),
     }
+    if chunks is not None:
+        summary["engine"] = "device"
+        summary.update(_chunk_attribution(chunks, pipe, n_scans))
     if paths is not None:
         summary["artifacts"] = paths
     return pipe, summary
@@ -227,7 +335,10 @@ def cmd_run_sim(args):
                             args.set, loop_method=args.loop_method,
                             imu=args.imu, wheel=args.wheel, gps=args.gps,
                             out=args.out, checkpoint_every=args.checkpoint_every,
-                            verbose=args.verbose, timers=timers)
+                            verbose=args.verbose, timers=timers,
+                            engine=args.engine, chunk=args.chunk,
+                            prefetch_depth=args.prefetch_depth,
+                            prefetch_threads=args.prefetch_threads)
     print(json.dumps(summary, indent=2))
     print(timers.report(), file=sys.stderr)
 
@@ -357,6 +468,21 @@ def main(argv=None):
     ps.add_argument("--checkpoint-every", type=int, default=0,
                     help="write <out>/checkpoint.npz every N scans")
     ps.add_argument("--verbose", action="store_true")
+    ps.add_argument("--engine", default="host", choices=["host", "device"],
+                    help="host: per-scan host-orchestrated engine; device: the "
+                    "every-scan half on the card with no readback, chunked ingest")
+    ps.add_argument("--chunk", type=int, default=16,
+                    help="scans per staged chunk for --engine device")
+    ps.add_argument("--prefetch-depth", type=int, default=2,
+                    help="staged chunks in flight ahead of the engine "
+                    "(--engine device)")
+    ps.add_argument("--prefetch-threads", type=int, default=2,
+                    help="staging threads; they also render the scans "
+                    "(--engine device)")
+    # flags of the reference's device engine that are named, so that they are
+    # refused by name
+    ps.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    ps.add_argument("--continue-session", default=None, help=argparse.SUPPRESS)
     _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -399,6 +525,18 @@ def main(argv=None):
     pi.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    if args.cmd == "run-sim":
+        for flag, on in (("--mesh", args.mesh),
+                         ("--continue-session", args.continue_session)):
+            if on is not None:
+                p.error(f"{flag} is not ported yet")
+    if args.cmd == "run-sim" and args.engine == "device":
+        for flag, on in (("--imu", args.imu), ("--wheel", args.wheel),
+                         ("--checkpoint-every", args.checkpoint_every)):
+            if on:
+                p.error(f"{flag} with --engine device is not ported yet")
+        if args.chunk < 1 or args.prefetch_depth < 1 or args.prefetch_threads < 1:
+            p.error("--chunk, --prefetch-depth and --prefetch-threads must be >= 1")
     args.fn(args)
 
 

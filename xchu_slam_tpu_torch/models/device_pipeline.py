@@ -1,0 +1,613 @@
+"""The device engine (port of `xchu_slam_tpu.models.device_pipeline`).
+
+The reference runs the whole SLAM iteration as one jitted device program
+with its control under `lax.cond` / `lax.while_loop`, fed staged chunks of
+scans. PyTorch has no such program, so the port splits the step in two and
+keeps the reference's results in scan order:
+
+- Part A, every scan, no host synchronisation: filter → NDT odometry (the
+  align's trip counts decided by the CUDA kernel `csrc/ndt_kernel.cu`; map
+  insertion, swap and recentring under device flags) → travel, the keyframe
+  gate `is_kf = (kf_accum ≥ keyframe_gap) & (keyframes < capacity)`, the
+  gate's resets and the keyframe counter → the scan's log row. On a CUDA
+  device Part A of one scan is captured once as a CUDA graph and replayed per
+  scan. Part A keeps, per slot of the chunk, what Part B needs: the filtered
+  cloud, the pose, the stamp and the travel.
+- one readback per chunk: the chunk's log rows (they hold `is_kf`).
+- Part B, on the host, in scan order, for the flagged slots only: the
+  keyframe branch (`_add_keyframe_branch` with `_detect_candidate` and
+  `_verify_and_apply`) on the functions the host engine uses, writing the
+  loop diagnostics into columns 11-15 of that scan's log row.
+
+Part A reads nothing that Part B writes (the keyframe store, the graph): it
+needs only the gate's own scalars, which stay on the card. So the results
+are those of the reference's step in order. `process_scan` is a chunk of
+one.
+
+Not ported here, and refused by the constructor: `odom.use_imu` /
+`odom.use_odom` (the guess providers integrated on the card); also `mesh`,
+`sync_every` and device-engine checkpoints.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from xchu_slam_tpu_torch.config import SlamConfig
+from xchu_slam_tpu_torch.models import odometry, pose_graph as pg
+from xchu_slam_tpu_torch.models.pipeline import (KfDb, LoopRecord, SlamPipeline,
+                                                 _add_keyframe, build_submap,
+                                                 empty_db, subsample_cloud)
+from xchu_slam_tpu_torch.ops import icp, isc as isc_ops, scancontext as sc
+from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+from xchu_slam_tpu_torch.ops.filter import filter_scan
+from xchu_slam_tpu_torch.types import Cloud, make_cloud
+from xchu_slam_tpu_torch.utils import se3
+
+
+class DevSpec(NamedTuple):
+    """Static pipeline parameters."""
+
+    fcfg: object                # FilterConfig
+    ospec: odometry.OdomSpec
+    scspec: sc.ScSpec
+    iscspec: isc_ops.IscSpec
+    icpspec: icp.IcpSpec
+    gspec: pg.GraphSpec
+    kf_points: int
+    keyframe_gap: float
+    detect_period: int
+    method: str                 # "sc" | "isc" | "radius" | "none"
+    radius_search: float
+    min_time_diff: float
+    max_loop_dist: float
+    icp_fitness_thresh: float
+    max_correction: float
+    submap_half_width: int
+    submap_points: int
+    use_gps: bool
+    use_sc_yaw: bool = True
+    log_capacity: int = 8192
+
+
+def spec_from_config(cfg: SlamConfig, kf_points: int = 4096,
+                     log_capacity: int = 8192) -> DevSpec:
+    return DevSpec(
+        fcfg=cfg.filter,
+        ospec=odometry.spec_from_config(cfg),
+        scspec=sc.spec_from_config(cfg.sc),
+        iscspec=isc_ops.spec_from_config(cfg.isc),
+        icpspec=icp.spec_from_config(cfg.loop),
+        gspec=pg.spec_from_config(cfg.pgo),
+        kf_points=kf_points,
+        keyframe_gap=cfg.pgo.keyframe_gap,
+        detect_period=cfg.loop.detect_period,
+        method=cfg.loop.method,
+        radius_search=cfg.loop.radius_search,
+        min_time_diff=cfg.loop.min_time_diff,
+        max_loop_dist=cfg.loop.max_loop_dist,
+        icp_fitness_thresh=cfg.loop.icp_fitness_thresh,
+        max_correction=cfg.loop.max_correction,
+        submap_half_width=cfg.loop.submap_half_width,
+        submap_points=cfg.loop.submap_points,
+        use_gps=cfg.pgo.use_gps,
+        use_sc_yaw=cfg.loop.use_sc_yaw,
+        log_capacity=log_capacity,
+    )
+
+
+class DevState(NamedTuple):
+    """The engine's state. Part A's fields are device tensors that keep their
+    address (they are updated in place, as a CUDA graph needs); Part B's are
+    the host engine's store and graph with host counters."""
+
+    odom: odometry.OdomState
+    db: KfDb                    # `count` is a host int (Part B's)
+    graph: pg.GraphData
+    kf_accum: torch.Tensor      # f32: travel since the last keyframe
+    travel: torch.Tensor        # f32: total odometric travel
+    last_kf_odom: torch.Tensor  # f32[6]: odometric pose at the last keyframe
+    loop_count: int             # host int (Part B's)
+    scan_count: torch.Tensor    # i64 on the device: indexes the log ring
+    kf_count: torch.Tensor      # i64 on the device: the gate's keyframe counter
+    imu_vel: torch.Tensor       # f32[3] (carried for the reference's layout)
+    last_stamp: torch.Tensor    # f32: the previous scan's stamp
+    log: torch.Tensor           # f32[LOG,16]: pose6, iters, fitness, mfrac,
+    #                             is_kf, stamp, + loop diagnostics: cand idx,
+    #                             retrieval found, icp fitness, icp correction,
+    #                             verify ran
+    diag: torch.Tensor          # f32[5] on the host: Part B's diagnostics scratch
+
+
+_DIAG_RESET = (-1.0, 0.0, 0.0, 0.0, 0.0)
+LOG_COLS = 16
+
+
+def _diag_reset() -> torch.Tensor:
+    return torch.tensor(_DIAG_RESET, dtype=torch.float32)
+
+
+def _sc_radius_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
+    """Loop method "radius": the nearest keyframe before `k` (2-D, optimized
+    poses) that is at least `min_time_diff` older, if within
+    `radius_search`. Returns (idx or -1, found); one readback."""
+    db = state.db
+    K = db.poses.shape[0]
+    pos = db.opt_poses[k, :2]
+    d = torch.linalg.norm(db.opt_poses[:, :2] - pos[None], dim=-1)
+    eligible = (torch.arange(K, device=d.device) < k) \
+        & (db.stamps < stamp - spec.min_time_diff)
+    d = torch.where(eligible, d, torch.inf)
+    best = torch.argmin(d)
+    dist, best = torch.stack([d[best], best.to(torch.float32)]).cpu().tolist()
+    found = dist < spec.radius_search
+    return (int(best) if found else -1), found
+
+
+def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
+    """Method-dispatched retrieval. Returns (idx, found, yaw): yaw is the
+    descriptor-measured relative heading ψ_cand − ψ_query (0 for methods
+    without a rotation estimate)."""
+    db = state.db
+    if spec.method == "sc":
+        res = sc.detect_loop(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k)
+        return res.idx, res.found, res.yaw
+    if spec.method == "isc":
+        res = isc_ops.detect_loop(db.isc_db[k], db.isc_db, db.count,
+                                  db.poses[:, :3], db.travel, spec.iscspec, cur=k)
+        return res.idx, res.found, res.yaw
+    if spec.method == "radius":
+        idx, found = _sc_radius_candidate(state, k, stamp, spec)
+        return idx, found, 0.0
+    return -1, False, 0.0
+
+
+def _verify_and_apply(state: DevState, k: int, cand: int, yaw: float,
+                      spec: DevSpec) -> DevState:
+    """ICP-verify the candidate and, on acceptance, add the loop factor and
+    re-solve the graph. A rejected or absent candidate costs one distance
+    check."""
+    db = state.db
+    if cand < 0:
+        return state
+    # 2-D sanity gate
+    d2 = float(torch.linalg.norm(db.opt_poses[k, :2] - db.opt_poses[cand, :2]))
+    if d2 > spec.max_loop_dist:
+        return state
+
+    tgt_xyz, tgt_mask, _ = build_submap(db, cand, cand, spec.submap_half_width,
+                                        spec.submap_points)
+    T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(db.opt_poses[cand])),
+                          se3.pose_to_matrix(db.opt_poses[k]))
+    if spec.use_sc_yaw and spec.method in ("sc", "isc"):
+        # heading from the descriptor's rotation estimate (−yaw = the query's
+        # heading in cand's frame) instead of the drifted pose difference
+        p_init = se3.matrix_to_pose(T_init)
+        p_init[5] = -yaw
+        T_init = se3.pose_to_matrix(p_init)
+    res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask, T_init,
+                    spec.icpspec)
+    corr = float(torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3]))
+    # accept only converged ICP: a verification that hits the iteration cap
+    # while still moving must not become a loop factor
+    ok = (res.converged and res.fitness <= spec.icp_fitness_thresh
+          and corr <= spec.max_correction
+          and state.loop_count < spec.gspec.max_loops)
+    state.diag[2], state.diag[3], state.diag[4] = float(res.fitness), corr, 1.0
+    if not ok:
+        return state
+
+    q, g = state.loop_count, state.graph
+    g.loop_i[q] = cand
+    g.loop_j[q] = k
+    g.loop_T[q] = res.T
+    g.loop_info[q] = 1.0 / max(res.fitness, 1e-2)
+    g.loop_mask[q] = True
+    state = state._replace(loop_count=q + 1)
+    # warm-started in-step solve at the configured cadence; finalize() always
+    # runs the full-strength solve
+    if spec.gspec.solve_every <= 1 or state.loop_count % spec.gspec.solve_every == 0:
+        opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec))
+        state = state._replace(db=db._replace(opt_poses=opt))
+    return state
+
+
+def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
+                         stamp: float, travel: float, gps_alt: float,
+                         gps_valid: bool, spec: DevSpec) -> DevState:
+    """Store keyframe `db.count` and, at the detection cadence, look for a
+    loop and verify it. `pose` [6] (on the device), `stamp` and `travel` are
+    the scan's own, as Part A left them in its slot; the gate's scalars were
+    reset by Part A."""
+    db = state.db
+    k = db.count  # new keyframe index
+
+    cxyz, cmask, _src_idx = subsample_cloud(filt.xyz, filt.mask, spec.kf_points)
+    # descriptors from the full filtered cloud; the subsample only bounds the
+    # stored ICP submap clouds
+    sc_desc = sc.make_descriptor(filt.xyz, filt.mask, spec.scspec)
+    isc_desc = None
+    if spec.method == "isc":
+        isc_desc = isc_ops.make_descriptor(filt.xyz, filt.intensity, filt.mask,
+                                           spec.iscspec)
+    # the optimized pose chains onto the previous optimized pose by the
+    # odometric increment since the last keyframe (whose odometric pose is
+    # the store's row k-1)
+    if k >= 1:
+        Z = torch.matmul(se3.inverse(se3.pose_to_matrix(db.poses[k - 1])),
+                         se3.pose_to_matrix(pose))
+        opt_pose = se3.matrix_to_pose(
+            torch.matmul(se3.pose_to_matrix(db.opt_poses[k - 1]), Z))
+        state.graph.between_T[k] = Z
+    else:
+        opt_pose = pose
+    db = _add_keyframe(db, pose, stamp, travel, cxyz, cmask, sc_desc, isc_desc,
+                       opt_pose)
+    state.graph.kf_mask[k] = True
+    if spec.use_gps and gps_valid:
+        state.graph.gps_alt[k] = gps_alt
+        state.graph.gps_mask[k] = True
+    state = state._replace(db=db)
+
+    # loop detection every detect_period-th keyframe
+    if spec.method != "none" and k >= 1 and k % spec.detect_period == 0:
+        cand, found, yaw = _detect_candidate(state, k, stamp, spec)
+        cand = cand if found else -1
+        state.diag[0], state.diag[1] = float(cand), float(found)
+        state = _verify_and_apply(state, k, cand, yaw, spec)
+    return state
+
+
+def raw_state(spec: DevSpec, cloud0: Cloud, cfg: SlamConfig) -> DevState:
+    """Fresh engine state on `cloud0`'s device with odometry seeded from the
+    first scan, before keyframe 0 is stored."""
+    dev = cloud0.xyz.device
+    filt = filter_scan(cloud0, spec.fcfg)
+    odom0 = odometry.init_state(spec.ospec, torch.zeros(6, device=dev),
+                                filt.xyz, filt.mask)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return DevState(
+        odom=odom0,
+        db=empty_db(cfg, spec.kf_points, dev),
+        graph=pg.empty_graph(spec.gspec, dev),
+        kf_accum=z(), travel=z(), last_kf_odom=z(6),
+        loop_count=0,
+        scan_count=z(dtype=torch.int64), kf_count=z(dtype=torch.int64),
+        imu_vel=z(3), last_stamp=z(),
+        log=z(spec.log_capacity, LOG_COLS),
+        diag=_diag_reset(),
+    )
+
+
+def init_state(spec: DevSpec, cloud0: Cloud, stamp0: float, cfg: SlamConfig) -> DevState:
+    """Seed odometry with the first scan and store keyframe 0 (the host
+    pipeline's first-scan path)."""
+    state = raw_state(spec, cloud0, cfg)
+    filt = filter_scan(cloud0, spec.fcfg)
+    pose0 = torch.zeros(6, device=cloud0.xyz.device)
+    state = _add_keyframe_branch(state, filt, pose0, float(stamp0), 0.0, 0.0,
+                                 False, spec)
+    state.log[0] = torch.tensor([0.0] * 6 + [0.0, 0.0, 1.0, 1.0, float(stamp0)]
+                                + list(_DIAG_RESET))
+    state.scan_count.fill_(1)
+    state.kf_count.fill_(1)
+    state.last_stamp.fill_(float(stamp0))
+    return state
+
+
+def _assign(dst, src) -> None:
+    """Copy the tensors of `src` into those of `dst` in place (both nested
+    tuples of tensors). A source that is itself one of the destinations is
+    copied aside first."""
+    pairs = []
+
+    def walk(d, s):
+        if isinstance(d, torch.Tensor):
+            pairs.append((d, s))
+        else:
+            for dd, ss in zip(d, s):
+                walk(dd, ss)
+
+    walk(dst, src)
+    held = {d.data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.data_ptr() in held and s is not d else s)
+             for d, s in pairs]
+    for d, s in pairs:
+        if s is not d:
+            d.copy_(s)
+
+
+class DeviceSlamPipeline:
+    """Host shell around the device step: feed staged clouds, read results at
+    the end. After `finalize()` it exposes the `.db/.graph/.loop_count/
+    .kf_count/.odom_log/.loops` surface that `io/export.save_run` reads."""
+
+    def __init__(self, cfg: SlamConfig, kf_points: int = 4096,
+                 log_capacity: int = 8192, device: torch.device | str = "cuda",
+                 use_graph: bool | None = None, check_sync: bool = False):
+        """`use_graph` (default: on a CUDA device) replays Part A of a scan
+        as one CUDA graph, captured after the first scan has run eagerly.
+        `check_sync` runs Part A under `torch.cuda.set_sync_debug_mode
+        ("error")`, which raises on a host synchronisation that PyTorch makes
+        (it cannot see one made through `ctypes`)."""
+        if cfg.loop.method not in ("sc", "isc", "radius", "none"):
+            raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
+        if cfg.odom.use_imu or cfg.odom.use_odom:
+            raise ValueError("odom.use_imu / odom.use_odom are not ported to the "
+                             "device engine yet")
+        if cfg.loop.async_detect:
+            raise ValueError("loop.async_detect is not ported")
+        if cfg.filter.detect_ground:
+            raise ValueError("filter.detect_ground (ops/ground.py) is not ported")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.spec = spec_from_config(cfg, kf_points, log_capacity)
+        self.use_graph = (self.device.type == "cuda") if use_graph is None else use_graph
+        self.check_sync = check_sync and self.device.type == "cuda"
+        # sub-spec aliases shared with SlamPipeline (io/export reads
+        # pipe.gspec for the g2o information matrices)
+        self.gspec = self.spec.gspec
+        self.scspec = self.spec.scspec
+        self.iscspec = self.spec.iscspec
+        self.icpspec = self.spec.icpspec
+        self.ospec = self.spec.ospec
+        self.kf_points = kf_points
+        self.state: DevState | None = None
+        self._diag_reset_dev = _diag_reset().to(self.device)
+        # Part A as a CUDA graph: static inputs, the graph, its outputs, and
+        # the kernel launches one replay makes
+        self._graph = None
+        self._in = None
+        self._out = None
+        self._replay_launches = {}
+        self._eager_scans = 0
+        self.part_a_replays = 0
+        self.chunk_readbacks = 0
+        # host seconds spent enqueueing Part A, waiting in the chunk's
+        # readback (the card finishing Part A) and in Part B
+        self.stage_seconds = {"part_a_enqueue": 0.0, "readback_wait": 0.0, "part_b": 0.0}
+        self.icp_verifications = 0
+        # log-wrap protection: the device log is a ring of log_capacity rows.
+        # The host archives the ring before a feed would overwrite rows not
+        # yet archived; size log_capacity to the run to avoid the readback.
+        self._scans_fed = 0
+        self._archived = 0
+        self._log_archive: list[np.ndarray] = []
+        self._warned_wrap = False
+        # filled by finalize()
+        self.db = None
+        self.graph = None
+        self.loop_count = 0
+        self.kf_count = 0
+        self.scan_count = 0
+        self.odom_log: list[dict] = []
+        self.loops: list = []
+
+    # ------------------------------------------------------------ Part A -- #
+    def _part_a(self, cloud: Cloud, stamp: torch.Tensor):
+        """One scan's every-scan half, with no host synchronisation: updates
+        Part A's state in place and returns (filtered cloud, row [17]: the log
+        row's 16 columns and the travel)."""
+        st, spec = self.state, self.spec
+        filt = filter_scan(cloud, spec.fcfg)
+        new_odom, out = odometry.step(st.odom, filt.xyz, filt.mask, spec.ospec,
+                                      on_device=True)
+        pose = out.pose
+        step_d = torch.linalg.norm(pose[:2] - st.odom.pose[:2])
+        kf_accum = st.kf_accum + step_d
+        travel = st.travel + step_d
+        is_kf = (kf_accum >= spec.keyframe_gap) & (st.kf_count < st.db.poses.shape[0])
+        f32 = torch.float32
+        row = torch.cat([
+            pose,
+            torch.stack([out.iterations.to(f32), out.fitness.to(f32),
+                         out.matched_frac.to(f32), is_kf.to(f32), stamp]),
+            self._diag_reset_dev, travel[None]])
+        slot = (st.scan_count % spec.log_capacity).reshape(1)
+        st.log.index_copy_(0, slot, row[None, :LOG_COLS])
+        _assign((st.odom, st.kf_accum, st.travel, st.last_kf_odom, st.last_stamp),
+                (new_odom, torch.where(is_kf, torch.zeros_like(kf_accum), kf_accum),
+                 travel, torch.where(is_kf, pose, st.last_kf_odom), stamp))
+        st.kf_count.add_(is_kf.to(torch.int64))
+        st.scan_count.add_(1)
+        return filt, row
+
+    def _capture(self, like: Cloud) -> None:
+        """Capture Part A of one scan as a CUDA graph over static inputs."""
+        self._in = (Cloud(*(torch.zeros_like(t) for t in like)),
+                    torch.zeros((), device=self.device))
+        counts = {"ndt": ndt_kernel.launches, "nn": nn_kernel.launches}
+        graph = torch.cuda.CUDAGraph()
+        # entering a capture synchronises the device, once: not Part A's doing
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            # thread-local: the staging threads go on copying while this thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._out = self._part_a(*self._in)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        # a capture records launches, it makes none: a replay makes them
+        self._replay_launches = {"ndt": ndt_kernel.launches - counts["ndt"],
+                                 "nn": nn_kernel.launches - counts["nn"]}
+        ndt_kernel.launches, nn_kernel.launches = counts["ndt"], counts["nn"]
+        self._graph = graph
+
+    def _run_part_a(self, cloud: Cloud, stamp: torch.Tensor):
+        """Part A of one scan, eagerly or as a graph replay; returns tensors
+        of its own (a replay's outputs are copied out of the graph's)."""
+        if not self.use_graph:
+            return self._part_a(cloud, stamp)
+        if self._graph is None:
+            if self._eager_scans < 1:     # the first scan warms every lazy start
+                self._eager_scans += 1
+                return self._part_a(cloud, stamp)
+            self._capture(cloud)
+        _assign(self._in, (cloud, stamp))
+        self._graph.replay()
+        self.part_a_replays += 1
+        ndt_kernel.launches += self._replay_launches["ndt"]
+        nn_kernel.launches += self._replay_launches["nn"]
+        filt, row = self._out
+        return Cloud(*(t.clone() for t in filt)), row.clone()
+
+    # ------------------------------------------------------------- feeds -- #
+    def process_scan(self, cloud, intensity=None, stamp: float = 0.0,
+                     gps_alt: float | None = None, imu=None, wheel=None) -> None:
+        """Feed one scan: a staged Cloud (io/prefetch.py) or raw points
+        [n,3]. A chunk of one."""
+        if imu is not None or wheel is not None:
+            raise ValueError("the device engine takes no IMU / wheel windows yet")
+        if not isinstance(cloud, Cloud):
+            cloud = make_cloud(cloud, intensity, capacity=self.cfg.filter.max_raw_points,
+                               device=self.device)
+        clouds = Cloud(*(t[None] for t in cloud))
+        alts = None if gps_alt is None else [gps_alt]
+        self.process_chunk(clouds, [stamp], 1, gps_alts=alts)
+
+    def process_chunk(self, clouds: Cloud, stamps, n_real: int, gps_alts=None) -> None:
+        """Feed a staged chunk (a Cloud batch [chunk,...] from
+        io/prefetch.DeviceChunkPrefetcher). `stamps` is per slot [chunk];
+        `n_real` ≤ chunk says how many slots hold real scans (a short final
+        chunk); the others are skipped. `gps_alts` [chunk] holds NaN where a
+        scan has no altitude."""
+        chunk = clouds.xyz.shape[0]
+        stamps = np.asarray(stamps, np.float32)
+        if gps_alts is None:
+            alts = np.full((chunk,), np.nan, np.float32)
+        else:
+            alts = np.asarray(gps_alts, np.float32)
+        if chunk > self.spec.log_capacity:
+            raise ValueError(f"chunk ({chunk}) exceeds log_capacity "
+                             f"({self.spec.log_capacity}): rows would be lost mid-feed")
+        n_real = int(n_real)
+        first = 0
+        if self.state is None:
+            if n_real < 1:
+                return
+            cloud0 = Cloud(*(t[0] for t in clouds))
+            self.state = init_state(self.spec, cloud0, float(stamps[0]), self.cfg)
+            self._scans_fed = 1
+            first = 1
+        self._reserve_log(n_real - first)
+        if n_real <= first:
+            return
+
+        # Part A for every real slot, nothing read back
+        stamps_d = torch.from_numpy(stamps).to(self.device, non_blocking=True)
+        t0 = time.perf_counter()
+        prev_mode = None
+        if self.check_sync:
+            prev_mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s])
+                     for s in range(first, n_real)]
+            rows_d = torch.stack([row for _filt, row in slots])
+        finally:
+            if prev_mode is not None:
+                torch.cuda.set_sync_debug_mode(prev_mode)
+        # the one readback of the chunk
+        t1 = time.perf_counter()
+        rows = rows_d.cpu().numpy()
+        self.chunk_readbacks += 1
+        t2 = time.perf_counter()
+
+        # Part B, in scan order, for the flagged slots
+        for j, (filt, _row) in enumerate(slots):
+            if rows[j, 9] <= 0.5:
+                continue
+            s = first + j
+            self.state.diag.copy_(_diag_reset())
+            self.state = _add_keyframe_branch(
+                self.state, filt, rows_d[j, :6], float(rows[j, 10]),
+                float(rows[j, LOG_COLS]), float(np.nan_to_num(alts[s])),
+                bool(np.isfinite(alts[s])), self.spec)
+            self.icp_verifications += int(self.state.diag[4] > 0.5)
+            slot = (self._scans_fed + j) % self.spec.log_capacity
+            self.state.log[slot, 11:LOG_COLS] = self.state.diag.to(self.device)
+        self._scans_fed += n_real - first
+        for key, dt in (("part_a_enqueue", t1 - t0), ("readback_wait", t2 - t1),
+                        ("part_b", time.perf_counter() - t2)):
+            self.stage_seconds[key] += dt
+
+    def _reserve_log(self, n_new: int) -> None:
+        """Archive device log rows to the host before a feed of `n_new` scans
+        would overwrite rows not yet archived (ring wrap)."""
+        cap = self.spec.log_capacity
+        if self._scans_fed + n_new - self._archived <= cap:
+            return
+        if not self._warned_wrap:
+            warnings.warn(
+                f"device log capacity ({cap}) is smaller than the run; archiving "
+                f"rows to host mid-run (costs a device readback: set "
+                f"log_capacity >= the expected scan count to avoid it)",
+                RuntimeWarning, stacklevel=3)
+            self._warned_wrap = True
+        log = self.state.log.cpu().numpy().copy()   # on the CPU `.cpu()` is a view
+        self._log_archive.extend(
+            log[t % cap] for t in range(self._archived, self._scans_fed))
+        self._archived = self._scans_fed
+
+    # ----------------------------------------------------------- results -- #
+    def finalize(self) -> None:
+        """Final full-strength pose-graph solve and one compact readback of
+        the small fields (counters, log, loop table); the keyframe clouds and
+        descriptor stores stay on the device."""
+        st = self.state
+        opt = pg.solve(st.db.opt_poses, st.graph, self.spec.gspec)
+        st = st._replace(db=st.db._replace(opt_poses=opt))
+        self.state = st
+        self.db = st.db
+        self.graph = st.graph
+        self.kf_count = st.db.count
+        self.loop_count = st.loop_count
+        self.scan_count = int(st.scan_count)
+        if int(st.kf_count) != self.kf_count or self.scan_count != self._scans_fed:
+            raise RuntimeError("the device's counters and the host's disagree: "
+                               f"keyframes {int(st.kf_count)} / {self.kf_count}, "
+                               f"scans {self.scan_count} / {self._scans_fed}")
+        cap = self.spec.log_capacity
+        host_log = st.log.cpu().numpy()
+        tail = [host_log[t % cap] for t in range(self._archived, self.scan_count)]
+        log = np.asarray(self._log_archive + tail, np.float32).reshape(-1, LOG_COLS)
+        self.odom_log = [
+            {"stamp": float(r[10]), "pose": r[:6],
+             "iterations": int(r[6]), "fitness": float(r[7]),
+             "matched_frac": float(r[8]), "keyframe": bool(r[9] > 0.5),
+             # the loop accept / reject decisions as data
+             "loop_cand": int(r[11]), "loop_found": bool(r[12] > 0.5),
+             "loop_icp_fitness": float(r[13]),
+             "loop_icp_correction": float(r[14]),
+             "loop_verify_ran": bool(r[15] > 0.5)}
+            for r in log
+        ]
+        loop_i = st.graph.loop_i.cpu().numpy()
+        loop_j = st.graph.loop_j.cpu().numpy()
+        loop_info = st.graph.loop_info.cpu().numpy()
+        self.loops = [
+            LoopRecord(i=int(loop_i[q]), j=int(loop_j[q]),
+                       fitness=float(1.0 / max(loop_info[q], 1e-9)),
+                       method=self.spec.method)
+            for q in range(self.loop_count)
+        ]
+
+    def keyframe_trajectory(self):
+        """(stamps, odometry poses6, optimized poses6) for live keyframes."""
+        n = self.kf_count
+        return (self.db.stamps[:n].cpu().numpy(), self.db.poses[:n].cpu().numpy(),
+                self.db.opt_poses[:n].cpu().numpy())
+
+    def odometry_trajectory(self) -> np.ndarray:
+        return np.array([r["pose"] for r in self.odom_log], np.float32)
+
+    def assemble_map(self, voxel: float = 0.5, max_points: int = 1 << 20) -> np.ndarray:
+        return SlamPipeline.assemble_map(self, voxel, max_points)

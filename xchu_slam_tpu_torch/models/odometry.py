@@ -7,8 +7,13 @@ the active localmap, and the distance-refresh localmap strategy: every
 `max_localmap_size` metres of insertions A is replaced by B and B restarts
 empty; both grids recentre when the vehicle nears A's edge.
 
-The reference's three `lax.cond`s are host branches here, on scalars the
-step reads back once.
+The reference's three `lax.cond`s run in two forms. `step` by default
+branches on the host, on scalars the step reads back once (the host engine's
+form). `step(..., on_device=True)` decides them on the card: the NDT align
+returns device tensors (`ndt.align(on_device=True)`), and insertion, swap
+and recentring take device flags (`ops/voxel_map.py`) and leave the grids
+bit-equal where a flag is false, so the step reads nothing back.
+`chunk_step` runs filter + that step over a staged batch of scans.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from xchu_slam_tpu_torch.ops import ndt, voxel_map as vm
-from xchu_slam_tpu_torch.types import VoxelGrid
+from xchu_slam_tpu_torch.ops.filter import filter_scan
+from xchu_slam_tpu_torch.types import Cloud, VoxelGrid
 from xchu_slam_tpu_torch.utils import se3
 
 
@@ -53,6 +59,8 @@ class OdomState(NamedTuple):
 
 
 class OdomOutput(NamedTuple):
+    """One step's results; with `on_device` every field is a tensor."""
+
     pose: torch.Tensor
     iterations: int
     converged: bool
@@ -61,6 +69,24 @@ class OdomOutput(NamedTuple):
     fitness: torch.Tensor
     inserted: bool
     swapped: bool
+
+
+def chunk_step(state: OdomState, clouds, fcfg, spec: OdomSpec):
+    """Filter + odometry for a chunk of scans: the on-device step over the
+    leading axis of a staged Cloud batch (io/prefetch.DeviceChunkPrefetcher),
+    with no readback between the scans.
+
+    Empty trailing slots (mask all False, short final chunk) are no-ops by
+    construction: zero valid points give a zero NDT gradient and a zero step.
+
+    Returns (new_state, OdomOutput of tensors stacked along the chunk axis)."""
+    outs = []
+    for s in range(clouds.xyz.shape[0]):
+        filt = filter_scan(Cloud(clouds.xyz[s], clouds.intensity[s], clouds.mask[s]),
+                           fcfg)
+        state, out = step(state, filt.xyz, filt.mask, spec, on_device=True)
+        outs.append(out)
+    return state, OdomOutput(*(torch.stack(field) for field in zip(*outs)))
 
 
 def init_state(spec: OdomSpec, init_pose: torch.Tensor, xyz, mask) -> OdomState:
@@ -93,11 +119,65 @@ def _guess(state: OdomState, ext_delta=None) -> torch.Tensor:
     return torch.cat([g[:3], state.pose[3:5], se3.wrap_angle(g[5:6])])
 
 
+def _near_edge(pose, origin, spec: OdomSpec):
+    """Whether the vehicle is within `recentre_margin` of the active grid's
+    edge in x or y (a 0-d bool tensor on the inputs' device)."""
+    g = spec.gspec
+    half_x, half_y = g.gx * g.resolution / 2.0, g.gy * g.resolution / 2.0
+    margin_xy = min(half_x, half_y) - spec.recentre_margin
+    off = torch.maximum(torch.abs(pose[0] - (origin[0] + half_x)),
+                        torch.abs(pose[1] - (origin[1] + half_y)))
+    return off > margin_xy
+
+
+def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec):
+    """`step` with its three branches decided on the card."""
+    g = spec.gspec
+    res = ndt.align(state.grid_a, xyz, mask, _guess(state), g, spec.nspec,
+                    on_device=True)
+    pose = res.pose
+    diff = pose - state.pose
+    diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
+
+    shift = torch.linalg.norm(pose[:2] - state.added_pose[:2])
+    do_insert = shift >= spec.min_add_scan_shift
+    pts_map = se3.rotate_translate(pose, xyz)
+    ga, gb = vm.insert_points_pair(state.grid_a, state.grid_b, pts_map, mask, g,
+                                   flag=do_insert)
+    ga = vm.finalize(ga, g, flag=do_insert)
+    travel = torch.where(do_insert, state.localmap_travel + shift,
+                         state.localmap_travel)
+    added = torch.where(do_insert, pose, state.added_pose)
+
+    do_swap = travel >= spec.max_localmap_size
+    ga, gb = vm.swap(ga, gb, g, flag=do_swap)
+    travel = torch.where(do_swap, torch.zeros_like(travel), travel)
+
+    do_recentre = _near_edge(pose, ga.origin, spec)
+    ga = vm.recentre(ga, pose[:3], g, flag=do_recentre)
+    gb = vm.recentre(gb, pose[:3], g, flag=do_recentre)
+
+    new_state = OdomState(pose=pose, prev_pose=state.pose, diff=diff,
+                          grid_a=ga, grid_b=gb, localmap_travel=travel,
+                          added_pose=added)
+    out = OdomOutput(pose=pose, iterations=res.iterations,
+                     converged=res.converged, score=res.score,
+                     matched_frac=res.matched_frac, fitness=res.fitness,
+                     inserted=do_insert, swapped=do_swap)
+    return new_state, out
+
+
 def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
-         use_ext: bool = False):
+         use_ext: bool = False, on_device: bool = False):
     """One odometry scan step. Returns (new_state, OdomOutput). With
     `use_ext`, `ext_delta` (float32[6] on the state's device) replaces the
-    constant-velocity delta in the NDT guess."""
+    constant-velocity delta in the NDT guess. With `on_device` the step reads
+    nothing back and every output is a tensor (the external guess is not
+    ported to that form)."""
+    if on_device:
+        if use_ext:
+            raise ValueError("the on-device step takes no external guess yet")
+        return _step_on_device(state, xyz, mask, spec)
     guess = _guess(state, ext_delta if use_ext else None)
     res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec)
     pose = res.pose
@@ -124,8 +204,7 @@ def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
 
     do_swap = bool(travel_h >= spec.max_localmap_size)
     if do_swap:
-        ga = vm.finalize(gb, g)
-        gb = vm.make_grid(g, gb.origin.clone())
+        ga, gb = vm.swap(ga, gb, g)
         travel = torch.zeros_like(travel)
 
     # recentre both grids when the vehicle nears the active grid's edge

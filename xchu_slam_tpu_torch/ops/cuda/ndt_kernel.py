@@ -1,0 +1,141 @@
+"""NDT alignment with its Newton and line-search loops on the card: the
+CUDA kernel `csrc/ndt_kernel.cu`.
+
+The reference leaves this work to XLA (`xchu_slam_tpu/ops/ndt.py::
+newton_align` under two `lax.while_loop`s); there is no TPU kernel to
+replace. The kernel's plain PyTorch version is the host route of
+`ops/ndt.py::align`, which `ndt.align(..., on_device=True)` takes for CPU
+tensors. The functions here take CUDA tensors only: they launch the kernel
+or raise, never fall back, never synchronise, and go to PyTorch's current
+stream (the capturing stream under a CUDA graph capture).
+
+One cooperative launch is one whole align: `align_record` returns the
+kernel's 64-float record on the card (`RECORD` names its slots).
+`hessian_pass` runs the kernel's single-pass mode: (L, g, H) at a pose. The
+library is compiled by nvcc from the repository's source at first use, with
+`-fmad=false` so that the control thresholds are compared as the plain
+version compares them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from xchu_slam_tpu_torch.ops.cuda import _build
+
+_SRC = _build.CSRC / "ndt_kernel.cu"
+NVCC_FLAGS = (*_build.BASE_FLAGS, "-fmad=false")
+
+# the kernel's geometry (csrc/ndt_kernel.cu: kThreads, kAcc, kOut)
+THREADS = 128
+ACC = 28
+OUT = 64
+# slots of the result record
+RECORD = {"pose": slice(0, 6), "iterations": 6, "converged": 7, "score": 8,
+          "matched_frac": 9, "fitness": 10, "trials": 11, "L": 12,
+          "g": slice(13, 19), "H": slice(19, 55)}
+
+# kernel launches since the last reset (read and reset by callers that need
+# to show the kernel ran). A call recorded into a CUDA graph launches
+# nothing: whoever captures takes it off the count again and adds what each
+# replay launches (`DeviceSlamPipeline._capture`, `_run_part_a`)
+launches = 0
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile `csrc/ndt_kernel.cu` unless its library exists. Returns
+    (library path, build seconds, nvcc output with ptxas's figures)."""
+    return _build.build(_SRC, NVCC_FLAGS)
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ndt_align_launch.argtypes = [ptr] * 7 + [i32] * 4 + [f32] * 7 + [i32] * 4 + [ptr]
+    lib.ndt_align_launch.restype = i32
+    lib.ndt_max_blocks.argtypes = [i32]
+    lib.ndt_max_blocks.restype = i32
+    threads, acc, out = i32(), i32(), i32()
+    lib.ndt_geometry(ctypes.byref(threads), ctypes.byref(acc), ctypes.byref(out))
+    if (threads.value, acc.value, out.value) != (THREADS, ACC, OUT):
+        raise RuntimeError("ndt_kernel.cu and its wrapper disagree on the geometry")
+    return lib
+
+
+@functools.lru_cache(maxsize=8)
+def max_blocks(device_index: int) -> int:
+    """Blocks of the kernel that the device holds at once: the most a
+    cooperative launch may ask for."""
+    with torch.cuda.device(device_index):
+        n = _library().ndt_max_blocks(device_index)
+    if n < 1:
+        raise RuntimeError("the device cannot launch the NDT kernel cooperatively")
+    return n
+
+
+def _check(fin, origin, src, mask, pose, gspec):
+    tensors = (fin, origin, src, mask, pose)
+    if any(t.device != fin.device for t in tensors) or fin.device.type != "cuda":
+        raise ValueError("the NDT kernel takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in (fin, origin, src, pose)) \
+            or mask.dtype != torch.bool:
+        raise TypeError("expected float32 fin/origin/src/pose and a bool mask")
+    n = src.shape[0]
+    if fin.shape != (gspec.num_voxels, 10) or origin.shape != (3,) \
+            or src.shape != (n, 3) or mask.shape != (n,) or pose.shape != (6,) or n < 1:
+        raise ValueError(f"bad shapes {tuple(fin.shape)} {tuple(origin.shape)} "
+                         f"{tuple(src.shape)} {tuple(mask.shape)} {tuple(pose.shape)}")
+    if not all(t.is_contiguous() for t in tensors) or fin.data_ptr() % 8:
+        raise ValueError("the NDT kernel takes contiguous tensors (fin 8-byte aligned)")
+
+
+def _launch(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float,
+            mode: int) -> torch.Tensor:
+    _check(fin, origin, src, mask, pose, gspec)
+    if nspec.max_iterations < 1:
+        raise ValueError("NdtSpec.max_iterations must be >= 1")
+    if nspec.ls_mode != "backtrack" or nspec.regather_dist != 0.0 \
+            or nspec.neighbor_mode != "direct7":
+        raise ValueError("only ls_mode='backtrack', regather_dist=0 and "
+                         "neighbor_mode='direct7' are ported")
+    dev = src.device
+    lib = _library()
+    blocks = min(-(-src.shape[0] // THREADS), max_blocks(dev.index))
+    out = torch.empty(OUT, dtype=torch.float32, device=dev)
+    partial = torch.empty(2 * blocks * ACC, dtype=torch.float32, device=dev)
+    s = -0.5 * d2
+    with torch.cuda.device(dev):
+        rc = lib.ndt_align_launch(
+            src.data_ptr(), mask.data_ptr(), fin.data_ptr(), origin.data_ptr(),
+            pose.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            src.shape[0], gspec.gx, gspec.gy, gspec.gz,
+            gspec.resolution, d1, s, 2.0 * s, 4.0 * s * s,
+            nspec.step_size, nspec.trans_eps,
+            nspec.max_iterations, nspec.ls_max_trials, mode, blocks,
+            _build.raw_stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"ndt_kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def align_record(fin, origin, src, mask, init_pose, gspec, nspec,
+                 d1: float, d2: float) -> torch.Tensor:
+    """One whole align on the card. Returns the kernel's record, float32[64]
+    on the device (see `RECORD`); nothing is read back."""
+    global launches
+    out = _launch(fin, origin, src, mask, init_pose, gspec, nspec, d1, d2, mode=0)
+    launches += 1
+    return out
+
+
+def hessian_pass(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float):
+    """(L, g [6], H [6,6]) of one score / gradient / Hessian pass at `pose`,
+    through the kernel's single-pass mode. Not counted in `launches`."""
+    out = _launch(fin, origin, src, mask, pose, gspec, nspec, d1, d2, mode=1)
+    return out[RECORD["L"]], out[RECORD["g"]], out[RECORD["H"]].reshape(6, 6)

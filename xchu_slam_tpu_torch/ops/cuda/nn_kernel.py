@@ -24,20 +24,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "nn_kernel.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from xchu_slam_tpu_torch.ops.cuda import _build
+
+_SRC = _build.CSRC / "nn_kernel.cu"
+NVCC_FLAGS = _build.BASE_FLAGS
 
 # the kernel's geometry (csrc/nn_kernel.cu: kSrcTile, kWarps, kRound)
 SRC_TILE = 128      # source points per block
@@ -88,40 +82,12 @@ def nearest_neighbor_ref(src: torch.Tensor, tgt: torch.Tensor,
     return torch.cat(idx_out), torch.cat(d2_out)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the NN kernel cannot be built")
-    return path
-
-
 def build() -> tuple[Path, float, str]:
     """Compile `csrc/nn_kernel.cu` unless the library for this source and
     these flags exists. Returns (library path, build seconds, nvcc output);
     the output (ptxas's figures) is kept beside the library, so a build
     that was already there returns it too."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"nn_kernel-{key}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return lib, 0.0, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    return _build.build(_SRC, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=1)
@@ -159,16 +125,6 @@ def _check(src, tgt, tgt_mask):
         raise ValueError("empty target cloud")
 
 
-def _raw_stream(device_index: int) -> int:
-    """The raw handle of PyTorch's current stream on that device. PyTorch's
-    internal getter costs a third of the public call; where a PyTorch version
-    lacks it, the public call gives the same stream."""
-    getter = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if getter is not None:
-        return getter(device_index)
-    return torch.cuda.current_stream(device_index).cuda_stream
-
-
 def _launch(src, tgt, tgt_mask, simple: bool):
     """Check, allocate the outputs and launch one of the two kernels on
     PyTorch's current stream."""
@@ -186,7 +142,7 @@ def _launch(src, tgt, tgt_mask, simple: bool):
              if src.device.index == torch.cuda.current_device()
              else torch.cuda.device(src.device))
     with guard:
-        stream = _raw_stream(src.device.index)
+        stream = _build.raw_stream(src.device.index)
         if simple:
             rc = lib.nn_launch_simple(src.data_ptr(), tgt.data_ptr(),
                                       tgt_mask.data_ptr(), n, m,

@@ -10,6 +10,11 @@ so Σxxᵀ − n·μμᵀ does not cancel in float32 and recentring is an index 
 
 Unlike the reference, the finalized table is the [V,10] base table (see
 types.VoxelGrid).
+
+`insert_points_pair`, `finalize`, `swap` and `recentre` take an optional
+`flag` (a 0-d bool tensor on the grid's device): the reference's `lax.cond`
+branches of the odometry step, decided on the card. Where the flag is false
+the grid comes back bit-equal; nothing is read back either way.
 """
 
 from __future__ import annotations
@@ -64,8 +69,10 @@ def make_grid(spec: GridSpec, origin: torch.Tensor) -> VoxelGrid:
 def centered_origin(spec: GridSpec, centre_xyz: torch.Tensor) -> torch.Tensor:
     """Voxel-aligned origin placing `centre_xyz` at the grid centre."""
     c = centre_xyz.to(torch.float32)
-    half = torch.stack([c.new_tensor(spec.gx // 2), c.new_tensor(spec.gy // 2),
-                        c.new_tensor(spec.gz // 2)]) * spec.resolution
+    # filled on the device: a host-built constant would be a copy per call
+    half = torch.stack([torch.full_like(c[0], spec.gx // 2),
+                        torch.full_like(c[0], spec.gy // 2),
+                        torch.full_like(c[0], spec.gz // 2)]) * spec.resolution
     return torch.floor((c - half) / spec.resolution) * spec.resolution
 
 
@@ -128,63 +135,90 @@ def insert_points(grid: VoxelGrid, xyz: torch.Tensor, mask: torch.Tensor,
 
 
 def insert_points_pair(ga: VoxelGrid, gb: VoxelGrid, xyz: torch.Tensor,
-                       mask: torch.Tensor, spec: GridSpec):
+                       mask: torch.Tensor, spec: GridSpec, flag=None):
     """Insert the same scan into both localmap grids with one scatter: the
     grids share their origin by construction (created, recentred and
-    swapped together), so the voxel indices coincide."""
+    swapped together), so the voxel indices coincide. With a false `flag`
+    every point goes to a dropped slot, so no statistic changes."""
+    if flag is not None:
+        mask = mask & flag
     flat, row = _point_rows(spec, ga.origin, xyz, mask)
     both = _accumulate(torch.cat([ga.stats, gb.stats], 1), flat,
                        torch.cat([row, row], 1))
     return ga._replace(stats=both[:, :10]), gb._replace(stats=both[:, 10:])
 
 
-def finalize(grid: VoxelGrid, spec: GridSpec) -> VoxelGrid:
-    """Per-voxel mean / covariance / inflated inverse covariance; voxels
-    with fewer than `min_points` points are invalid."""
-    n = grid.n
+def finalize_stats(stats: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Accumulators [V,10] → finalized rows [V,10]: per-voxel mean, inflated
+    inverse covariance and validity; voxels with fewer than `min_points`
+    points are invalid (zero rows)."""
+    n, s1, s2 = stats[:, 0], stats[:, 1:4], stats[:, 4:10]
     valid = n >= spec.min_points
     denom = torch.clamp(n, min=1.0)
-    m = grid.s1 / denom[:, None]  # voxel-local mean
+    m = s1 / denom[:, None]  # voxel-local mean
     mouter = torch.stack(
         [m[:, 0] * m[:, 0], m[:, 0] * m[:, 1], m[:, 0] * m[:, 2],
          m[:, 1] * m[:, 1], m[:, 1] * m[:, 2], m[:, 2] * m[:, 2]],
         -1,
     )
     bessel = torch.clamp(n - 1.0, min=1.0)
-    cov6 = (grid.s2 - n[:, None] * mouter) / bessel[:, None]
+    cov6 = (s2 - n[:, None] * mouter) / bessel[:, None]
     icov = linalg.inflate_and_invert_cov(linalg.sym6_to_mat(cov6),
                                          spec.eig_inflation)
     icov6 = torch.where(valid[:, None], linalg.mat_to_sym6(icov), 0.0)
     mean = torch.where(valid[:, None], m, 0.0)
-    fin = torch.cat([mean, icov6, valid.to(torch.float32)[:, None]], -1)
+    return torch.cat([mean, icov6, valid.to(torch.float32)[:, None]], -1)
+
+
+def finalize(grid: VoxelGrid, spec: GridSpec, flag=None) -> VoxelGrid:
+    """Per-voxel mean / covariance / inflated inverse covariance from the
+    grid's statistics; with a false `flag` the finalized table is kept."""
+    fin = finalize_stats(grid.stats, spec)
+    if flag is not None:
+        fin = torch.where(flag, fin, grid.fin)
     return grid._replace(fin=fin)
 
 
-def recentre(grid: VoxelGrid, new_centre: torch.Tensor, spec: GridSpec) -> VoxelGrid:
+def swap(ga: VoxelGrid, gb: VoxelGrid, spec: GridSpec, flag=None):
+    """The localmap refresh: the map being started (B) becomes the alignment
+    target, finalized, and B restarts empty at the same origin. Returns
+    (A, B); with a false `flag` both come back as they were."""
+    fresh = finalize(gb, spec)
+    empty = make_grid(spec, gb.origin.clone())
+    if flag is None:
+        return fresh, empty
+    return (VoxelGrid(origin=torch.where(flag, gb.origin, ga.origin),
+                      stats=torch.where(flag, fresh.stats, ga.stats),
+                      fin=torch.where(flag, fresh.fin, ga.fin)),
+            VoxelGrid(origin=gb.origin,
+                      stats=torch.where(flag, empty.stats, gb.stats),
+                      fin=torch.where(flag, empty.fin, gb.fin)))
+
+
+def recentre(grid: VoxelGrid, new_centre: torch.Tensor, spec: GridSpec,
+             flag=None) -> VoxelGrid:
     """Roll the grid so `new_centre` sits at the grid centre: content that
     stays in bounds moves by whole voxels, voxels shifted out are dropped,
-    newly exposed voxels start empty. Reads the 3-int shift back to the host
-    (recentres are rare: margin crossings only)."""
+    newly exposed voxels start empty. The whole-voxel shift stays on the
+    card: every row gathers its source row by an index computed from it (a
+    zero shift is the identity). With a false `flag` the shift is zero and
+    the origin is kept."""
     new_origin = centered_origin(spec, new_centre)
-    shift = torch.round((new_origin - grid.origin) / spec.resolution)
-    sx, sy, sz = (int(v) for v in shift.to(torch.int64).tolist())
-    dev = grid.stats.device
+    shift = torch.round((new_origin - grid.origin) / spec.resolution).to(torch.int64)
+    if flag is not None:
+        shift = torch.where(flag, shift, 0)
+        new_origin = torch.where(flag, new_origin, grid.origin)
+    idx = torch.arange(spec.num_voxels, device=grid.stats.device)
+    src3 = torch.stack([idx // (spec.gy * spec.gz), (idx // spec.gz) % spec.gy,
+                        idx % spec.gz], -1) + shift
+    ok = ((src3 >= 0) & (src3 < _dims(spec, src3))).all(dim=-1)
+    src = torch.where(ok, _flat(spec, src3), 0)
 
-    def ok_axis(n, s):
-        i = torch.arange(n, device=dev)
-        return (i + s >= 0) & (i + s < n)
+    def moved(a):
+        return torch.where(ok[:, None], a[src], 0.0)
 
-    ok = (ok_axis(spec.gx, sx)[:, None, None] & ok_axis(spec.gy, sy)[None, :, None]
-          & ok_axis(spec.gz, sz)[None, None, :])
-
-    def roll3(a):
-        g = a.reshape(spec.gx, spec.gy, spec.gz, a.shape[-1])
-        g = torch.roll(g, (-sx, -sy, -sz), dims=(0, 1, 2))
-        g = torch.where(ok[..., None], g, 0.0)
-        return g.reshape(a.shape)
-
-    return VoxelGrid(origin=new_origin, stats=roll3(grid.stats),
-                     fin=roll3(grid.fin))
+    return VoxelGrid(origin=new_origin, stats=moved(grid.stats),
+                     fin=moved(grid.fin))
 
 
 def _offsets7(device) -> torch.Tensor:

@@ -237,6 +237,32 @@ def render_scan(
     return body.astype(np.float32), world_inten[take]
 
 
+class RenderedScans:
+    """Indexable lazy scan sequence over (world, poses): scan k is rendered on
+    access with a generator of its own, seeded from (seed, k), so that the
+    prefetcher's staging threads do the rendering and a long sequence is
+    never resident at once. (The scans differ in their noise from those a
+    single generator consumed in order gives, as in the reference.)"""
+
+    def __init__(self, world: World, poses: np.ndarray, seed: int = 0,
+                 n_points: int = 24_000, index: WorldIndex | None = None,
+                 max_range: float = 60.0):
+        self.world = world
+        self.poses = np.asarray(poses)
+        self.seed = seed
+        self.n_points = n_points
+        self.index = index
+        self.max_range = max_range
+
+    def __len__(self) -> int:
+        return len(self.poses)
+
+    def __getitem__(self, k: int):
+        rng = np.random.default_rng((self.seed + 1) * 1_000_003 + k)
+        return render_scan(self.world, self.poses[k], rng, n_points=self.n_points,
+                           index=self.index, max_range=self.max_range)
+
+
 def _interp_traj(gt: np.ndarray, stamps: np.ndarray):
     """(pos(t), rpy(t), vel(t), acc(t)) interpolators over a pose trajectory.
 
