@@ -17,21 +17,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
               the wrapper's host cost and, at the ICP shape 4096 × 16384, ms
               per launch over many launches per CUDA-event pair, in turns:
               first version, kernel, kernel, first version, plain, library
-  4. ndt_kernel  the NDT align kernel against its plain version (the host
-              route of `ndt.align`) on the state of the circuit's first scans
-              at full width: one pass ((L, g, H) within 1e-5 of the largest
+  4. ndt_kernel  the NDT align kernel against its plain version
+              (`ndt.align_ref`) on the state of the circuit's first scans at
+              full width: one pass ((L, g, H) within 1e-5 of the largest
               entry), then 64 whole aligns, each from the host engine's own
               state and guess (|Δpose| ≤ 1e-4 on every one, the same
               iteration count on ≥ 9 in 10, reruns bit-identical); ms per
               align and per single pass from CUDA-graph replays, beside the
-              plain route on the host's clock
+              plain version on the host's clock; then what an align waits
+              for, each timed alone on a line of its own (an empty
+              cooperative launch, grid and cluster barriers, a dependent L2
+              load, the control step) and the latency floor they add up to
   5. main     the `run-sim` host engine on the 430-scan, 55 m circuit at
-              the default config; needs NN kernel launches ≥ 1, loops ≥ 1
-              and aligned ATE < 1.0 m
+              the default config; needs NN kernel launches ≥ 1, NDT kernel
+              launches ≥ one a scan, loops ≥ 1 and aligned ATE < 1.0 m
   6. session  the sensor-aided mapping session through the CLI's functions,
               in a temporary directory: `run-sim` on the same circuit with
               ISC loops, IMU + wheel + GPS inputs and a checkpoint every 200
-              scans (needs NN launches ≥ 1, loops ≥ 1, aligned ATE < 1.0 m);
+              scans (needs NN launches ≥ 1, NDT launches ≥ one a scan, loops
+              ≥ 1, aligned ATE < 1.0 m);
               every export file read back; `eval` of the exported trajectory
               against a ground-truth TUM file within 1e-3 of the run's own
               ATE; `localize` of 12 fresh scans against the checkpoint read
@@ -83,7 +87,7 @@ HBM_BYTES_PER_S = 3.35e12
 PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("nn_merge_kernel", "merge"),
                ("nn_kernel", "scan"),
-               ("ndt_align_kernel", "ndt align"))
+               ("ndt_align_kernel", "ndt align"))   # the probe kernels are not listed
 
 
 def phase_device() -> str:
@@ -120,7 +124,9 @@ def phase_build() -> dict:
         for entry, spill, regs, rest in re.findall(
                 r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
                 r"Used (\d+) registers([^\n]*)", log, re.S):
-            name = next(n for tag, n in PTXAS_NAMES if tag in entry)
+            name = next((n for tag, n in PTXAS_NAMES if tag in entry), None)
+            if name is None:
+                continue
             smem = re.search(r"(\d+) bytes smem", rest)
             figures[name] = {"registers": int(regs),
                              "smem_bytes": int(smem.group(1)) if smem else 0,
@@ -313,8 +319,7 @@ def ndt_bound_ms(n: int, iterations: float, trials: float) -> tuple[float, str, 
     read once, the record written once) at 3.35 TB/s against the passes' FP32
     operations at 67 TFLOP/s. Returns (bound, what bounds it, bytes ms,
     operations ms). Neither reaches a microsecond: what the kernel really
-    waits for is latency (a launch and one grid barrier per pass), which the
-    contract's bound does not count."""
+    waits for is latency, which `ndt_latency_floor` measures."""
     bytes_ms = 1e3 * (n * 12 + n + n * 7 * 40 + 64 * 4) / HBM_BYTES_PER_S
     flop = n * (iterations * NDT_FLOP_HESS + trials * NDT_FLOP_GRAD + NDT_FLOP_FIT)
     ops_ms = 1e3 * flop / FP32_FLOPS
@@ -322,10 +327,90 @@ def ndt_bound_ms(n: int, iterations: float, trials: float) -> tuple[float, str, 
             bytes_ms, ops_ms)
 
 
-def phase_ndt_kernel() -> dict:
-    """The NDT align kernel against its plain version (the host route of
-    `ndt.align`) on the state of the circuit's first scans: one pass, then
-    whole aligns, each from the host engine's own state and guess."""
+PROBE_CALLS = 20         # probe launches per CUDA graph
+CHASE_HOPS = 256
+CONTROL_STEPS = 8
+
+
+def ndt_latency_floor(smi: str, n: int, sums: torch.Tensor, nspec, d2: float,
+                      iterations: int, passes: int) -> dict:
+    """What an align waits for, each timed alone from CUDA-graph replays of
+    the kernel source's probe kernels and printed with the card: an empty
+    cooperative launch, `grid.sync()` on 64 blocks × 128 threads, at this
+    kernel's geometry and on every SM, `cluster.sync()` in one cluster of 8 and of 16
+    blocks, one dependent load from L2, one control step of a Hessian pass.
+    The floor of an align of p passes, i of them Hessian passes, is
+    launch + p × (barrier + one L2 round trip) + i × control."""
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, _trips = ndt_kernel.plan(n, ndt_kernel.max_blocks(0))
+    threads = ndt_kernel.THREADS
+
+    def timed(kind, reps, **kw):
+        return _graph_ms(lambda: ndt_kernel.probe(kind, reps, **kw), calls=PROBE_CALLS)
+
+    out = {}
+    for name, b, t in (("64x128", 64, 128), (f"{blocks}x{threads}", blocks, threads),
+                       (f"{sms}x{threads}", sms, threads)):
+        t0, t1, t5 = (timed("grid", r, blocks=b, threads=t) for r in (0, 1, 5))
+        out[f"grid {name}"] = {"launch_ms": t0, "one_sync_ms": t1, "five_syncs_ms": t5,
+                               "barrier_ms": (t5 - t1) / 4}
+        print(f"floor [{smi}]: cooperative launch of {name}: empty {t0:.5f} ms, "
+              f"1 grid.sync {t1:.5f} ms, 5 grid.sync {t5:.5f} ms: "
+              f"{(t5 - t1) / 4:.5f} ms a barrier")
+    for cluster in (8, 16):
+        held = ndt_kernel.probe_max_clusters(cluster, threads)
+        if held < 1:
+            out[f"cluster {cluster}x{threads}"] = None
+            print(f"floor [{smi}]: one cluster of {cluster} x {threads}: the card "
+                  "places none")
+            continue
+        t0, t1, t5 = (timed("cluster", r, blocks=cluster, threads=threads)
+                      for r in (0, 1, 5))
+        out[f"cluster {cluster}x{threads}"] = {
+            "launch_ms": t0, "one_sync_ms": t1, "five_syncs_ms": t5,
+            "barrier_ms": (t5 - t1) / 4, "held_at_once": held}
+        print(f"floor [{smi}]: one cluster of {cluster} x {threads} ({held} held at "
+              f"once): empty {t0:.5f} ms, 1 cluster.sync {t1:.5f} ms, 5 cluster.sync "
+              f"{t5:.5f} ms: {(t5 - t1) / 4:.5f} ms a barrier")
+    # a table the size of the voxel table (6 MB, L2-resident after the warm-up
+    # replay); every hop lands on another line
+    size = 1_536_000
+    nxt = ((torch.arange(size, device=dev, dtype=torch.int64) + 40_961) % size).to(torch.int32)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    c0, c1 = (timed("chase", h, inp=nxt, out=sink) for h in (0, CHASE_HOPS))
+    hop_ms = (c1 - c0) / CHASE_HOPS
+    out["l2_hop_ms"] = hop_ms
+    print(f"floor [{smi}]: {CHASE_HOPS} dependent L2 loads in one thread {c1:.5f} ms, "
+          f"none {c0:.5f} ms: {hop_ms:.6f} ms a round trip")
+    step = torch.zeros(6, device=dev)
+    kw = dict(inp=sums, out=step, two_s=-d2, step_size=nspec.step_size)
+    s1, s9 = (timed("control", r, **kw) for r in (1, 1 + CONTROL_STEPS))
+    control_ms = (s9 - s1) / CONTROL_STEPS
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(step).all()) or not float(step.abs().max()) > 0:
+        raise AssertionError(f"the control probe gave no step: {step.cpu().numpy()}")
+    out["control_ms"] = control_ms
+    print(f"floor [{smi}]: control step of a Hessian pass in one warp: 1 step "
+          f"{s1:.5f} ms, {1 + CONTROL_STEPS} steps {s9:.5f} ms: {control_ms:.5f} ms a step")
+    mine = out[f"grid {blocks}x{threads}"]
+    floor_ms = (mine["launch_ms"] + passes * (mine["barrier_ms"] + hop_ms)
+                + iterations * control_ms)
+    out.update(floor_ms=floor_ms, passes=passes, hessian_passes=iterations,
+               geometry=f"{blocks}x{threads}")
+    print(f"floor [{smi}]: an align of {passes} passes ({iterations} Hessian): launch "
+          f"{mine['launch_ms']:.5f} + {passes} x (barrier {mine['barrier_ms']:.5f} + L2 "
+          f"round trip {hop_ms:.6f}) + {iterations} x control {control_ms:.5f} = "
+          f"{floor_ms:.5f} ms")
+    return out
+
+
+def phase_ndt_kernel(smi: str) -> dict:
+    """The NDT align kernel against its plain version (`ndt.align_ref`) on the
+    state of the circuit's first scans: one pass, then whole aligns, each from
+    the host engine's own state and guess; its times, and the latency floor."""
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.models import odometry
     from xchu_slam_tpu_torch.ops import ndt, ndt_deriv
@@ -375,19 +460,21 @@ def phase_ndt_kernel() -> dict:
         if not torch.equal(rec, again):
             raise AssertionError(f"ndt align {i}: a rerun is not bit-identical: "
                                  f"{rec.cpu().numpy()} against {again.cpu().numpy()}")
-        state, out = odometry.step(state, filt.xyz, filt.mask, ospec)  # host route
+        want = ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec)
         rec_h = rec.cpu().numpy()
-        dpose = float(np.abs(rec_h[slot["pose"]] - out.pose.cpu().numpy()).max())
+        dpose = float(np.abs(rec_h[slot["pose"]] - want.pose.cpu().numpy()).max())
         max_dpose = max(max_dpose, dpose)
-        same_iters += int(rec_h[slot["iterations"]]) == out.iterations
+        same_iters += int(rec_h[slot["iterations"]]) == int(want.iterations)
         rows.append((int(rec_h[slot["iterations"]]), int(rec_h[slot["trials"]]),
-                     out.iterations))
+                     int(rec_h[slot["passes"]])))
         if not np.isfinite(rec_h[:12]).all() or dpose > NDT_POSE_TOL:
             raise AssertionError(f"ndt align {i}: |Δpose| {dpose:.3g} against the "
-                                 f"plain route (> {NDT_POSE_TOL}); record {rec_h[:12]}")
+                                 f"plain version (> {NDT_POSE_TOL}); record {rec_h[:12]}")
+        # the host engine's step (its align is the kernel's) carries the state on
+        state, _out = odometry.step(state, filt.xyz, filt.mask, ospec)
     if same_iters < 0.9 * NDT_ALIGNS:
         raise AssertionError(f"ndt align: only {same_iters} of {NDT_ALIGNS} aligns "
-                             "took the plain route's iteration count")
+                             "took the plain version's iteration count")
     iters = float(np.mean([r[0] for r in rows]))
     trials = float(np.mean([r[1] for r in rows]))
     print(f"ndt_kernel: one pass within {pass_err:.3g} of the largest entry; "
@@ -397,70 +484,90 @@ def phase_ndt_kernel() -> dict:
           f"line-search trials an align")
 
     # times on the last align's inputs, from CUDA-graph replays (a cooperative
-    # launch is captured like any other); the plain route on the host's clock
+    # launch is captured like any other); the plain version on the host's clock
     ms = _graph_ms(lambda: ndt_kernel.align_record(*args), calls=20)
     pass_ms = _graph_ms(lambda: ndt_kernel.hessian_pass(*args), calls=20)
     last = rows[-1]
+    passes = last[2]
     plain_s = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ndt.align(grid, filt.xyz, filt.mask, guess, g, nspec)
+        ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec)
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s))
     host_us = _host_us(lambda: ndt_kernel.align_record(*args), calls=200)
-    bound_ms, bound_by, bytes_ms, ops_ms = ndt_bound_ms(
-        int(filt.xyz.shape[0]), last[0], last[1])
-    print(f"ndt_kernel: {ms:.5f} ms per align on the card ({last[0]} iterations, "
-          f"{last[1]} trials: {last[0] + last[1] + 1} passes and barriers), "
-          f"{pass_ms:.5f} ms per launch of one Hessian pass; bound {bound_ms:.5f} ms "
-          f"by {bound_by} (bytes {bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: "
-          f"latency is what it waits for); wrapper host cost {host_us:.2f} us; "
-          f"plain route {plain_ms:.3f} ms for the same align on the host's clock "
-          f"(median of 5, a readback per pass)")
+    n = int(filt.xyz.shape[0])
+    bound_ms, bound_by, bytes_ms, ops_ms = ndt_bound_ms(n, last[0], last[1])
+    blocks, trips = ndt_kernel.plan(n, ndt_kernel.max_blocks(0))
+    print(f"ndt_kernel [{smi}]: {ms:.5f} ms per align on the card ({last[0]} "
+          f"iterations, {last[1]} trials, {passes} passes and barriers: the accepted "
+          f"trial gave the fitness sums on {sum(r[2] == r[0] + r[1] for r in rows)} of "
+          f"{NDT_ALIGNS}; {blocks} blocks "
+          f"x {ndt_kernel.THREADS} threads, {trips} trip), {pass_ms:.5f} ms per launch "
+          f"of one Hessian pass; bound {bound_ms:.5f} ms by {bound_by} (bytes "
+          f"{bytes_ms:.5f} ms, operations {ops_ms:.5f} ms: {100 * bound_ms / ms:.1f} % "
+          f"of it reached); wrapper host cost {host_us:.2f} us; plain version "
+          f"{plain_ms:.3f} ms for the same align on the host's clock (median of 5, a "
+          f"readback per pass)")
+    # the sums of the last align's last Hessian pass feed the control probe
+    sums = torch.zeros(ndt_kernel.ACC, device=dev)
+    sums[0] = rec[slot["L"]]
+    sums[1:7] = rec[slot["g"]] / (-d2)
+    Hm = rec[slot["H"]].reshape(6, 6)
+    sums[7:] = Hm[torch.triu(torch.ones(6, 6, dtype=torch.bool, device=dev))]
+    floor = ndt_latency_floor(smi, n, sums, nspec, d2, last[0], passes)
+    print(f"ndt_kernel [{smi}]: latency floor {floor['floor_ms']:.5f} ms for this "
+          f"align: {100 * floor['floor_ms'] / ms:.1f} % of it reached")
     return {"max_abs_err": max_dpose, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "pass_ms": pass_ms, "pass_rel_err": pass_err, "host_us": host_us,
             "same_iterations": same_iters, "aligns": NDT_ALIGNS,
-            "mean_iterations": iters, "mean_trials": trials}
+            "mean_iterations": iters, "mean_trials": trials,
+            "latency_floor_ms": floor["floor_ms"], "floor": floor}
 
 
-def phase_main() -> tuple[int, dict]:
+def _count_launches(fn):
+    """(fn's result, {"nn", "ndt"}: the launches of each kernel it made): the
+    counts are set to 0 just before and read just after."""
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+
+    ndt_kernel.launches = nn_kernel.launches = 0
+    out = fn()
+    return out, {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches}
+
+
+def phase_main() -> tuple[dict, dict]:
     from xchu_slam_tpu_torch.cli import run_sim
-    from xchu_slam_tpu_torch.ops.cuda import nn_kernel
 
-    nn_kernel.launches = 0
-    pipe, summary = run_sim(SCANS, RADIUS, SEED, "cuda")
-    launches = nn_kernel.launches
+    (pipe, summary), counts = _count_launches(lambda: run_sim(SCANS, RADIUS, SEED, "cuda"))
+    launches = counts["nn"]
     odo = pipe.odometry_trajectory()
     _, _, kf_opt = pipe.keyframe_trajectory()
-    summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches)
+    summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
+                   ndt_launches=counts["ndt"],
+                   mean_newton_iterations=round(float(np.mean(
+                       [r["iterations"] for r in pipe.odom_log])), 3))
     print("main: " + json.dumps(summary))
     if odo.shape != (SCANS - 1, 6) or not np.isfinite(odo).all() \
             or not np.isfinite(kf_opt).all():
         raise AssertionError("trajectory has the wrong shape or non-finite poses")
     if launches < 1:
         raise AssertionError("the main path launched no NN kernel")
+    if counts["ndt"] < SCANS - 1:
+        raise AssertionError(f"the main path launched the NDT kernel {counts['ndt']} "
+                             f"times over {SCANS} scans")
     if summary["loops"] < 1:
         raise AssertionError("the circuit closed no loop")
     if not summary["ate_rmse_m"] < 1.0:
         raise AssertionError(f"aligned ATE {summary['ate_rmse_m']} m ≥ 1.0 m")
-    return launches, summary
-
-
-def _count_launches(fn):
-    """(fn's result, NN kernel launches it made): the count is set to 0 just
-    before and read just after."""
-    from xchu_slam_tpu_torch.ops.cuda import nn_kernel
-
-    nn_kernel.launches = 0
-    out = fn()
-    return out, nn_kernel.launches
+    return counts, summary
 
 
 def phase_session() -> dict:
-    """NN launches of the session run, of `localize` and of the resume."""
+    """Launches of both kernels in the session run, in `localize` and in the
+    resume."""
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.io import export, kitti
     from xchu_slam_tpu_torch.utils import checkpoint, sim
@@ -476,12 +583,16 @@ def phase_session() -> dict:
 
     with tempfile.TemporaryDirectory(prefix="xchu_session_") as tmp:
         timers = StageTimers("cuda")
-        (pipe, summary), launches = _count_launches(lambda: cli.run_sim(
+        (pipe, summary), counts = _count_launches(lambda: cli.run_sim(
             SCANS, RADIUS, SEED, "cuda", on_scan=on_scan, loop_method="isc",
             imu=True, wheel=True, gps=True, out=tmp,
             checkpoint_every=CHECKPOINT_EVERY, timers=timers))
         paths = summary.pop("artifacts")
+        launches = counts["nn"]
         summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
+                       ndt_launches=counts["ndt"],
+                       mean_newton_iterations=round(float(np.mean(
+                           [r["iterations"] for r in pipe.odom_log])), 3),
                        gps_factors=int(pipe.graph.gps_mask.sum()),
                        artifacts=sorted(paths))
         print("session: " + json.dumps(summary))
@@ -489,8 +600,9 @@ def phase_session() -> dict:
         _, _, kf_opt = pipe.keyframe_trajectory()
         if not (np.isfinite(pipe.odometry_trajectory()).all() and np.isfinite(kf_opt).all()):
             raise AssertionError("session: non-finite poses")
-        if launches < 1:
-            raise AssertionError("the session launched no NN kernel")
+        if launches < 1 or counts["ndt"] < SCANS - 1:
+            raise AssertionError(f"the session launched the NN kernel {launches} and "
+                                 f"the NDT kernel {counts['ndt']} times")
         if summary["loops"] < 1:
             raise AssertionError("the session closed no ISC loop")
         if not summary["ate_rmse_m"] < 1.0:
@@ -537,12 +649,14 @@ def phase_session() -> dict:
         # localize fresh scans against the checkpoint, read from disk
         ckpt = os.path.join(tmp, "checkpoint.npz")
         t0 = time.perf_counter()
-        loc, loc_launches = _count_launches(lambda: cli.localize_sim(
+        loc, loc_counts = _count_launches(lambda: cli.localize_sim(
             ckpt, QUERIES, SCANS, RADIUS, SEED, fitness_thresh=FITNESS_THRESH,
             device="cuda"))
         loc_s = time.perf_counter() - t0
         rows = loc.pop("results")
+        loc_launches = loc_counts["nn"]
         loc.update(session="checkpoint.npz", nn_launches=loc_launches,
+                   ndt_launches=loc_counts["ndt"],
                    seconds=round(loc_s, 2), fitness_thresh=FITNESS_THRESH,
                    pos_err_m=[r.get("pos_err_m") for r in rows])
         print("localize: " + json.dumps(loc))
@@ -559,14 +673,18 @@ def phase_session() -> dict:
                                      f"{last_ckpt} on the card")
             return [again.process_scan(**kept[i][0])["pose"] for i in keep]
 
-        poses, resume_launches = _count_launches(resume)
+        poses, resume_counts = _count_launches(resume)
         want = np.stack([kept[i][1] for i in keep])
         if not np.array_equal(np.stack(poses), want):
             raise AssertionError("the resumed run's poses differ from the "
                                  f"uninterrupted run's by {np.abs(np.stack(poses) - want).max()}")
+        if resume_counts["ndt"] < RESUME_SCANS - 1:
+            raise AssertionError(f"the resume launched the NDT kernel "
+                                 f"{resume_counts['ndt']} times over {RESUME_SCANS} scans")
         print(f"resume: checkpoint of scan {last_ckpt} loaded, scans "
-              f"{keep[0]}-{keep[-1]} bit-identical to the uninterrupted run")
-    return {"session": launches, "localize": loc_launches, "resume": resume_launches}
+              f"{keep[0]}-{keep[-1]} bit-identical to the uninterrupted run; launches "
+              + json.dumps(resume_counts))
+    return {"session": counts, "localize": loc_counts, "resume": resume_counts}
 
 
 DEV_CHUNK = 16
@@ -640,12 +758,6 @@ def phase_device_engine(host_summary: dict) -> dict:
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.io import kitti
     from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
-    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
-
-    def counted(fn):
-        ndt_kernel.launches = nn_kernel.launches = 0
-        out = fn()
-        return out, ndt_kernel.launches, nn_kernel.launches
 
     # Part A under sync debug mode "error": a first chunk (seed, one eager
     # scan, the capture, replays) and a second (replays only)
@@ -681,8 +793,9 @@ def phase_device_engine(host_summary: dict) -> dict:
 
     # the circuit through run-sim --engine device, with its export
     with tempfile.TemporaryDirectory(prefix="xchu_device_") as tmp:
-        (pipe, summary), ndt_n, nn_n = counted(lambda: cli.run_sim(
+        (pipe, summary), counts = _count_launches(lambda: cli.run_sim(
             SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK, out=tmp))
+        ndt_n, nn_n = counts["ndt"], counts["nn"]
         paths = summary.pop("artifacts")
         summary.update(icp_verifications=pipe.icp_verifications, ndt_launches=ndt_n,
                        nn_launches=nn_n, part_a_replays=pipe.part_a_replays,
@@ -718,9 +831,10 @@ def phase_device_engine(host_summary: dict) -> dict:
     torch.cuda.empty_cache()
 
     # a short run with the radius retrieval and GPS factors
-    (pipe, short), ndt_r, nn_r = counted(lambda: cli.run_sim(
+    (pipe, short), counts = _count_launches(lambda: cli.run_sim(
         DEV_RERUN_SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK,
         loop_method="radius", gps=True))
+    ndt_r, nn_r = counts["ndt"], counts["nn"]
     short.update(gps_factors=int(pipe.graph.gps_mask.sum()), ndt_launches=ndt_r)
     print("device: radius + gps " + json.dumps(short))
     if short["keyframes"] < 2 or short["gps_factors"] < 1 or ndt_r < DEV_RERUN_SCANS - 1 \
@@ -764,13 +878,13 @@ def phase_determinism() -> None:
 def main() -> int:
     sys.path[:0] = [_HERE, os.path.join(_HERE, "tests")]
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     ptxas = phase_build()
     only_device = "--device-only" in sys.argv[1:]
     rec = None if only_device else phase_kernel()
     if "--kernel-only" in sys.argv[1:]:
         return 0
-    ndt_rec = None if only_device else phase_ndt_kernel()
+    ndt_rec = None if only_device else phase_ndt_kernel(smi)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     launches, host_summary = phase_main()
@@ -780,17 +894,18 @@ def main() -> int:
     by_path = {"main": launches, **phase_session()}
     phase_determinism()
     dev = phase_device_engine(host_summary)
-    by_path.update(dev["nn"])
+    nn_by_path = {**{k: v["nn"] for k, v in by_path.items()}, **dev["nn"]}
+    ndt_by_path = {**{k: v["ndt"] for k, v in by_path.items()}, **dev["ndt"]}
     kernels = [{"name": "nn_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/nn_kernel.cu",
                 "replaces": "xchu_slam_tpu/ops/pallas/nn_kernel.py:29",
-                "launches": launches, "launches_by_path": by_path, **rec,
+                "launches": launches["nn"], "launches_by_path": nn_by_path, **rec,
                 "ptxas": {k: v for k, v in ptxas.items() if k != "ndt align"}},
                {"name": "ndt_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/ndt_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/ops/ndt.py:477 and :539 (two "
                             "lax.while_loop that the reference leaves to XLA)",
-                "launches": dev["ndt"]["device"], "launches_by_path": dev["ndt"],
+                "launches": launches["ndt"], "launches_by_path": ndt_by_path,
                 **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))

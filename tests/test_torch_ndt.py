@@ -16,6 +16,7 @@ from xchu_slam_tpu_torch import convert
 from xchu_slam_tpu_torch.config import tiny_config as ttiny
 from xchu_slam_tpu_torch.models import odometry as todom
 from xchu_slam_tpu_torch.ops import ndt as tndt, ndt_deriv as tderiv, voxel_map as tvm
+from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
 from xchu_slam_tpu_torch.utils import sim
 
 torch.set_num_threads(2)
@@ -107,6 +108,88 @@ def test_align_on_graft_fixture_matches_reference(graft):
     assert abs(tres.score - float(jres.score)) <= 1e-4 * abs(float(jres.score))
     np.testing.assert_allclose(float(tres.fitness), float(jres.fitness), rtol=1e-4)
     np.testing.assert_allclose(float(tres.matched_frac), float(jres.matched_frac), rtol=1e-6)
+
+
+def _no_launch(*_a, **_k):
+    raise AssertionError("the NDT kernel was reached on CPU tensors")
+
+
+def test_align_on_cpu_is_the_plain_version_and_never_launches(graft, monkeypatch):
+    """`align` picks its route by where the tensors live: on CPU tensors it is
+    `align_ref` bit for bit, every field a tensor, and the kernel's launch
+    function is never reached."""
+    monkeypatch.setattr(ndt_kernel, "_launch", _no_launch)
+    _, grid, src, mask, pose0, gspec, _ = graft
+    ts = tvm.GridSpec(*gspec)
+    tgrid = convert.voxel_grid_from_ref(_np_tree(grid), ts)
+    nspec = tndt.NdtSpec(max_iterations=10, ls_max_trials=5)
+    before = ndt_kernel.launches
+    got = tndt.align(tgrid, _t(src), _t(mask), _t(pose0), ts, nspec)
+    want = tndt.align_ref(tgrid, _t(src), _t(mask), _t(pose0), ts, nspec)
+    assert ndt_kernel.launches == before
+    for a, b in zip(got, want):
+        assert isinstance(a, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    assert got.iterations.dtype == torch.int32 and got.converged.dtype == torch.bool
+    assert got.score.dtype == torch.float32 and int(got.iterations) >= 1
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("n", [1, 127, 128, 8192, 8193, 32768])
+def test_ndt_kernel_plan_covers_every_point_once(n, sms):
+    """`plan` gives every (point, neighbour) lane of every point to exactly
+    one thread of one trip, with no more blocks than the card holds, the
+    fewest trips, and the fewest blocks for those trips."""
+    blocks, trips = ndt_kernel.plan(n, sms)
+    per_block = ndt_kernel.THREADS // ndt_kernel.LANES
+    assert ndt_kernel.THREADS % 32 == 0 and 32 % ndt_kernel.LANES == 0
+    assert 1 <= blocks <= sms and trips >= 1
+    assert blocks * trips * per_block >= n
+    assert (trips - 1) * sms * per_block < n           # no fewer trips would do
+    assert (blocks - 1) * trips * per_block < n        # nor fewer blocks
+    # the kernel's grid-stride loop, a warp at a time: warp bases below the
+    # item count, a stride of blocks × threads
+    items = n * ndt_kernel.LANES
+    stride = blocks * ndt_kernel.THREADS
+    bases = np.arange(0, stride, 32)
+    walked = (bases[:, None] + stride * np.arange(trips)[None, :]).ravel()
+    walked = walked[walked < items]
+    lanes = (walked[:, None] + np.arange(32)[None, :]).ravel()
+    points = lanes[lanes < items] // ndt_kernel.LANES
+    assert np.array_equal(np.bincount(points, minlength=n),
+                          np.full(n, ndt_kernel.LANES))
+    assert -(-items // stride) == trips
+
+
+def test_ndt_kernel_plan_rejects_empty_input():
+    with pytest.raises(ValueError):
+        ndt_kernel.plan(0, 132)
+    with pytest.raises(ValueError):
+        ndt_kernel.plan(8192, 0)
+
+
+def test_host_branch_step_returns_the_aligns_scalars_as_host_values(monkeypatch):
+    """The host-branch step folds the align's trip count, flag and score into
+    its one readback: they come back as an int, a bool and a float equal to
+    the align's tensors, and the pose is the align's."""
+    monkeypatch.setattr(ndt_kernel, "_launch", _no_launch)
+    tcfg = ttiny().override({"filter.outlier_method": "statistical"})
+    tspec = todom.spec_from_config(tcfg)
+    rng = np.random.default_rng(3)
+    pts = (rng.normal(size=(2048, 3)) * [10.0, 10.0, 1.5]).astype(np.float32)
+    mask = rng.random(2048) > 0.1
+    st = todom.init_state(tspec, torch.zeros(6), _t(pts), _t(mask))
+    moved = (pts + np.float32([0.2, -0.1, 0.0])).astype(np.float32)
+    res = tndt.align(st.grid_a, _t(moved), _t(mask), todom._guess(st), tspec.gspec,
+                     tspec.nspec)
+    new, out = todom.step(st, _t(moved), _t(mask), tspec)
+    assert type(out.iterations) is int and out.iterations == int(res.iterations) >= 1
+    assert type(out.converged) is bool and out.converged == bool(res.converged)
+    assert type(out.score) is float and out.score == float(res.score)
+    assert torch.equal(out.pose, res.pose) and torch.equal(new.pose, res.pose)
+    assert type(out.inserted) is bool and type(out.swapped) is bool
+    dev_new, dev_out = todom.step(st, _t(moved), _t(mask), tspec, on_device=True)
+    assert torch.equal(dev_out.pose, out.pose) and int(dev_out.iterations) == out.iterations
+    assert float(dev_out.score) == out.score and bool(dev_out.converged) == out.converged
 
 
 def test_odometry_steps_match_reference():

@@ -15,7 +15,7 @@ from xchu_slam_tpu import config as jconfig
 from xchu_slam_tpu.models import pipeline as jpipe
 from xchu_slam_tpu_torch import cli, config as tconfig, convert
 from xchu_slam_tpu_torch.models import pipeline as tpipe
-from xchu_slam_tpu_torch.ops.cuda import _build
+from xchu_slam_tpu_torch.ops.cuda import _build, ndt_kernel
 from xchu_slam_tpu_torch.utils import metrics, se3, sim
 
 torch.set_num_threads(2)
@@ -176,6 +176,26 @@ def test_cli_run_sim_on_cpu(capsys, tmp_path):
     assert out["ate_rmse_m"] < 0.1
     assert all((tmp_path / "sim").joinpath(name).exists()
                for name in ("odom_tum.txt", "finalMap.pcd", "pose_graph.g2o"))
+
+
+@pytest.mark.parametrize("sensors", [False, True], ids=["plain", "imu-wheel-gps"])
+def test_host_engine_on_cpu_takes_the_plain_ndt_version(monkeypatch, sensors):
+    """`run-sim --engine host --device cpu`, with and without the sensor
+    guess: the NDT kernel's launch function is never reached, and every scan
+    logs its trip count as an int."""
+    def no_launch(*_a, **_k):
+        raise AssertionError("the NDT kernel was reached on CPU tensors")
+
+    monkeypatch.setattr(ndt_kernel, "_launch", no_launch)
+    before = ndt_kernel.launches
+    kw = dict(loop_method="isc", imu=True, wheel=True, gps=True) if sensors else {}
+    pipe, summary = cli.run_sim(8, 20.0, 0, "cpu", overrides=(
+        "filter.max_points=4096", "pgo.max_keyframes=64", "loop.submap_points=4096"), **kw)
+    assert ndt_kernel.launches == before
+    assert summary["scans"] == 8 and len(pipe.odom_log) == 7
+    assert all(type(r["iterations"]) is int and r["iterations"] >= 1
+               for r in pipe.odom_log)
+    assert summary["ate_rmse_m"] < 0.1
 
 
 def test_no_cpu_fallback_without_a_card():

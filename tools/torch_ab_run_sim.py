@@ -14,11 +14,11 @@ two engines in `--engine` and no `--parent`: this tree's two engines, in the
 order first, second, second, first. Each turn is a fresh process that runs
 the circuit twice (the first run holds the cold start: CUDA context, lazy
 kernel loading, the nvcc build; the second is warm). Prints one JSON line per
-process and, last, one with the rates per side. Between two trees the result
-(keyframes, loops, ATE) must be the same in all turns; the two engines see
-scans with different noise (the device engine renders each from a generator
-of its own), so there each engine must only agree with itself. The card's
-name and power limit come first.
+process and, last, one with the rates per side. Every side must agree with
+itself in all its turns (keyframes, loops, ATE): two trees may align with
+another arithmetic, and the two engines see scans with different noise (the
+device engine renders each from a generator of its own). The card's name and
+power limit come first.
 """
 
 from __future__ import annotations
@@ -79,8 +79,7 @@ def main() -> int:
         return {json.dumps({k: r[k] for k in ("keyframes", "loops", "ate_rmse_m")})
                 for name in names for both in runs[name] for r in both}
 
-    groups = [list(sides)] if args.parent is not None else [[e] for e in engines]
-    for names in groups:
+    for names in ([name] for name in sides):
         if len(results(names)) != 1:
             raise AssertionError(f"the results of {names} differ: {sorted(results(names))}")
     print(json.dumps({name: {

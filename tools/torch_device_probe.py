@@ -12,7 +12,7 @@ times between one pair of CUDA events (the host enqueues nothing inside the
 window), and torch.profiler counts the kernels of one call.
 
   filter            `ops/filter.filter_scan` of one staged scan
-  ndt_align         `ops/ndt.align(on_device=True)`: the hand-written kernel
+  ndt_align         `ops/ndt.align` on CUDA tensors: the hand-written kernel
   insert            `voxel_map.insert_points_pair` under a device flag
   finalize          `voxel_map.finalize` under a device flag (once a scan)
   swap              `voxel_map.swap` under a device flag (a second finalize)
@@ -126,8 +126,7 @@ def main() -> int:
     g = spec.gspec
     filt = filter_scan(cloud, cfg.filter)
     guess = odometry._guess(st)
-    pose = ndt.align(st.grid_a, filt.xyz, filt.mask, guess, g, spec.nspec,
-                     on_device=True).pose
+    pose = ndt.align(st.grid_a, filt.xyz, filt.mask, guess, g, spec.nspec).pose
     pts_map = se3.rotate_translate(pose, filt.xyz)
     yes = torch.ones((), dtype=torch.bool, device=args.device)
     no = torch.zeros((), dtype=torch.bool, device=args.device)
@@ -135,7 +134,7 @@ def main() -> int:
     pieces = {
         "filter": lambda: filter_scan(cloud, cfg.filter),
         "ndt_align": lambda: ndt.align(st.grid_a, filt.xyz, filt.mask, guess, g,
-                                       spec.nspec, on_device=True),
+                                       spec.nspec),
         "insert": lambda: vm.insert_points_pair(st.grid_a, st.grid_b, pts_map,
                                                 filt.mask, g, flag=yes),
         "finalize": lambda: vm.finalize(st.grid_a, g, flag=yes),

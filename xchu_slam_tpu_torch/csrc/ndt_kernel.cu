@@ -5,52 +5,89 @@
 // The reference has no TPU kernel for this work: it leaves
 // xchu_slam_tpu/ops/ndt.py::newton_align (two `lax.while_loop`s) around
 // ops/ndt_deriv.py::ndt_value_grad_hess and ops/voxel_map.py::lookup_neighbors
-// to XLA. The plain PyTorch version is the host route of
-// xchu_slam_tpu_torch/ops/ndt.py::align, whose Python loops read every pass
-// back to decide whether to go on.
+// to XLA. The plain PyTorch version is xchu_slam_tpu_torch/ops/ndt.py::
+// align_ref, whose Python loops read every pass back to decide whether to go
+// on.
 //
 // What bounds it on an H100. One pass is N = 8192 source points against the 7
 // DIRECT7 voxels of each: 57,344 pairs, a gather of at most 2.3 MB from a
-// 6.1 MB [V,10] table that stays in the 50 MB L2, and ~10 MFLOP. Bytes
-// (0.7 µs at 3.35 TB/s) and operations (0.2 µs at 67 TFLOP/s) bound a pass
-// below a microsecond; an align is 2-3 Newton iterations of 2-3 passes, each
-// a dependent step, so the bound is latency: one launch, and per pass one
-// grid-wide barrier, the L2 round trips of the gather and the serial 6×6
-// control arithmetic of one thread.
+// 6.1 MB [V,10] table that stays in the 50 MB L2, and 10-30 MFLOP. Bytes
+// (0.7 µs at 3.35 TB/s) and operations (0.2-0.5 µs at 67 TFLOP/s) bound a
+// pass below a microsecond; an align is 2-3 Newton iterations of 2-3 passes,
+// each a dependent step, so what it waits for is latency: one launch (1.4 µs
+// in a CUDA graph), and per pass one grid-wide barrier (1.07 µs), dependent
+// round trips to L2 (0.15 µs each when the card is idle, several times that
+// when every SM asks at once) and, after a Hessian pass, the 6×6 control
+// arithmetic (1.5 µs). The design keeps each of these short or off the path
+// rather than the arithmetic small. (Times: chip_smoke.py's floor lines,
+// NVIDIA H100 80GB HBM3 at 700 W.)
 //
 // Design.
 // - One cooperative launch per align (`cudaLaunchCooperativeKernel`; every
-//   block resident, 64 blocks of 128 threads for 8192 points on 132 SMs).
-//   The loops live inside the kernel; `grid.sync()` separates a pass's
-//   per-block partial sums from the control step that reads them. Work that
-//   the loop predicates rule out is never issued.
-// - A pass. Thread i owns source points i, i + grid, ...: it transforms the
-//   point by the trial pose (R = Rz·Ry·Rx), finds its voxel from the pose the
-//   iteration started at (the neighbourhood is fixed for the iteration's
-//   line-search trials, as in the reference; the voxel index is recomputed
-//   from that pose rather than stored, so a pass keeps no state), reads the
-//   centre voxel and its 6 face neighbours with a bounds check each, and
-//   accumulates L, Σc·a6 and, on the Hessian pass, the upper triangle of H in
-//   registers: 28 floats. The terms of H that depend on the point alone
-//   (J = [I | dR·q], the second-order angle term) are applied once per point
-//   to Σc·B and Σc·Bδ, not once per pair.
-// - Sums in a fixed order, no atomics: a shuffle tree inside each warp, the
-//   warps of a block in order, one 28-float partial per block in a scratch
-//   array (two buffers, by pass parity, so that a fast block cannot overwrite
-//   what a slow one still reads), and after the barrier every block sums all
-//   partials in block order. Reruns are bit-identical.
-// - Control. After the barrier every block holds the same 28 sums, and its
-//   thread 0 runs the same control arithmetic on them: the Jacobi-scaled,
-//   Gershgorin-shifted 6×6 Cholesky solve, the Armijo + curvature backtrack
-//   with its quadratic interpolation, expansion and `stuck` exit, the pose
-//   update and the convergence test. All blocks reach the same decision from
-//   the same bits, so no second barrier broadcasts it. The file is compiled
-//   with -fmad=false: the thresholds are compared in fp32 as the plain
-//   version compares them, without fused multiply-adds.
+//   block resident, one block of 512 threads an SM: 128 blocks for 8192
+//   points on 132 SMs, see ops/cuda/ndt_kernel.py::plan). The loops live
+//   inside the kernel; `grid.sync()` separates a pass's per-block partial
+//   sums from the control step that reads them. Work that the loop predicates
+//   rule out is never issued. Two barriers written by hand (a counter that
+//   only grows, polled by one thread a block; partial sums sent as 8-byte
+//   words of value and pass tag, polled by every reader) were both slower
+//   than `grid.sync()` and are not here.
+// - A pass works on (point, neighbour) pairs, a lane per pair: 8 lanes own one
+//   source point, lanes 0-6 its DIRECT7 voxels (centre, ±x, ±y, ±z), lane 7
+//   idles. Every lane issues its one row gather (5 × 8 bytes) at once, so a
+//   pass waits for one round trip to L2 where a thread that walks its 7 rows
+//   in turn waits for seven, and its instruction stream is a seventh as long
+//   (straight-line code runs at the pace instructions are fetched). A lane
+//   transforms its point by the trial pose (R = Rz·Ry·Rx), finds the voxel
+//   from the pose the iteration started at (the neighbourhood is fixed for
+//   the iteration's line-search trials, as in the reference), and adds its
+//   pair's share of L, Σc·a6 and, on the Hessian pass, the upper triangle of
+//   H to 28 registers. Every term of H is linear in the pair's (c·B, c·Bδ),
+//   so the point's J-terms are added pair by pair too: no exchange inside the
+//   8 lanes, at the price of arithmetic the card has to spare. Only the
+//   fitness sums need the point: a 3-step shuffle min over its 8 lanes.
+// - What a thread would ask L2 for again stays in shared memory, where the
+//   launch gives every thread one pair for good (one trip of the grid-stride
+//   loop: N ≤ 64 points a resident block): the block's points, loaded once,
+//   and the voxel row each Hessian pass gathered, which the iteration's
+//   line-search trials and the fitness pass share. Only Hessian passes
+//   gather. A larger N runs the same passes on a grid-stride loop with no
+//   state between them: the voxel is recomputed from the iteration's pose
+//   and gathered again, to the same bits.
+// - Every line-search trial also adds the fitness sums, three more lanes of
+//   the same reduction: the accepted trial ran at the align's last pose on
+//   its last neighbourhood, so the separate fitness pass (and its barrier)
+//   runs only where the line search ended otherwise.
+// - Sums in a fixed order, no atomics: a transposing butterfly inside each
+//   warp (31 shuffles for all 32 sums: at each step a lane hands half of its
+//   values to its partner, and lane k ends with sum k), the warps of a block
+//   in order, one 32-float partial per block in a scratch array (two buffers,
+//   by pass parity, so that a fast block cannot overwrite what a slow one
+//   still reads). After the barrier every block reads all partials, every
+//   load issued before the first add, and sums them in the same tree. Reruns
+//   are bit-identical.
+// - Control. After the barrier every block holds the same sums, and its
+//   first warp runs the same control arithmetic on them, all lanes alike: the
+//   Jacobi-scaled, Gershgorin-shifted 6×6 Cholesky solve, the Armijo +
+//   curvature backtrack with its quadratic interpolation, expansion and
+//   `stuck` exit, the pose update and the convergence test. The two tiers of
+//   the Newton direction are one instruction stream on two matrices, so even
+//   lanes solve the first and odd lanes the second at once. The same warp
+//   then publishes the next pass's poses and their ten rotation products (a
+//   lane per sine and cosine, a lane per product), so a pass starts with no
+//   trigonometry and no barrier of its own. All blocks reach the same
+//   decision from the same bits, so no second barrier broadcasts it. The
+//   file is compiled with -fmad=false: the thresholds are compared in fp32
+//   as the plain version compares them, without fused multiply-adds; the
+//   passes' pair arithmetic asks for its fused multiply-adds by name.
 // - Outputs stay on the card: pose, iterations, converged, φ at the accepted
-//   pose, matched fraction and fitness on the last neighbourhood, and the
-//   last Hessian pass's (L, g, H). `mode` 1 stops after one Hessian pass at
-//   the initial pose (the smoke run compares that pass with the plain one).
+//   pose, matched fraction and fitness on the last neighbourhood, the last
+//   Hessian pass's (L, g, H) and the number of passes run. `mode` 1 stops
+//   after one Hessian pass at the initial pose (the smoke run compares that
+//   pass with the plain one).
+// - The probe kernels at the end time what the align waits for, each alone:
+//   an empty launch, grid and cluster barriers, a chain of dependent L2
+//   loads, the control step.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,15 +97,19 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 8;  // lanes that own one source point: 7 voxels + 1 idle
 constexpr int kAcc = 28;   // L, g[6], H upper triangle [21]
+constexpr int kRow = 32;   // floats of one partial: kAcc padded to a warp
+constexpr int kFit = 28;   // fitness sums in the padding: matched count, Σ min d², mask count
 constexpr int kOut = 64;   // floats of the result record
+constexpr unsigned kFull = 0xffffffffu;
 
 // slots of the result record
 constexpr int kOutIters = 6, kOutConverged = 7, kOutPhi = 8, kOutFrac = 9,
               kOutFitness = 10, kOutTrials = 11, kOutL = 12, kOutG = 13,
-              kOutH = 19;
+              kOutH = 19, kOutPasses = 55;
 
 struct NdtParams {
   const float* src;            // [n,3]
@@ -77,34 +118,32 @@ struct NdtParams {
   const float* origin;         // [3]
   const float* init_pose;      // [6]
   float* out;                  // [kOut]
-  float* partial;              // [2][blocks][kAcc]
+  float* partial;              // [2][blocks][kRow]
   int n, gx, gy, gz;
   float res, d1, s, two_s, four_s2, step_size, trans_eps;
   int max_iter, ls_max, mode;
 };
 
-// The ten matrices Z·Y·X a pass needs: R, dR/d(r,p,y), d²R/d(rr,rp,ry,pp,py,yy).
-// Each axis factor keeps its pattern under differentiation with (c, s, one)
-// replaced by (−s, c, 0) and then (−c, −s, 0).
-__device__ void rot_product(const float* rpy, int which, float* m) {
-  float sr, cr, sp, cp, sy, cy;
-  sincosf(rpy[0], &sr, &cr);
-  sincosf(rpy[1], &sp, &cp);
-  sincosf(rpy[2], &sy, &cy);
-  // derivative order per axis for matrix `which`
+// The ten matrices Z·Y·X a pass needs: R, dR/d(r,p,y), d²R/d(rr,rp,ry,pp,py,yy),
+// from the sines and cosines of (roll, pitch, yaw). Each axis factor keeps its
+// pattern under differentiation with (c, s, one) replaced by (−s, c, 0) and
+// then (−c, −s, 0).
+__device__ __forceinline__ void rot_product(float sr, float cr, float sp, float cp,
+                                            float sy, float cy, int which, float* m) {
+  // derivative order per axis for matrix `which`, two bits each
   // 0: R; 1: r; 2: p; 3: y; 4: rr; 5: rp; 6: ry; 7: pp; 8: py; 9: yy
-  const int ox_[10] = {0, 1, 0, 0, 2, 1, 1, 0, 0, 0};
-  const int oy_[10] = {0, 0, 1, 0, 0, 1, 0, 2, 1, 0};
-  const int oz_[10] = {0, 0, 0, 1, 0, 0, 1, 0, 1, 2};
+  const int ox = (0x01604 >> (2 * which)) & 3;   // {0, 1, 0, 0, 2, 1, 1, 0, 0, 0}
+  const int oy = (0x18410 >> (2 * which)) & 3;   // {0, 0, 1, 0, 0, 1, 0, 2, 1, 0}
+  const int oz = (0x91040 >> (2 * which)) & 3;   // {0, 0, 0, 1, 0, 0, 1, 0, 1, 2}
   float cx = cr, sx = sr, onex = 1.0f;
-  if (ox_[which] == 1) { cx = -sr; sx = cr; onex = 0.0f; }
-  if (ox_[which] == 2) { cx = -cr; sx = -sr; onex = 0.0f; }
+  if (ox == 1) { cx = -sr; sx = cr; onex = 0.0f; }
+  if (ox == 2) { cx = -cr; sx = -sr; onex = 0.0f; }
   float cyy = cp, syy = sp, oney = 1.0f;
-  if (oy_[which] == 1) { cyy = -sp; syy = cp; oney = 0.0f; }
-  if (oy_[which] == 2) { cyy = -cp; syy = -sp; oney = 0.0f; }
+  if (oy == 1) { cyy = -sp; syy = cp; oney = 0.0f; }
+  if (oy == 2) { cyy = -cp; syy = -sp; oney = 0.0f; }
   float cz = cy, sz = sy, onez = 1.0f;
-  if (oz_[which] == 1) { cz = -sy; sz = cy; onez = 0.0f; }
-  if (oz_[which] == 2) { cz = -cy; sz = -sy; onez = 0.0f; }
+  if (oz == 1) { cz = -sy; sz = cy; onez = 0.0f; }
+  if (oz == 2) { cz = -cy; sz = -sy; onez = 0.0f; }
   // ZY = Z·Y, then (ZY)·X
   const float zy00 = cz * cyy, zy01 = -sz * oney, zy02 = cz * syy;
   const float zy10 = sz * cyy, zy11 = cz * oney, zy12 = sz * syy;
@@ -114,215 +153,308 @@ __device__ void rot_product(const float* rpy, int which, float* m) {
   m[6] = zy20 * onex; m[7] = zy22 * sx;             m[8] = zy22 * cx;
 }
 
-__device__ __forceinline__ int upper_index(int i, int j) {
+__host__ __device__ constexpr int upper_index(int i, int j) {
   // position of (i, j), i <= j, in the row-major upper triangle of a 6×6
   return i * 6 - (i * (i - 1)) / 2 + (j - i);
 }
 
+__device__ __forceinline__ float dot3(float a0, float a1, float a2,
+                                      float b0, float b1, float b2) {
+  return fmaf(a2, b2, fmaf(a1, b1, a0 * b0));
+}
+
+// Built with -DNDT_TICKS (tools/torch_ndt_phase_probe.py), the first thread of
+// block 0 leaves the SM's cycle count at each phase of the last pass of each
+// kind, and after the control step of the last Hessian pass.
+#ifdef NDT_TICKS
+__device__ long long g_ticks[32];
+#define TICK(slot) \
+  do { if (blockIdx.x == 0 && threadIdx.x == 0) g_ticks[slot] = clock64(); } while (0)
+#else
+#define TICK(slot)
+#endif
+
 struct Shared {
-  float rot[10][9];     // products at the trial pose
-  float rot_ctx[9];     // R at the pose the iteration started at
+  float4 rot[11][3];    // products at the trial pose: 9 floats each, padded to 12;
+  //                       the eleventh is R at the pose the iteration started at
   float eval[6];        // the pose of this pass
   float ctx[6];         // the pose the neighbourhood belongs to
-  float warp_part[kWarps][kAcc];
-  float tot[kAcc];
-  // loop decisions of thread 0, read by the block; one variable per decision,
-  // so that the next decision is never written while a warp still reads this one
-  int stop_after_pass, ls_done, more;
+  float warp_part[kWarps][kRow];
+  float tot[kRow];
+  // where the launch gives every thread one pair for good (one trip of the
+  // grid-stride loop): the point of each 8 lanes, and the voxel row the last
+  // Hessian pass gathered for the thread, kept for the passes that share its
+  // neighbourhood (the line-search trials and the fitness pass)
+  float4 point[kThreads / kLanes];     // x, y, z, mask
+  float origin[3];                     // the grid's origin
+  float row[10][kThreads];             // voxel mean in the map frame 3, icov upper 6, valid
+  // loop decisions of the first thread, read by the block; one variable per
+  // decision, so that the next decision is never written while a warp still
+  // reads this one
+  int stop_after_pass, ls_done, more, fit_known;
 };
 
-// One pass over the block's points: per-thread accumulators, block partial,
-// grid barrier, fixed-order total in sh.tot. kind 0: L, g, H; 1: L, g;
-// 2: fitness (matched count, Σ min d², mask count).
+// (M · q) for the padded 3×3 `m`
+__device__ __forceinline__ void mat_vec(const float4* m, float q0, float q1, float q2,
+                                        float& r0, float& r1, float& r2) {
+  const float4 a = m[0], b = m[1], c = m[2];
+  r0 = dot3(a.x, a.y, a.z, q0, q1, q2);
+  r1 = dot3(a.w, b.x, b.y, q0, q1, q2);
+  r2 = dot3(b.z, b.w, c.x, q0, q1, q2);
+}
+
+// Sums v[k] over the warp for every k at once: at each step a lane keeps one
+// half of its values and hands the other to its partner, so the butterfly
+// costs 16 + 8 + 4 + 2 + 1 shuffles. Lane k returns the warp's sum of v[k].
+template <int half>
+__device__ __forceinline__ void fold(float (&v)[kRow], int lane) {
+  const bool up = (lane & half) != 0;
+#pragma unroll
+  for (int k = 0; k < half; ++k) {
+    const float send = up ? v[k] : v[k + half];
+    const float keep = up ? v[k + half] : v[k];
+    v[k] = keep + __shfl_xor_sync(kFull, send, half);
+  }
+}
+
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[kRow], int lane) {
+  fold<16>(v, lane);
+  fold<8>(v, lane);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  return v[0];
+}
+
+// The control warp publishes the pose of the next pass and the pose its
+// neighbourhood belongs to, with their rotation products: lanes 0-5 take one
+// sine and cosine each, lanes 0-9 build one product each at the trial pose,
+// lane 10 R at the neighbourhood's pose. The block reads them after the
+// barrier that follows every control step.
+__device__ __forceinline__ void publish(Shared& sh, const float eval[6], const float ctx[6]) {
+  const int lane = threadIdx.x & 31;
+  float angle = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (lane == k) angle = eval[3 + k];
+    if (lane == 3 + k) angle = ctx[3 + k];
+  }
+  float sn, cs;
+  sincosf(angle, &sn, &cs);
+  const int at = lane == 10 ? 3 : 0;      // lane 10 reads the neighbourhood's angles
+  const float sr = __shfl_sync(kFull, sn, at), cr = __shfl_sync(kFull, cs, at);
+  const float sp = __shfl_sync(kFull, sn, at + 1), cp = __shfl_sync(kFull, cs, at + 1);
+  const float sy = __shfl_sync(kFull, sn, at + 2), cy = __shfl_sync(kFull, cs, at + 2);
+  if (lane <= 10)
+    rot_product(sr, cr, sp, cp, sy, cy, lane == 10 ? 0 : lane,
+                reinterpret_cast<float*>(sh.rot[lane]));
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) { sh.eval[k] = eval[k]; sh.ctx[k] = ctx[k]; }
+  }
+}
+
+// One pass over the pairs: per-lane accumulators, block partial, grid barrier,
+// fixed-order total in sh.tot. kind 0: L, g, H; 1: L, g and the fitness sums
+// (matched count, Σ min d², mask count); 2: the fitness sums alone.
 template <int kind>
-__device__ void pass(const NdtParams& p, Shared& sh, int& buf,
-                     cg::grid_group& grid) {
-  const int tid = threadIdx.x;
-  const int n_rot = (kind == 0) ? 10 : (kind == 1 ? 4 : 1);
-  if (tid < n_rot) rot_product(sh.eval + 3, tid, sh.rot[tid]);
-  if (tid == 32) rot_product(sh.ctx + 3, 0, sh.rot_ctx);
-  __syncthreads();
+__device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
+                                     cg::grid_group& grid) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  TICK(kind * 8);
 
-  float acc[kAcc];
+  float acc[kRow];
 #pragma unroll
-  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kRow; ++k) acc[k] = 0.0f;
 
-  const float o0 = p.origin[0], o1 = p.origin[1], o2 = p.origin[2];
-  const float* R = sh.rot[0];
-  const float* Rc = sh.rot_ctx;
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + tid; i < p.n; i += stride) {
-    if (!p.mask[i]) continue;
-    const float q0 = p.src[3 * i], q1 = p.src[3 * i + 1], q2 = p.src[3 * i + 2];
-    if (kind == 2) acc[2] += 1.0f;
-    // the point under the trial pose, and its voxel under the iteration's pose
-    float pt[3], pc[3];
+  const float* R = reinterpret_cast<const float*>(sh.rot[0]);
+  const float* Rc = reinterpret_cast<const float*>(sh.rot[10]);
+  const float o0 = sh.origin[0], o1 = sh.origin[1], o2 = sh.origin[2];
+  // DIRECT7 order: centre, +x, −x, +y, −y, +z, −z; lane 7 of a point idles
+  const int v = lane & (kLanes - 1);
+  const int dx = (v == 1) - (v == 2), dy = (v == 3) - (v == 4), dz = (v == 5) - (v == 6);
+  const long long items = (long long)p.n * kLanes;
+  const long long stride = (long long)gridDim.x * kThreads;
+  // the trip count is the warp's, so that every lane reaches the shuffles
+  const bool kept = items <= stride;    // one trip: a thread's pair never changes
+  for (long long base = (long long)blockIdx.x * kThreads + (tid & ~31); base < items;
+       base += stride) {
+    const int i = (int)((base + lane) / kLanes);
+    float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
+    bool point_on = false;
+    if (kept) {
+      const float4 q = sh.point[tid / kLanes];
+      q0 = q.x; q1 = q.y; q2 = q.z; point_on = q.w != 0.0f;
+    } else if (i < p.n) {
+      // the mask and the point are asked for together
+      const unsigned char m = __ldg(p.mask + i);
+      q0 = __ldg(p.src + 3 * i); q1 = __ldg(p.src + 3 * i + 1); q2 = __ldg(p.src + 3 * i + 2);
+      point_on = m != 0;
+    }
+    // the point under the trial pose
+    float pt[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
+    for (int a = 0; a < 3; ++a)
       pt[a] = q0 * R[3 * a] + q1 * R[3 * a + 1] + q2 * R[3 * a + 2] + sh.eval[a];
-      pc[a] = q0 * Rc[3 * a] + q1 * Rc[3 * a + 1] + q2 * Rc[3 * a + 2] + sh.ctx[a];
+    // the voxel's mean in the map frame (c), its inverse covariance, and
+    // whether the pair counts: kept from the last Hessian pass, or gathered
+    // at the point's voxel under the iteration's pose
+    float c0, c1, c2, xx, xy, xz, yy, yz, zz;
+    bool on;
+    if (kept && kind != 0) {
+      c0 = sh.row[0][tid]; c1 = sh.row[1][tid]; c2 = sh.row[2][tid];
+      xx = sh.row[3][tid]; xy = sh.row[4][tid]; xz = sh.row[5][tid];
+      yy = sh.row[6][tid]; yz = sh.row[7][tid]; zz = sh.row[8][tid];
+      on = sh.row[9][tid] != 0.0f;
+    } else {
+      float pc[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        pc[a] = q0 * Rc[3 * a] + q1 * Rc[3 * a + 1] + q2 * Rc[3 * a + 2] + sh.ctx[a];
+      const int nx = (int)floorf((pc[0] - o0) / p.res) + dx;
+      const int ny = (int)floorf((pc[1] - o1) / p.res) + dy;
+      const int nz = (int)floorf((pc[2] - o2) / p.res) + dz;
+      on = point_on && v < 7 && nx >= 0 && nx < p.gx && ny >= 0 && ny < p.gy
+           && nz >= 0 && nz < p.gz;
+      float2 r0 = {0.0f, 0.0f}, r1 = r0, r2 = r0, r3 = r0, r4 = r0;
+      if (on) {
+        const long long flat = ((long long)nx * p.gy + ny) * p.gz + nz;
+        const float2* row = reinterpret_cast<const float2*>(p.fin + 10 * flat);
+        r0 = __ldg(row); r1 = __ldg(row + 1); r2 = __ldg(row + 2);
+        r3 = __ldg(row + 3); r4 = __ldg(row + 4);
+      }
+      on = on && r4.y > 0.0f;
+      c0 = (o0 + (float)nx * p.res) + r0.x;
+      c1 = (o1 + (float)ny * p.res) + r0.y;
+      c2 = (o2 + (float)nz * p.res) + r1.x;
+      xx = r1.y; xy = r2.x; xz = r2.y; yy = r3.x; yz = r3.y; zz = r4.x;
+      if (kept) {
+        sh.row[0][tid] = c0; sh.row[1][tid] = c1; sh.row[2][tid] = c2;
+        sh.row[3][tid] = xx; sh.row[4][tid] = xy; sh.row[5][tid] = xz;
+        sh.row[6][tid] = yy; sh.row[7][tid] = yz; sh.row[8][tid] = zz;
+        sh.row[9][tid] = on ? 1.0f : 0.0f;
+      }
     }
-    const int ix = (int)floorf((pc[0] - o0) / p.res);
-    const int iy = (int)floorf((pc[1] - o1) / p.res);
-    const int iz = (int)floorf((pc[2] - o2) / p.res);
+    const float d0 = pt[0] - c0, d1_ = pt[1] - c1, d2_ = pt[2] - c2;
 
+    if (kind >= 1) {
+      // fitness: the nearest of the point's valid voxel means, a min over its
+      // 8 lanes. A line-search trial adds it too: where the trial's pose is
+      // the align's last, no fitness pass follows.
+      float dmin = on ? d0 * d0 + d1_ * d1_ + d2_ * d2_ : INFINITY;
+#pragma unroll
+      for (int off = 1; off < kLanes; off <<= 1)
+        dmin = fminf(dmin, __shfl_xor_sync(kFull, dmin, off));
+      if (point_on && v == 0) {
+        acc[kFit + 2] += 1.0f;
+        if (dmin < INFINITY) { acc[kFit] += 1.0f; acc[kFit + 1] += dmin; }
+      }
+    }
+    if (kind == 2 || !on) continue;
+
+    float a6[6];
+    a6[0] = dot3(xx, xy, xz, d0, d1_, d2_);
+    a6[1] = dot3(xy, yy, yz, d0, d1_, d2_);
+    a6[2] = dot3(xz, yz, zz, d0, d1_, d2_);
+    const float x = dot3(d0, d1_, d2_, a6[0], a6[1], a6[2]);
+    const float c = p.d1 * expf(p.s * fmaxf(x, 0.0f));
+    acc[0] += c;
     float D[3][3];      // D[a][k] = (dR_k · q)_a
-    float E[3][6];      // E[a][m] = (d²R_m · q)_a
-    if (kind <= 1) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < 3; ++k) mat_vec(sh.rot[1 + k], q0, q1, q2, D[0][k], D[1][k], D[2][k]);
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float* M = sh.rot[1 + k];
-          D[a][k] = M[3 * a] * q0 + M[3 * a + 1] * q1 + M[3 * a + 2] * q2;
-        }
+    for (int k = 0; k < 3; ++k)
+      a6[3 + k] = dot3(a6[0], a6[1], a6[2], D[0][k], D[1][k], D[2][k]);
+    float ca[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      ca[k] = c * a6[k];
+      acc[1 + k] += ca[k];
     }
     if (kind == 0) {
+      // 4s²·c·a6⊗a6
 #pragma unroll
-      for (int m = 0; m < 6; ++m)
+      for (int i2 = 0; i2 < 6; ++i2) {
+        const float sa = p.four_s2 * ca[i2];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float* M = sh.rot[4 + m];
-          E[a][m] = M[3 * a] * q0 + M[3 * a + 1] * q1 + M[3 * a + 2] * q2;
-        }
-    }
-
-    float A[21];        // Σ_v c·a6⊗a6 of this point, upper triangle
-    float CB[6];        // Σ_v c·B
-    float Cbd[3];       // Σ_v c·Bδ
-    if (kind == 0) {
-#pragma unroll
-      for (int k = 0; k < 21; ++k) A[k] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) CB[k] = 0.0f;
-      Cbd[0] = Cbd[1] = Cbd[2] = 0.0f;
-    }
-    float dmin = INFINITY;
-
-#pragma unroll
-    for (int v = 0; v < 7; ++v) {
-      // DIRECT7 order: centre, +x, −x, +y, −y, +z, −z
-      const int nx = ix + (v == 1) - (v == 2);
-      const int ny = iy + (v == 3) - (v == 4);
-      const int nz = iz + (v == 5) - (v == 6);
-      if (nx < 0 || nx >= p.gx || ny < 0 || ny >= p.gy || nz < 0 || nz >= p.gz)
-        continue;
-      const long long flat = ((long long)nx * p.gy + ny) * p.gz + nz;
-      const float2* row = reinterpret_cast<const float2*>(p.fin + 10 * flat);
-      const float2 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2),
-                   r3 = __ldg(row + 3), r4 = __ldg(row + 4);
-      if (!(r4.y > 0.0f)) continue;
-      const float d0 = pt[0] - ((o0 + (float)nx * p.res) + r0.x);
-      const float d1_ = pt[1] - ((o1 + (float)ny * p.res) + r0.y);
-      const float d2_ = pt[2] - ((o2 + (float)nz * p.res) + r1.x);
-      if (kind == 2) {
-        dmin = fminf(dmin, d0 * d0 + d1_ * d1_ + d2_ * d2_);
-        continue;
+        for (int j2 = i2; j2 < 6; ++j2)
+          acc[7 + upper_index(i2, j2)] = fmaf(sa, a6[j2], acc[7 + upper_index(i2, j2)]);
       }
-      const float xx = r1.y, xy = r2.x, xz = r2.y, yy = r3.x, yz = r3.y, zz = r4.x;
-      float a6[6];
-      a6[0] = xx * d0 + xy * d1_ + xz * d2_;
-      a6[1] = xy * d0 + yy * d1_ + yz * d2_;
-      a6[2] = xz * d0 + yz * d1_ + zz * d2_;
-      const float x = d0 * a6[0] + d1_ * a6[1] + d2_ * a6[2];
-      const float c = p.d1 * expf(p.s * fmaxf(x, 0.0f));
-      acc[0] += c;
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        a6[3 + k] = a6[0] * D[0][k] + a6[1] * D[1][k] + a6[2] * D[2][k];
-      float ca[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        ca[k] = c * a6[k];
-        acc[1 + k] += ca[k];
-      }
-      if (kind == 0) {
-        int u = 0;
-#pragma unroll
-        for (int i2 = 0; i2 < 6; ++i2)
-#pragma unroll
-          for (int j2 = i2; j2 < 6; ++j2) A[u++] += ca[i2] * a6[j2];
-        CB[0] += c * xx; CB[1] += c * xy; CB[2] += c * xz;
-        CB[3] += c * yy; CB[4] += c * yz; CB[5] += c * zz;
-        Cbd[0] += ca[0]; Cbd[1] += ca[1]; Cbd[2] += ca[2];
-      }
-    }
-
-    if (kind == 2) {
-      if (dmin < INFINITY) { acc[0] += 1.0f; acc[1] += dmin; }
-      continue;
-    }
-    if (kind == 0) {
-      // JᵀBJ with J = [I | D] on B = Σ_v c·B, and the second-order angle
-      // term Bδ·(d²R·q) on Σ_v c·Bδ
-      float J[21];
-      const float B[3][3] = {{CB[0], CB[1], CB[2]}, {CB[1], CB[3], CB[4]},
-                             {CB[2], CB[4], CB[5]}};
+      // 2s·(JᵀBJ with J = [I | D] on this pair's c·B, and the second-order
+      // angle term c·Bδ·(d²R·q))
+      const float ct = p.two_s * c;
+      const float B[3][3] = {{ct * xx, ct * xy, ct * xz}, {ct * xy, ct * yy, ct * yz},
+                             {ct * xz, ct * yz, ct * zz}};
       float BD[3][3];
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+      for (int a = 0; a < 3; ++a) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k)
-          BD[a][k] = B[a][0] * D[0][k] + B[a][1] * D[1][k] + B[a][2] * D[2][k];
+        for (int j2 = a; j2 < 3; ++j2) acc[7 + upper_index(a, j2)] += B[a][j2];
 #pragma unroll
-      for (int i2 = 0; i2 < 3; ++i2)
-#pragma unroll
-        for (int j2 = i2; j2 < 3; ++j2) J[upper_index(i2, j2)] = B[i2][j2];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) J[upper_index(a, 3 + k)] = BD[a][k];
-      const int pack[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
+        for (int k = 0; k < 3; ++k) {
+          BD[a][k] = dot3(B[a][0], B[a][1], B[a][2], D[0][k], D[1][k], D[2][k]);
+          acc[7 + upper_index(a, 3 + k)] += BD[a][k];
+        }
+      }
+      const float w0 = p.two_s * ca[0], w1 = p.two_s * ca[1], w2 = p.two_s * ca[2];
+      int m2 = 0;       // rr, rp, ry, pp, py, yy
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
         for (int l = k; l < 3; ++l) {
-          const float dbd = D[0][k] * BD[0][l] + D[1][k] * BD[1][l] + D[2][k] * BD[2][l];
-          const int m = pack[k][l];
-          const float bb = Cbd[0] * E[0][m] + Cbd[1] * E[1][m] + Cbd[2] * E[2][m];
-          J[upper_index(3 + k, 3 + l)] = dbd + bb;
+          float e0, e1, e2;
+          mat_vec(sh.rot[4 + m2], q0, q1, q2, e0, e1, e2);
+          ++m2;
+          const float dbd = dot3(D[0][k], D[1][k], D[2][k], BD[0][l], BD[1][l], BD[2][l]);
+          acc[7 + upper_index(3 + k, 3 + l)] += dbd + dot3(w0, w1, w2, e0, e1, e2);
         }
-#pragma unroll
-      for (int k = 0; k < 21; ++k) acc[7 + k] += p.four_s2 * A[k] + p.two_s * J[k];
     }
   }
-
-  // block partial: shuffle tree per warp, then the warps in order
-#pragma unroll
-  for (int k = 0; k < kAcc; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    acc[k] = v;
-  }
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int k = 0; k < kAcc; ++k) sh.warp_part[tid >> 5][k] = acc[k];
-  }
+  TICK(kind * 8 + 1);
+  // block partial: the butterfly in each warp, then the warps in order
+  const float mine = warp_transpose_sum(acc, lane);
+  sh.warp_part[warp][lane] = mine;
   __syncthreads();
-  float* part = p.partial + (size_t)buf * gridDim.x * kAcc;
-  if (tid < kAcc) {
-    float v = sh.warp_part[0][tid];
-    for (int w = 1; w < kWarps; ++w) v += sh.warp_part[w][tid];
-    part[blockIdx.x * kAcc + tid] = v;
+  float* part = p.partial + (size_t)buf * gridDim.x * kRow;
+  if (tid < kRow) {
+    float t = sh.warp_part[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += sh.warp_part[w][tid];
+    part[blockIdx.x * kRow + tid] = t;
   }
+  TICK(kind * 8 + 2);
   grid.sync();
-  if (tid < kAcc) {
-    float v = __ldcg(part + tid);
-    for (int b = 1; b < (int)gridDim.x; ++b) v += __ldcg(part + b * kAcc + tid);
-    sh.tot[tid] = v;
+  TICK(kind * 8 + 3);
+  // every block sums all partials in one order: thread t the blocks t/32,
+  // t/32 + 16, ... of sum t%32, then the warps in order
+  float t = 0.0f;
+  const int cells = gridDim.x * kRow;
+#pragma unroll 8
+  for (int e = tid; e < cells; e += kThreads) t += __ldcg(part + e);
+  sh.warp_part[warp][lane] = t;
+  __syncthreads();
+  if (tid < kRow) {
+    float u = sh.warp_part[0][tid];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) u += sh.warp_part[w][tid];
+    sh.tot[tid] = u;
   }
   __syncthreads();
+  TICK(kind * 8 + 4);
   buf ^= 1;
 }
 
 // Unrolled 6×6 Cholesky solve; false if a pivot was not positive.
-__device__ bool chol_solve6(const float A[6][6], const float b[6], float x[6]) {
+__device__ __forceinline__ bool chol_solve6(const float A[6][6], const float b[6],
+                                            float x[6]) {
   float L[6][6];
   bool ok = true;
+#pragma unroll
   for (int i = 0; i < 6; ++i)
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = A[i][j];
+#pragma unroll
       for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
       if (i == j) {
         ok = ok && (s > 1e-10f);
@@ -332,78 +464,134 @@ __device__ bool chol_solve6(const float A[6][6], const float b[6], float x[6]) {
       }
     }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = b[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
     y[i] = s / L[i][i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
     x[i] = s / L[i][i];
   }
   return ok;
 }
 
-__device__ float dot6(const float* a, const float* b) {
+__device__ __forceinline__ float dot6(const float* a, const float* b) {
   float s = a[0] * b[0];
+#pragma unroll
   for (int k = 1; k < 6; ++k) s = s + a[k] * b[k];
   return s;
 }
 
-// Jacobi-scaled, Gershgorin-shifted Newton direction (ops/ndt.py::newton_direction).
-__device__ void newton_direction(const float g[6], const float H[6][6], float dp[6]) {
+// Jacobi-scaled, Gershgorin-shifted Newton direction (ops/ndt.py::
+// newton_direction). Called by a whole warp with the same arguments in every
+// lane: even lanes solve the lightly damped tier, odd lanes the shifted one.
+__device__ __forceinline__ void newton_direction(const float g[6], const float H[6][6],
+                                                 float dp[6]) {
   float S[6], Hs[6][6], Sg[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) S[i] = 1.0f / sqrtf(fabsf(H[i][i]) + 1e-8f);
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     Sg[i] = S[i] * g[i];
+#pragma unroll
     for (int j = 0; j < 6; ++j) Hs[i][j] = H[i][j] * S[i] * S[j];
   }
-  float M[6][6], x1[6], x2[6];
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) M[i][j] = Hs[i][j] + (i == j ? 1e-3f : 0.0f);
-  const bool ok1 = chol_solve6(M, Sg, x1);
   float lower = INFINITY, upper = -INFINITY;
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float sum = 0.0f;
+#pragma unroll
     for (int j = 0; j < 6; ++j) sum = sum + fabsf(Hs[i][j]);
     const float radius = sum - fabsf(Hs[i][i]);
     lower = fminf(lower, Hs[i][i] - radius);
     upper = fmaxf(upper, Hs[i][i] + radius);
   }
   const float shift = fmaxf(-lower, 0.0f) * 1.05f + 1e-3f * (fabsf(upper) + 1e-3f);
+  const float damp = (threadIdx.x & 1) ? shift : 1e-3f;
+  float M[6][6], x[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) M[i][j] = Hs[i][j] + (i == j ? shift : 0.0f);
-  chol_solve6(M, Sg, x2);
-  for (int i = 0; i < 6; ++i) dp[i] = -(S[i] * (ok1 ? x1[i] : x2[i]));
-  if (!(dot6(dp, g) < 0.0f))   // scaled steepest descent if numerics betray us
+#pragma unroll
+    for (int j = 0; j < 6; ++j) M[i][j] = Hs[i][j] + (i == j ? damp : 0.0f);
+  const bool ok = chol_solve6(M, Sg, x);
+  const bool ok1 = __shfl_sync(kFull, (int)ok, 0) != 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float x1 = __shfl_sync(kFull, x[i], 0), x2 = __shfl_sync(kFull, x[i], 1);
+    dp[i] = -(S[i] * (ok1 ? x1 : x2));
+  }
+  if (!(dot6(dp, g) < 0.0f)) {  // scaled steepest descent if numerics betray us
+#pragma unroll
     for (int i = 0; i < 6; ++i) dp[i] = -(S[i] * S[i]) * g[i];
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// What follows a Hessian pass: (L, g, H) from the 28 sums, the Newton
+// direction, its unit vector, slope and first step length. A whole warp calls
+// it, all lanes alike.
+__device__ __forceinline__ void newton_step(const float* tot, float two_s, float step_size,
+                                            float g[6], float H[6][6], float dir[6],
+                                            float& dphi0, float& alpha0) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) g[k] = two_s * tot[1 + k];
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j) { H[i][j] = tot[7 + upper_index(i, j)]; H[j][i] = H[i][j]; }
+  float dp[6];
+  newton_direction(g, H, dp);
+  float nn = dp[0] * dp[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) nn = nn + dp[k] * dp[k];
+  const float dpn = sqrtf(nn) + 1e-12f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) dir[k] = dp[k] / dpn;
+  dphi0 = dot6(g, dir);
+  alpha0 = fminf(dpn, step_size);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 ndt_align_kernel(const NdtParams p) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Shared sh;
   const int tid = threadIdx.x;
-  const bool lead = tid == 0;
-  const bool writer = lead && blockIdx.x == 0;
+  const bool lead = tid < 32;          // the control warp; its lanes agree
+  const bool first = tid == 0;         // writes the block's shared decisions
+  const bool writer = first && blockIdx.x == 0;
   int buf = 0;
 
-  // control state, alive in thread 0 of every block (all blocks agree)
-  float pose[6], dir[6], g[6], H[6][6];
+  // control state, alive in the first warp of every block (all blocks agree)
+  float pose[6], ctx[6], eval[6], dir[6], g[6], H[6][6];
   float phi0 = 0.0f, dphi0 = 0.0f, alpha0 = 0.0f, a = 0.0f;
   float best_a = 0.0f, best_phi = INFINITY, phi_acc = INFINITY, phi_fin = INFINITY;
+  float a_eval = 0.0f, fit_n = 0.0f, fit_d = 0.0f, fit_m = 0.0f;   // the last trial's step and fitness sums
   int iters = 0, trials = 0;
   bool converged = false;
 
   if (writer)
     for (int k = 0; k < kOut; ++k) p.out[k] = 0.0f;   // unused slots read as 0
   if (lead) {
-    for (int k = 0; k < 6; ++k) {
-      pose[k] = p.init_pose[k];
-      sh.eval[k] = pose[k];
-      sh.ctx[k] = pose[k];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) { pose[k] = p.init_pose[k]; ctx[k] = pose[k]; }
+    publish(sh, pose, ctx);
+  }
+  if (tid >= 32 && tid < 35) sh.origin[tid - 32] = p.origin[tid - 32];
+  if ((long long)p.n * kLanes <= (long long)gridDim.x * kThreads && tid >= 64
+      && tid < 64 + kThreads / kLanes) {
+    // one trip: the block's points stay in shared memory for every pass
+    const int i = blockIdx.x * (kThreads / kLanes) + tid - 64;
+    float4 q = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (i < p.n) {
+      q.x = __ldg(p.src + 3 * i); q.y = __ldg(p.src + 3 * i + 1); q.z = __ldg(p.src + 3 * i + 2);
+      q.w = __ldg(p.mask + i) ? 1.0f : 0.0f;
     }
+    sh.point[tid - 64] = q;
   }
   __syncthreads();
 
@@ -411,41 +599,40 @@ ndt_align_kernel(const NdtParams p) {
     pass<0>(p, sh, buf, grid);                       // L, g, H at `pose`
     if (lead) {
       phi0 = sh.tot[0];
-      for (int k = 0; k < 6; ++k) g[k] = p.two_s * sh.tot[1 + k];
-      int u = 7;
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) { H[i][j] = sh.tot[u]; H[j][i] = sh.tot[u]; ++u; }
-      if (writer) {
-        p.out[kOutL] = phi0;
-        for (int k = 0; k < 6; ++k) p.out[kOutG + k] = g[k];
-        for (int i = 0; i < 6; ++i)
-          for (int j = 0; j < 6; ++j) p.out[kOutH + 6 * i + j] = H[i][j];
-      }
-      float dp[6];
-      newton_direction(g, H, dp);
-      float nn = dp[0] * dp[0];
-      for (int k = 1; k < 6; ++k) nn = nn + dp[k] * dp[k];
-      const float dpn = sqrtf(nn) + 1e-12f;
-      for (int k = 0; k < 6; ++k) dir[k] = dp[k] / dpn;
-      dphi0 = dot6(g, dir);
-      alpha0 = fminf(dpn, p.step_size);
+      newton_step(sh.tot, p.two_s, p.step_size, g, H, dir, dphi0, alpha0);
+      TICK(24);
       a = alpha0;
       best_a = 0.0f; best_phi = INFINITY; phi_acc = INFINITY;
-      for (int k = 0; k < 6; ++k) sh.eval[k] = pose[k] + a * dir[k];
-      sh.stop_after_pass = p.mode;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
+      publish(sh, eval, ctx);
+      if (first) sh.stop_after_pass = p.mode;
+      if (writer) {
+        p.out[kOutL] = phi0;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) p.out[kOutG + k] = g[k];
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+#pragma unroll
+          for (int j = 0; j < 6; ++j) p.out[kOutH + 6 * i + j] = H[i][j];
+      }
     }
     __syncthreads();
-    if (sh.stop_after_pass) return;                              // mode 1: one pass only
+    TICK(25);
+    if (sh.stop_after_pass) return;                  // mode 1: one pass only
 
     // Armijo + curvature backtrack (ops/ndt.py::_backtrack)
     bool done = false;
     for (int t = 0; t < p.ls_max; ++t) {
+      if (lead) a_eval = a;
       pass<1>(p, sh, buf, grid);                     // L, g at pose + a·dir
       if (lead) {
         ++trials;
+        fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2];
         const float mu = 1e-4f, nu = 0.9f;
         const float phi_a = sh.tot[0];
         float ga[6];
+#pragma unroll
         for (int k = 0; k < 6; ++k) ga[k] = p.two_s * sh.tot[1 + k];
         const float dphi_a = dot6(ga, dir);
         const bool suff = phi_a <= phi0 + mu * a * dphi0;
@@ -459,8 +646,12 @@ ndt_align_kernel(const NdtParams p) {
         const bool stuck = fabsf(a_next - a) < 1e-12f * fmaxf(a, 1e-12f);
         if (accept || stuck) { phi_acc = phi_a; done = true; }
         if (!accept) a = a_next;
-        for (int k = 0; k < 6; ++k) sh.eval[k] = pose[k] + a * dir[k];
-        sh.ls_done = done;
+        if (!done && t + 1 < p.ls_max) {             // another trial follows
+#pragma unroll
+          for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
+          publish(sh, eval, ctx);
+        }
+        if (first) sh.ls_done = done;
       }
       __syncthreads();
       if (sh.ls_done) break;
@@ -471,41 +662,92 @@ ndt_align_kernel(const NdtParams p) {
       if (done) { alpha = a; phi_fin = phi_acc; }
       else if (best_phi < phi0) { alpha = best_a; phi_fin = best_phi; }
       else { alpha = 0.0f; phi_fin = phi0; }       // nothing improved: no step
-      // the neighbourhood of the fitness pass is this iteration's
-      for (int k = 0; k < 6; ++k) sh.ctx[k] = pose[k];
+#pragma unroll
       for (int k = 0; k < 6; ++k) pose[k] = pose[k] + alpha * dir[k];
       ++iters;
       converged = alpha < p.trans_eps;
       const bool more = !converged && iters < p.max_iter;
-      for (int k = 0; k < 6; ++k) sh.eval[k] = pose[k];
-      if (more)
-        for (int k = 0; k < 6; ++k) sh.ctx[k] = pose[k];
-      sh.more = more;
+      // the next Hessian pass gathers at the new pose; the fitness pass
+      // keeps this iteration's neighbourhood
+      if (more) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) ctx[k] = pose[k];
+      }
+      publish(sh, pose, ctx);
+      if (first) {
+        sh.more = more;
+        // the accepted trial ran at this very pose, on this neighbourhood
+        sh.fit_known = done && alpha == a_eval;
+      }
     }
     __syncthreads();
     if (!sh.more) break;
   }
 
-  pass<2>(p, sh, buf, grid);                          // fitness on the last neighbourhood
+  if (!sh.fit_known) {
+    pass<2>(p, sh, buf, grid);                        // fitness on the last neighbourhood
+    if (lead) { fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2]; }
+  }
   if (writer) {
     for (int k = 0; k < 6; ++k) p.out[k] = pose[k];
     p.out[kOutIters] = (float)iters;
     p.out[kOutConverged] = converged ? 1.0f : 0.0f;
     p.out[kOutPhi] = phi_fin;
-    p.out[kOutFrac] = sh.tot[0] / fmaxf(sh.tot[2], 1.0f);
-    p.out[kOutFitness] = sh.tot[1] / fmaxf(sh.tot[0], 1.0f);
+    p.out[kOutFrac] = fit_n / fmaxf(fit_m, 1.0f);
+    p.out[kOutFitness] = fit_d / fmaxf(fit_n, 1.0f);
     p.out[kOutTrials] = (float)trials;
+    p.out[kOutPasses] = (float)(iters + trials + (sh.fit_known ? 0 : 1));
   }
+}
+
+// ---- probes: what an align waits for, each alone ---- //
+
+// `syncs` grid-wide barriers and nothing else (a cooperative launch).
+__global__ void probe_grid_kernel(int syncs) {
+  cg::grid_group grid = cg::this_grid();
+  for (int s = 0; s < syncs; ++s) grid.sync();
+}
+
+// `syncs` cluster-wide barriers and nothing else (one thread-block cluster).
+__global__ void probe_cluster_kernel(int syncs) {
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int s = 0; s < syncs; ++s) cluster.sync();
+}
+
+// `hops` loads from L2, each address taken from the load before it.
+__global__ void probe_chase_kernel(const int* next, int hops, int* out) {
+  int j = 0;
+  for (int h = 0; h < hops; ++h) j = __ldcg(next + j);
+  *out = j;
+}
+
+// `steps` control steps of a Hessian pass in one warp: 28 sums in, the trial
+// pose out; each step's input hangs on the step before.
+__global__ void probe_control_kernel(const float* sums, int steps, float two_s,
+                                     float step_size, float* out) {
+  float tot[kAcc], g[6], H[6][6], dir[6], dphi0 = 0.0f, alpha0 = 0.0f, carry = 0.0f;
+  for (int k = 0; k < kAcc; ++k) tot[k] = __ldcg(sums + k);
+  for (int s = 0; s < steps; ++s) {
+    tot[1] = tot[1] + carry;
+    tot[7] = tot[7] + carry;
+    newton_step(tot, two_s, step_size, g, H, dir, dphi0, alpha0);
+    carry = 0.0f * (alpha0 * dir[0] + dphi0);
+  }
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 6; ++k) out[k] = alpha0 * dir[k] + carry;
 }
 
 }  // namespace
 
 extern "C" {
 
-// (threads per block, accumulators per partial, floats of the result record)
-void ndt_geometry(int* threads, int* acc, int* out) {
+// (threads per block, lanes per point, accumulators, floats per partial,
+// floats of the result record)
+void ndt_geometry(int* threads, int* lanes, int* acc, int* row, int* out) {
   *threads = kThreads;
+  *lanes = kLanes;
   *acc = kAcc;
+  *row = kRow;
   *out = kOut;
 }
 
@@ -525,7 +767,7 @@ int ndt_max_blocks(int device) {
 }
 
 // One align (mode 0) or one Hessian pass at `init_pose` (mode 1) on `stream`.
-// `blocks` must not exceed ndt_max_blocks(); `partial` holds 2·blocks·28
+// `blocks` must not exceed ndt_max_blocks(); `partial` holds 2·blocks·32
 // floats, `out` 64. Returns the CUDA error code of the launch (0 = success).
 int ndt_align_launch(const void* src, const void* mask, const void* fin,
                      const void* origin, const void* init_pose, void* out,
@@ -550,6 +792,83 @@ int ndt_align_launch(const void* src, const void* mask, const void* fin,
       reinterpret_cast<void*>(ndt_align_kernel), dim3(blocks), dim3(kThreads),
       args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef NDT_TICKS
+// The cycle counts of the last launch (32 values; see TICK), after a synchronise.
+int ndt_ticks(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_ticks, sizeof(long long) * 32));
+}
+#endif
+
+// Clusters of `cluster` blocks × `threads` of the cluster probe that the
+// device can hold at once (0: such a cluster cannot be placed; < 0: an error).
+int ndt_probe_max_clusters(int cluster, int threads) {
+  if (cluster > 8 && cudaFuncSetAttribute(probe_cluster_kernel,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, probe_cluster_kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return clusters;
+}
+
+// One probe launch on `stream`. kind 0: `reps` grid barriers on a cooperative
+// launch of blocks × threads; 1: `reps` cluster barriers on one cluster of
+// `blocks` blocks × threads; 2: `reps` dependent L2 loads through `in` (an
+// int32 table of next indices) in one thread; 3: `reps` control steps on the
+// 28 sums at `in`, in one warp. Returns the CUDA error code (0 = success).
+int ndt_probe_launch(int kind, int blocks, int threads, int reps, const void* in,
+                     void* out, float two_s, float step_size, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (kind == 0) {
+    void* args[] = {&reps};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(probe_grid_kernel),
+                                      dim3(blocks), dim3(threads), args, 0, st);
+  } else if (kind == 1) {
+    if (blocks > 8)
+      err = cudaFuncSetAttribute(probe_cluster_kernel,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(blocks);
+      cfg.blockDim = dim3(threads);
+      cfg.stream = st;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = blocks;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, probe_cluster_kernel, reps);
+    }
+  } else if (kind == 2) {
+    probe_chase_kernel<<<1, 1, 0, st>>>(static_cast<const int*>(in), reps,
+                                        static_cast<int*>(out));
+  } else if (kind == 3) {
+    probe_control_kernel<<<1, 32, 0, st>>>(static_cast<const float*>(in), reps, two_s,
+                                           step_size, static_cast<float*>(out));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) { cudaGetLastError(); return static_cast<int>(err); }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,12 +7,15 @@ the active localmap, and the distance-refresh localmap strategy: every
 `max_localmap_size` metres of insertions A is replaced by B and B restarts
 empty; both grids recentre when the vehicle nears A's edge.
 
-The reference's three `lax.cond`s run in two forms. `step` by default
-branches on the host, on scalars the step reads back once (the host engine's
-form). `step(..., on_device=True)` decides them on the card: the NDT align
-returns device tensors (`ndt.align(on_device=True)`), and insertion, swap
-and recentring take device flags (`ops/voxel_map.py`) and leave the grids
-bit-equal where a flag is false, so the step reads nothing back.
+Both forms of the step align through `ndt.align`, which on the card is the
+hand-written kernel and returns device tensors. The reference's three
+`lax.cond`s run in two forms. `step` by default branches on the host, on
+scalars that the step reads back once, after the align, together with the
+align's trip count, convergence flag and score: one readback a scan (the
+host engine's form). `step(..., on_device=True)` decides them on the card:
+insertion, swap and recentring take device flags (`ops/voxel_map.py`) and
+leave the grids bit-equal where a flag is false, so the step reads nothing
+back.
 `chunk_step` runs filter + that step over a staged batch of scans.
 """
 
@@ -133,8 +136,7 @@ def _near_edge(pose, origin, spec: OdomSpec):
 def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec):
     """`step` with its three branches decided on the card."""
     g = spec.gspec
-    res = ndt.align(state.grid_a, xyz, mask, _guess(state), g, spec.nspec,
-                    on_device=True)
+    res = ndt.align(state.grid_a, xyz, mask, _guess(state), g, spec.nspec)
     pose = res.pose
     diff = pose - state.pose
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
@@ -185,12 +187,14 @@ def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
 
     shift = torch.linalg.norm(pose[:2] - state.added_pose[:2])
-    # one readback for the host branches below
+    # the step's one readback: the align's scalars and what the host
+    # branches below decide on
     g = spec.gspec
     half = torch.tensor([g.gx, g.gy, g.gz], dtype=torch.float32) * (g.resolution / 2.0)
-    shift_h, travel_h, *pose_h = torch.cat(
+    shift_h, travel_h, px, py, ox, oy, iters_h, conv_h, score_h = torch.cat(
         [shift[None], state.localmap_travel[None], pose[:2],
-         state.grid_a.origin[:2]]).cpu().unbind()
+         state.grid_a.origin[:2], res.iterations[None].float(),
+         res.converged[None].float(), res.score[None]]).cpu().unbind()
     ga, gb, travel, added = (state.grid_a, state.grid_b,
                              state.localmap_travel, state.added_pose)
 
@@ -209,7 +213,6 @@ def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
 
     # recentre both grids when the vehicle nears the active grid's edge
     # (grid A and B share their origin, read above)
-    px, py, ox, oy = pose_h
     margin_xy = torch.minimum(half[0], half[1]) - spec.recentre_margin
     off = torch.maximum(torch.abs(px - (ox + half[0])), torch.abs(py - (oy + half[1])))
     if bool(off > margin_xy):
@@ -219,8 +222,7 @@ def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
     new_state = OdomState(pose=pose, prev_pose=state.pose, diff=diff,
                           grid_a=ga, grid_b=gb, localmap_travel=travel,
                           added_pose=added)
-    out = OdomOutput(pose=pose, iterations=res.iterations,
-                     converged=res.converged, score=res.score,
-                     matched_frac=res.matched_frac, fitness=res.fitness,
-                     inserted=do_insert, swapped=do_swap)
+    out = OdomOutput(pose=pose, iterations=int(iters_h), converged=bool(conv_h),
+                     score=float(score_h), matched_frac=res.matched_frac,
+                     fitness=res.fitness, inserted=do_insert, swapped=do_swap)
     return new_state, out

@@ -245,7 +245,8 @@ class SlamPipeline:
     def _consume(self, out: odometry.OdomOutput, filt: Cloud, stamp: float,
                  gps_alt: float | None) -> dict:
         cfg = self.cfg
-        # one readback per scan
+        # the engine's readback of the pose and the diagnostics; the step made
+        # its own, for its branches, right after the align
         host = torch.cat([out.pose, out.matched_frac.reshape(1).float(),
                           out.fitness.reshape(1)]).cpu().numpy()
         pose, mfrac, fit = host[:6].copy(), host[6], host[7]

@@ -3,16 +3,20 @@ CUDA kernel `csrc/ndt_kernel.cu`.
 
 The reference leaves this work to XLA (`xchu_slam_tpu/ops/ndt.py::
 newton_align` under two `lax.while_loop`s); there is no TPU kernel to
-replace. The kernel's plain PyTorch version is the host route of
-`ops/ndt.py::align`, which `ndt.align(..., on_device=True)` takes for CPU
-tensors. The functions here take CUDA tensors only: they launch the kernel
-or raise, never fall back, never synchronise, and go to PyTorch's current
-stream (the capturing stream under a CUDA graph capture).
+replace. The kernel's plain PyTorch version is `ops/ndt.py::align_ref`,
+which `ndt.align` takes for CPU tensors; for CUDA tensors `ndt.align` comes
+here, from both engines. The functions here take CUDA tensors only: they
+launch the kernel or raise, never fall back, never synchronise, and go to
+PyTorch's current stream (the capturing stream under a CUDA graph capture).
 
 One cooperative launch is one whole align: `align_record` returns the
 kernel's 64-float record on the card (`RECORD` names its slots).
-`hessian_pass` runs the kernel's single-pass mode: (L, g, H) at a pose. The
-library is compiled by nvcc from the repository's source at first use, with
+`hessian_pass` runs the kernel's single-pass mode: (L, g, H) at a pose.
+`plan` is the launch geometry: a lane per (point, neighbour) pair, 8 lanes a
+point, one block of 512 threads an SM. `probe` launches the source's probe
+kernels, which time what an align waits for (a launch, a barrier, a round
+trip to L2, the control step); nothing on a main path calls it. The library
+is compiled by nvcc from the repository's source at first use, with
 `-fmad=false` so that the control thresholds are compared as the plain
 version compares them.
 """
@@ -30,17 +34,20 @@ from xchu_slam_tpu_torch.ops.cuda import _build
 _SRC = _build.CSRC / "ndt_kernel.cu"
 NVCC_FLAGS = (*_build.BASE_FLAGS, "-fmad=false")
 
-# the kernel's geometry (csrc/ndt_kernel.cu: kThreads, kAcc, kOut)
-THREADS = 128
+# the kernel's geometry (csrc/ndt_kernel.cu: kThreads, kLanes, kAcc, kRow, kOut)
+THREADS = 512
+LANES = 8       # lanes that own one source point: its 7 voxels and an idle one
 ACC = 28
+ROW = 32        # floats of one block's partial
 OUT = 64
 # slots of the result record
 RECORD = {"pose": slice(0, 6), "iterations": 6, "converged": 7, "score": 8,
           "matched_frac": 9, "fitness": 10, "trials": 11, "L": 12,
-          "g": slice(13, 19), "H": slice(19, 55)}
+          "g": slice(13, 19), "H": slice(19, 55), "passes": 55}
 
 # kernel launches since the last reset (read and reset by callers that need
-# to show the kernel ran). A call recorded into a CUDA graph launches
+# to show the kernel ran): the host engine's eager launch a scan counts here
+# as it is made. A call recorded into a CUDA graph launches
 # nothing: whoever captures takes it off the count again and adds what each
 # replay launches (`DeviceSlamPipeline._capture`, `_run_part_a`)
 launches = 0
@@ -60,11 +67,28 @@ def _library() -> ctypes.CDLL:
     lib.ndt_align_launch.restype = i32
     lib.ndt_max_blocks.argtypes = [i32]
     lib.ndt_max_blocks.restype = i32
-    threads, acc, out = i32(), i32(), i32()
-    lib.ndt_geometry(ctypes.byref(threads), ctypes.byref(acc), ctypes.byref(out))
-    if (threads.value, acc.value, out.value) != (THREADS, ACC, OUT):
+    lib.ndt_probe_max_clusters.argtypes = [i32, i32]
+    lib.ndt_probe_max_clusters.restype = i32
+    lib.ndt_probe_launch.argtypes = [i32] * 4 + [ptr] * 2 + [f32] * 2 + [ptr]
+    lib.ndt_probe_launch.restype = i32
+    geometry = [i32() for _ in range(5)]
+    lib.ndt_geometry(*(ctypes.byref(v) for v in geometry))
+    if tuple(v.value for v in geometry) != (THREADS, LANES, ACC, ROW, OUT):
         raise RuntimeError("ndt_kernel.cu and its wrapper disagree on the geometry")
     return lib
+
+
+def plan(n: int, sms: int) -> tuple[int, int]:
+    """(blocks, trips) of one launch for `n` source points where the card
+    holds `sms` blocks of the kernel at once (one an SM). A block covers
+    THREADS / LANES points a trip of its grid-stride loop; the blocks are the
+    fewest that keep the trips at their least, so no block idles a whole trip
+    and the barrier has no more arrivals than it needs."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"plan needs n >= 1 and sms >= 1, got {n}, {sms}")
+    needed = -(-n * LANES // THREADS)
+    trips = -(-needed // sms)
+    return -(-needed // trips), trips
 
 
 @functools.lru_cache(maxsize=8)
@@ -106,9 +130,9 @@ def _launch(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float,
                          "neighbor_mode='direct7' are ported")
     dev = src.device
     lib = _library()
-    blocks = min(-(-src.shape[0] // THREADS), max_blocks(dev.index))
+    blocks, _trips = plan(src.shape[0], max_blocks(dev.index))
     out = torch.empty(OUT, dtype=torch.float32, device=dev)
-    partial = torch.empty(2 * blocks * ACC, dtype=torch.float32, device=dev)
+    partial = torch.empty(2 * blocks * ROW, dtype=torch.float32, device=dev)
     s = -0.5 * d2
     with torch.cuda.device(dev):
         rc = lib.ndt_align_launch(
@@ -139,3 +163,33 @@ def hessian_pass(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: floa
     through the kernel's single-pass mode. Not counted in `launches`."""
     out = _launch(fin, origin, src, mask, pose, gspec, nspec, d1, d2, mode=1)
     return out[RECORD["L"]], out[RECORD["g"]], out[RECORD["H"]].reshape(6, 6)
+
+
+PROBES = {"grid": 0, "cluster": 1, "chase": 2, "control": 3}
+
+
+def probe_max_clusters(cluster: int, threads: int) -> int:
+    """Clusters of `cluster` blocks × `threads` threads of the cluster probe
+    that the current device holds at once; 0 where one cannot be placed."""
+    n = _library().ndt_probe_max_clusters(cluster, threads)
+    if n < 0:
+        raise RuntimeError("the device refused the cluster occupancy query")
+    return n
+
+
+def probe(kind: str, reps: int, blocks: int = 1, threads: int = 32, inp=None, out=None,
+          two_s: float = 0.0, step_size: float = 0.0) -> None:
+    """One launch of a probe kernel on PyTorch's current stream. `grid`:
+    `reps` grid barriers on a cooperative launch of blocks × threads;
+    `cluster`: `reps` cluster barriers on one cluster of `blocks` blocks;
+    `chase`: `reps` dependent L2 loads through `inp` (int32 next-index table)
+    in one thread, the last index to `out`; `control`: `reps` control steps
+    of a Hessian pass on the 28 sums at `inp` in one warp, the trial step to
+    `out` (float32[6]). Not counted in `launches`."""
+    dev = torch.cuda.current_device()
+    rc = _library().ndt_probe_launch(
+        PROBES[kind], blocks, threads, reps,
+        None if inp is None else inp.data_ptr(), None if out is None else out.data_ptr(),
+        two_s, step_size, _build.raw_stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"ndt_kernel {kind} probe failed: CUDA error {rc}")

@@ -5,17 +5,21 @@ Newton iterations with a backtracking (Armijo + curvature) line search, as
 the reference's default `ls_mode="backtrack"`, with a fresh DIRECT7 gather
 per Newton iteration (`regather_dist=0`).
 
-The reference runs both loops on the device under `lax.while_loop`. The
-port has two routes. The host route (`newton_align`, the plain version):
-Python loops in which the device does the data passes (the neighbourhood
-gather and the fused score/∇/H reduction over all point×voxel pairs) and
-each pass reads its 1 + 6 (+ 36) floats back in one copy; the 6-vector and
-6×6 arithmetic that decides the next step runs on those host copies in
-float32, in the reference's order of operations. The host engine uses it.
-The device route (`align(..., on_device=True)`): on CUDA tensors one launch
-of the hand-written kernel `csrc/ndt_kernel.cu`, which keeps both loops and
-their trip counts on the card and returns every result as a device tensor;
-on CPU tensors the host route, with its results wrapped as tensors.
+The reference runs both loops on the device under `lax.while_loop`, for
+both of its engines. So does the port: `align` has one route per device,
+chosen by where its tensors live. On CUDA tensors it is one launch of the
+hand-written kernel `csrc/ndt_kernel.cu`, which keeps both loops and their
+trip counts on the card and reads nothing back; a build or launch that fails
+raises, there is no fallback. On CPU tensors it is `align_ref`, the kernel's
+plain version (`newton_align`): Python loops in which the data passes (the
+neighbourhood gather and the fused score/∇/H reduction over all point×voxel
+pairs) are tensor operations and each pass hands its 1 + 6 (+ 36) floats to
+the host in one copy; the 6-vector and 6×6 arithmetic that decides the next
+step runs on those host copies in float32, in the reference's order of
+operations. `align_ref` also takes CUDA tensors (a readback per pass), so
+that the kernel can be held against it on the card; nothing else calls it
+there. Either way every field of the result is a tensor on the inputs'
+device.
 """
 
 from __future__ import annotations
@@ -69,11 +73,10 @@ def gauss_constants(outlier_ratio: float, resolution: float) -> tuple[float, flo
 
 
 class AlignResult(NamedTuple):
-    pose: torch.Tensor          # float32[6], on the grid's device
-    iterations: int             # on the device route: int32 tensor
-    converged: bool             # on the device route: bool tensor
-    score: float                # final NDT loss (lower = better fit); on the
-    #                             device route: float32 tensor
+    pose: torch.Tensor          # float32[6], on the grid's device, as every field
+    iterations: torch.Tensor    # int32, Newton iterations taken
+    converged: torch.Tensor     # bool
+    score: torch.Tensor         # float32, final NDT loss (lower = better fit)
     matched_frac: torch.Tensor  # fraction of source pts hitting ≥1 voxel
     fitness: torch.Tensor       # mean sq dist to matched voxel means
     # score/matched_frac/fitness are diagnostics: score is the line-search φ
@@ -246,28 +249,12 @@ def _packed(res, want_hess: bool):
     return flat[0], flat[1:7], H
 
 
-def align(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
-          nspec: NdtSpec, on_device: bool = False) -> AlignResult:
-    """NDT alignment of `src_xyz` [N,3] (mask [N]) onto `grid`, starting at
-    `init_pose` [6]; all tensors on the grid's device.
-
-    `on_device=False` is the host route: iterations, converged and score
-    are host values, and every pass costs a readback. `on_device=True`
-    returns them as tensors on the inputs' device and, on CUDA tensors, reads
-    nothing back: the kernel decides the trip counts (it raises where it
-    cannot launch; there is no fallback). CPU tensors take the host route
-    either way."""
+def align_ref(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
+              nspec: NdtSpec) -> AlignResult:
+    """The plain version of the align kernel, on tensors of any one device:
+    `newton_align` over `ops/ndt_deriv.py`'s passes, then `_fitness` on the
+    last neighbourhood. Every pass costs a readback on CUDA tensors."""
     d1, d2 = gauss_constants(nspec.outlier_ratio, nspec.resolution)
-    if on_device and src_xyz.device.type != "cpu":
-        rec = ndt_kernel.align_record(
-            grid.fin, grid.origin, src_xyz, src_mask, init_pose, gspec, nspec, d1, d2)
-        slot = ndt_kernel.RECORD
-        return AlignResult(pose=rec[slot["pose"]],
-                           iterations=rec[slot["iterations"]].to(torch.int32),
-                           converged=rec[slot["converged"]] > 0.5,
-                           score=rec[slot["score"]],
-                           matched_frac=rec[slot["matched_frac"]],
-                           fitness=rec[slot["fitness"]])
 
     def prepare(p):
         return ndt_deriv.neighborhood(p, src_xyz, grid, gspec, nspec.neighbor_mode)
@@ -282,11 +269,31 @@ def align(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
 
     pose, iters, converged, nb_fin, phi_fin = newton_align(
         vgh, vg, prepare, init_pose, nspec)
-    pose = pose.to(init_pose.device)
+    dev = init_pose.device
+    pose = pose.to(dev)
     frac, fitness = _fitness(pose, src_xyz, src_mask, nb_fin)
-    if on_device:
-        return AlignResult(pose=pose, iterations=torch.tensor(iters, dtype=torch.int32),
-                           converged=torch.tensor(converged), score=phi_fin,
-                           matched_frac=frac, fitness=fitness)
-    return AlignResult(pose=pose, iterations=iters, converged=converged,
-                       score=float(phi_fin), matched_frac=frac, fitness=fitness)
+    return AlignResult(pose=pose,
+                       iterations=torch.tensor(iters, dtype=torch.int32, device=dev),
+                       converged=torch.tensor(converged, device=dev),
+                       score=phi_fin.to(dev), matched_frac=frac, fitness=fitness)
+
+
+def align(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
+          nspec: NdtSpec) -> AlignResult:
+    """NDT alignment of `src_xyz` [N,3] (mask [N]) onto `grid`, starting at
+    `init_pose` [6]; all tensors on the grid's device, which picks the route:
+    CUDA tensors launch the kernel (it decides the trip counts, nothing is
+    read back, and it raises where it cannot launch), CPU tensors take
+    `align_ref`."""
+    if src_xyz.device.type == "cpu":
+        return align_ref(grid, src_xyz, src_mask, init_pose, gspec, nspec)
+    d1, d2 = gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    rec = ndt_kernel.align_record(
+        grid.fin, grid.origin, src_xyz, src_mask, init_pose, gspec, nspec, d1, d2)
+    slot = ndt_kernel.RECORD
+    return AlignResult(pose=rec[slot["pose"]],
+                       iterations=rec[slot["iterations"]].to(torch.int32),
+                       converged=rec[slot["converged"]] > 0.5,
+                       score=rec[slot["score"]],
+                       matched_frac=rec[slot["matched_frac"]],
+                       fitness=rec[slot["fitness"]])
