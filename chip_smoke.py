@@ -6,10 +6,10 @@
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA
               versions; fails if there is no CUDA device or TF32 is on
-  2. build    nvcc-compiles both kernels (csrc/nn_kernel.cu, csrc/ndt_kernel.cu,
-              sm_90a), one nvcc each, started together; prints ptxas's
-              registers, shared memory and spills (none allowed in the NN
-              kernels)
+  2. build    nvcc-compiles the four kernel sources (csrc/nn_kernel.cu,
+              ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, sm_90a), one nvcc
+              each, started together; prints ptxas's registers, shared memory
+              and spills (none allowed but in the NDT kernel)
   3. kernel   the NN kernel against its first version (idx and d² bit-equal)
               and its plain PyTorch version (d² to rtol = atol = 1e-4, valid
               indices, ties at the lowest index) on the card, over shapes and
@@ -44,20 +44,37 @@ Phases, each printing one line (any failure raises and exits non-zero):
               bit-identical to the uninterrupted run's
   7. determinism  the first 60 scans twice from a fresh state: per-scan
               poses bit-identical
-  8. device   the device engine (`models/device_pipeline.py`): Part A of two
-              staged chunks under `torch.cuda.set_sync_debug_mode("error")`
-              (one eager scan, the capture, CUDA-graph replays, one readback
-              a chunk); launches, synchronisations, kernels and the card's
-              busy share over 4 warm chunks and over Part A alone
+  8. device   the device engine (`models/device_pipeline.py`): the
+              circuit's 27 chunks staged in this thread, Part A and Part B,
+              under `torch.cuda.set_sync_debug_mode("error")` (one eager scan,
+              the capture, CUDA-graph replays, one readback a chunk, the loop
+              back end on the card); launches, synchronisations, kernels and
+              the card's busy share over 4 warm chunks and over Part A alone
               (torch.profiler); `run-sim --engine device --chunk 16` on the
               circuit with `--out` (keyframes within ±2 of the host
               engine's, loops ≥ 1, aligned ATE < 0.10 m, NDT launches ≥ one a
               scan, the export read back), its rate beside the host
               engine's of phase 5; a 64-scan run with the radius retrieval
               and GPS factors; 64 scans twice, poses bit-identical
-Then one JSON line of kernel records (both kernels, with the launches of
+Between phases 4 and 5, two more kernel phases:
+  4b. pgo_kernel  `pose_graph.solve` on the card against `solve_ref` at the
+              circuit's in-loop spec on 2048 slots, 163 live keyframes with 9
+              loops and 2048 with 40 (|Δpose| ≤ 1e-4, reruns bit-identical);
+              ms per launch from CUDA-graph replays beside its bound and the
+              latency floor that the source's probe kernels measure (launch,
+              block barrier, a substitution link, a factor link), the plain
+              factor + CG and both whole solves on the host's clock
+  4c. icp_kernel  the verification's CUDA graph (NN kernel + icp_step)
+              against `align_ref` at 4096 × 16384 (T to 1e-5, the same
+              iteration count, reruns bit-identical); icp_step's ms per launch,
+              a verification's, the bound and the floor
+Phases 5-8 also assert that every path with a verification launched
+icp_step and every accepted loop the PGO kernel; phase 8 runs the whole
+circuit, Part B included, under `set_sync_debug_mode("error")` with one
+readback a chunk, and checks `chunk_readbacks` of `run-sim --engine device`.
+Then one JSON line of kernel records (all four kernels, with the launches of
 each path) and, last, the result line. `--kernel-only` stops after phase 3,
-`--kernels-only` after phase 4, `--device-only` runs phases 1, 2, 5 and 8;
+`--kernels-only` after phase 4c, `--device-only` runs phases 1, 2, 5 and 8;
 none of the three prints a result line.
 """
 
@@ -87,7 +104,11 @@ HBM_BYTES_PER_S = 3.35e12
 PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("nn_merge_kernel", "merge"),
                ("nn_kernel", "scan"),
-               ("ndt_align_kernel", "ndt align"))   # the probe kernels are not listed
+               ("ndt_align_kernel", "ndt align"),
+               ("pgo_cg_kernel", "pgo"),
+               ("icp_step_kernel", "icp step"),
+               ("icp_init_kernel", "icp init"),
+               ("icp_fitness_kernel", "icp fitness"))   # the probe kernels are not listed
 
 
 def phase_device() -> str:
@@ -107,15 +128,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Build the kernels, one nvcc per source, both started together; print
+    """Build the kernels, one nvcc per source, all started together; print
     what ptxas says of each (registers, shared memory, spills) and fail on a
     spill."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
 
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(nn_kernel.build), pool.submit(ndt_kernel.build)]
+    mods = (nn_kernel, ndt_kernel, pgo_kernel, icp_kernel)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        builds = [pool.submit(m.build) for m in mods]
         builds = [b.result() for b in builds]
     figures = {}
     for lib, secs, log in builds:
@@ -135,7 +157,7 @@ def phase_build() -> dict:
     if set(figures) != {n for _tag, n in PTXAS_NAMES}:
         raise AssertionError("ptxas reported no figures for a kernel")
     if any(f["spill_bytes"] for n, f in figures.items() if n != "ndt align"):
-        raise AssertionError("an NN kernel spills registers")
+        raise AssertionError("an NN, PGO or ICP kernel spills registers")
     return figures
 
 
@@ -528,25 +550,287 @@ def phase_ndt_kernel(smi: str) -> dict:
             "latency_floor_ms": floor["floor_ms"], "floor": floor}
 
 
-def _count_launches(fn):
-    """(fn's result, {"nn", "ndt"}: the launches of each kernel it made): the
-    counts are set to 0 just before and read just after."""
-    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+PGO_CASES = (("circuit", 163, 9), ("capacity", 2048, 40))   # (name, live keyframes, loops)
+PGO_TOL = 1e-4            # m and rad: the kernel's sweeps and sums against the plain loop's
+# the graph route against align_ref on the same inputs: rotation entries to
+# 1e-5, translations to 1e-5 of the source cloud's lever arm max(1 m, max |s|)
+# (t = μt − R μs carries R's last-bit differences times the centroid's
+# distance, tens of metres on the circuit)
+ICP_TOL = 1e-5
 
-    ndt_kernel.launches = nn_kernel.launches = 0
+
+def _lever(src, mask) -> float:
+    return max(1.0, float(torch.linalg.norm(src[mask], dim=1).max()))
+# FP32 operations the PGO kernel does per live keyframe (a multiply-add counts
+# 2): the factor link (two triangular solves of six columns, the Schur
+# update, the Cholesky: ~700 multiply-adds) once, and per CG iteration the
+# Hessian-vector product (four 6×6 products), the two substitution links, the
+# block's Cholesky solve and the vector updates (~260)
+PGO_FLOP_FACTOR = 2 * 700
+PGO_FLOP_ITER = 2 * 260
+# bytes per live keyframe the kernel must read once: D, U, Ji, Jj (4 × 144),
+# g, the altitude row, weights and flags; per loop slot the two Jacobians
+PGO_BYTES_KF = 4 * 144 + 24 + 12 + 4 + 4 + 1
+PGO_BYTES_LOOP = 2 * 144 + 16 + 4
+# block barriers of a solve: 16 a CG iteration (3 in the Hessian-vector
+# product, 3 in each dot product, 5 in the preconditioner, 2 updates) and 22
+# outside the loop
+PGO_BARRIERS_ITER, PGO_BARRIERS_FIXED = 16, 22
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of `fn()` between two device synchronisations."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _probe_ms(probe, kind: str, reps: int, **kw) -> float:
+    """ms of one unit of a probe: (reps units − none) / reps, from CUDA-graph
+    replays."""
+    t0 = _graph_ms(lambda: probe(kind, 0, **kw), calls=20)
+    t1 = _graph_ms(lambda: probe(kind, reps, **kw), calls=20)
+    return (t1 - t0) / reps
+
+
+def phase_pgo_kernel(smi: str) -> dict:
+    """The PGO kernel against its plain version at the circuit's in-loop spec
+    on K = 2048 slots: 163 live keyframes with 9 loops (the circuit) and all
+    2048 live with 40 loops; its time per launch from CUDA-graph replays,
+    the whole solve's and the plain solve's on the host's clock, the bound and
+    the latency floor from the source's probe kernels."""
+    import pgo_cases
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import pose_graph as pg
+    from xchu_slam_tpu_torch.ops.cuda import pgo_kernel
+    from xchu_slam_tpu_torch.utils import se3
+
+    dev = torch.device("cuda")
+    spec = pg.inloop_spec(pg.spec_from_config(cli.sim_config().pgo))
+    out = torch.zeros(1, device=dev)
+    probe = lambda kind, reps, threads=pgo_kernel.THREADS: pgo_kernel.probe(  # noqa: E731
+        kind, reps, out, threads)
+    launch_ms = _graph_ms(lambda: probe("launch", 0), calls=20)
+    barrier_ms = _probe_ms(probe, "barrier", 64)
+    sweep_ms = _probe_ms(probe, "sweep_link", 256)
+    factor_ms = _probe_ms(probe, "factor_link", 64)
+    print(f"floor [{smi}]: pgo: empty launch of 1 x {pgo_kernel.THREADS} {launch_ms:.5f} ms, "
+          f"block barrier {barrier_ms:.6f} ms, substitution link {sweep_ms:.6f} ms, "
+          f"factor link {factor_ms:.6f} ms")
+    rows = {}
+    for name, n_live, n_loops in PGO_CASES:
+        poses, graph = pgo_cases.chain_graph(K=2048, L=256, n_live=n_live, n_loops=n_loops,
+                                             gps=True)
+        p_d, g_d = torch.from_numpy(poses).to(dev), pgo_cases.to_device(graph, dev)
+        got = pg.solve(p_d, g_d, spec)
+        again = pg.solve(p_d, g_d, spec)
+        want = pg.solve_ref(p_d, g_d, spec)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        moved = float((want - p_d).abs().max())
+        if not torch.equal(got, again) or not err <= PGO_TOL or not moved > 1e-3:
+            raise AssertionError(f"pgo {name}: |Δpose| {err:.3g} against the plain version "
+                                 f"(> {PGO_TOL}), moved {moved:.3g}, rerun equal "
+                                 f"{torch.equal(got, again)}")
+        s = pg._gn_system(se3.pose_to_matrix(p_d), g_d, spec)
+        args = (s.blocks.contiguous(), s.U.contiguous(), s.g.contiguous(), s.Ji.contiguous(),
+                s.Jj.contiguous(), s.odom_info, s.wp, s.Jli.contiguous(), s.Jlj.contiguous(),
+                g_d.loop_i, g_d.loop_j, s.wl.contiguous(), s.A.contiguous(),
+                s.gz.contiguous(), g_d.kf_mask, torch.ones((), dtype=torch.bool, device=dev),
+                spec.cg_tol, spec.cg_iterations)
+        _x, iters = pgo_kernel.cg(*args)
+        it = int(iters)
+        ms = _graph_ms(lambda: pgo_kernel.cg(*args), calls=10, replays=5)
+        plain_ms = _host_ms(lambda: pg._pcg_ref(s, g_d, spec), reps=3)
+        solve_ms = _host_ms(lambda: pg.solve(p_d, g_d, spec))
+        solve_ref_ms = _host_ms(lambda: pg.solve_ref(p_d, g_d, spec), reps=3)
+        bytes_ms = 1e3 * (n_live * PGO_BYTES_KF + n_loops * PGO_BYTES_LOOP
+                          + 2048 * 24) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * n_live * (PGO_FLOP_FACTOR + it * PGO_FLOP_ITER) / FP32_FLOPS
+        floor_ms = (launch_ms + n_live * factor_ms + (it + 1) * 2 * n_live * sweep_ms
+                    + (PGO_BARRIERS_ITER * it + PGO_BARRIERS_FIXED) * barrier_ms)
+        row = {"live": n_live, "loops": n_loops, "cg_iterations": it, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+               "latency_floor_ms": floor_ms, "solve_ms": solve_ms,
+               "solve_ref_ms": solve_ref_ms, "gn_iterations": spec.gn_iterations}
+        rows[name] = row
+        print(f"pgo_kernel [{smi}]: {name} ({n_live} live, {n_loops} loops, {it} CG "
+              f"iterations): {ms:.5f} ms per launch on the card (graph replays), bound "
+              f"{row['bound_ms']:.6f} ms by {row['bound_by']}, latency floor {floor_ms:.5f} ms "
+              f"(launch + {n_live} factor links + {it + 1} x 2 x {n_live} substitution "
+              f"links + {PGO_BARRIERS_ITER * it + PGO_BARRIERS_FIXED} barriers: "
+              f"{100 * floor_ms / ms:.1f} % of it reached); plain factor + CG {plain_ms:.3f} ms "
+              f"(host clock, a readback a CG iteration); the in-loop solve "
+              f"({spec.gn_iterations} GN) {solve_ms:.3f} ms, its plain version "
+              f"{solve_ref_ms:.3f} ms; |Δpose| {err:.3g}, reruns bit-identical")
+    circ = rows["circuit"]
+    return {**{k: circ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "latency_floor_ms": circ["latency_floor_ms"], "cases": rows,
+            "floor": {"launch_ms": launch_ms, "barrier_ms": barrier_ms,
+                      "substitution_link_ms": sweep_ms, "factor_link_ms": factor_ms}}
+
+
+# bytes per source point of one icp_step: the point, its mask, the NN
+# kernel's index and d², the gathered target, the current point read and
+# written; FP32 operations per point: the two moment passes and the transform
+ICP_BYTES_PT = 12 + 1 + 4 + 4 + 12 + 12 + 12
+ICP_FLOP_PT = 8 + 18 + 18
+ICP_BARRIERS = 7
+
+
+def phase_icp_kernel(smi: str) -> dict:
+    """The ICP verification's CUDA graph (NN kernel + icp_step) against
+    `align_ref` at the circuit's shape (4096 keyframe points, a 16,384-point
+    submap); icp_step's time per launch, the verification's, the bound and
+    the floor."""
+    import icp_cases
+    from xchu_slam_tpu_torch.ops import icp
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, nn_kernel, pgo_kernel
+
+    dev = torch.device("cuda")
+    spec = icp.IcpSpec()
+    args = icp_cases.scene(dev)
+    got = icp.align(*args, spec)
+    again = icp.align(*args, spec)
+    want = icp.align_ref(*args, spec)
+    torch.cuda.synchronize()
+    err = max(float((got.T[:3, :3] - want.T[:3, :3]).abs().max()),
+              float((got.T[:3, 3] - want.T[:3, 3]).abs().max()) / _lever(args[0], args[1]))
+    it, it_ref = int(got.iterations), int(want.iterations)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)) or not err <= ICP_TOL \
+            or it != it_ref or not bool(got.converged):
+        raise AssertionError(f"icp: |ΔT| {err:.3g} (> {ICP_TOL}?), iterations {it} against "
+                             f"{it_ref}, converged {bool(got.converged)}")
+    verify_ms = _host_ms(lambda: icp.align(*args, spec), reps=10)
+    verify_dev_ms = _loop_ms(lambda: icp.align(*args, spec), 20)
+    plain_verify_ms = _host_ms(lambda: icp.align_ref(*args, spec), reps=5)
+    # one step alone, kept live (a negative epsilon never converges)
+    src, smask, tgt, tmask, init = args
+    st = torch.zeros(icp_kernel.STATE_FLOATS, device=dev)
+    cur = torch.empty_like(src)
+    icp_kernel.init(src, init, torch.ones((), dtype=torch.bool, device=dev), st, cur)
+    idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tmask)
+    max_d2 = spec.max_corr_dist ** 2
+    ms = _graph_ms(lambda: icp_kernel.step(src, smask, tgt, idx, d2, cur, st, max_d2,
+                                           -1.0, 1 << 30), calls=50)
+    n = src.shape[0]
+    bytes_ms = 1e3 * (n * ICP_BYTES_PT + 4 * icp_kernel.STATE_FLOATS) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * n * ICP_FLOP_PT / FP32_FLOPS
+    out = torch.zeros(1, device=dev)
+    probe = lambda kind, reps: pgo_kernel.probe(kind, reps, out, 1024)  # noqa: E731
+    launch_ms = _graph_ms(lambda: probe("launch", 0), calls=20)
+    barrier_ms = _probe_ms(probe, "barrier", 64)
+    floor_ms = launch_ms + ICP_BARRIERS * barrier_ms
+    plain_ms = plain_verify_ms / (it_ref + 1)
+    print(f"icp_step [{smi}]: {ms:.5f} ms per launch on the card (graph replays, every "
+          f"trip live), bound {max(bytes_ms, ops_ms):.6f} ms by "
+          f"{'bytes' if bytes_ms > ops_ms else 'operations'}, floor {floor_ms:.5f} ms "
+          f"(an empty launch of 1 x 1024 {launch_ms:.5f} + {ICP_BARRIERS} barriers of "
+          f"{barrier_ms:.6f}, the one-thread eigen-solve not counted: "
+          f"{100 * floor_ms / ms:.1f} % of it reached); a verification ({it} iterations of "
+          f"{spec.max_iterations} trips, the graph replay) {verify_ms:.3f} ms on the host's "
+          f"clock, {verify_dev_ms:.3f} ms per verification over 20 enqueued; plain "
+          f"version {plain_verify_ms:.3f} ms ({plain_ms:.4f} ms an iteration, a readback "
+          f"each); |ΔT| {err:.3g}, the same iteration count, reruns bit-identical")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "library_ms": None,
+            "latency_floor_ms": floor_ms, "verification_ms": verify_ms,
+            "verification_device_ms": verify_dev_ms, "plain_verification_ms": plain_verify_ms,
+            "iterations": it}
+
+
+def _count_launches(fn):
+    """(fn's result, {"nn", "ndt", "pgo", "icp_step", "icp_live_trips"}: the
+    launches of each kernel it made, and the ICP iterations that were live):
+    the counts are set to 0 just before and read just after."""
+    from xchu_slam_tpu_torch.ops import icp
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+
+    ndt_kernel.launches = nn_kernel.launches = pgo_kernel.launches = icp_kernel.launches = 0
+    trips = icp.live_trip_count()
     out = fn()
-    return out, {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches}
+    return out, {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches,
+                 "pgo": pgo_kernel.launches, "icp_step": icp_kernel.launches,
+                 "icp_live_trips": icp.live_trip_count() - trips}
+
+
+def _check_loop_kernels(name: str, counts: dict, verifications: int, loops: int,
+                        solve_gn: int) -> None:
+    """Every path with a verification launched icp_step, every accepted loop
+    the PGO kernel (the in-loop solve's Gauss-Newton iterations)."""
+    if verifications and counts["icp_step"] < 1:
+        raise AssertionError(f"{name}: {verifications} verifications launched no icp_step")
+    if verifications and counts["icp_live_trips"] < 1:
+        raise AssertionError(f"{name}: icp_step ran no live trip")
+    if counts["pgo"] < loops * solve_gn:
+        raise AssertionError(f"{name}: {loops} accepted loops, {counts['pgo']} PGO launches")
+
+
+def _inloop_gn(pipe) -> int:
+    from xchu_slam_tpu_torch.models import pose_graph as pg
+
+    return pg.inloop_spec(pipe.gspec).gn_iterations
+
+
+ICP_SAME_ITERS = 0.95     # share of the circuit's verifications with the plain version's count
+
+
+def _replay_verifications(calls) -> dict:
+    """Each recorded verification of a run again through `align_ref`: the
+    share with the same iteration count and the largest |ΔT| among them."""
+    from xchu_slam_tpu_torch.ops import icp
+
+    same, err_r, err_t = 0, 0.0, 0.0
+    for args, res in calls:
+        want = icp.align_ref(*args)
+        if int(want.iterations) == int(res.iterations):
+            same += 1
+            err_r = max(err_r, float((want.T[:3, :3] - res.T[:3, :3]).abs().max()))
+            err_t = max(err_t, float((want.T[:3, 3] - res.T[:3, 3]).abs().max())
+                        / _lever(args[0], args[1]))
+    out = {"verifications": len(calls), "same_iterations": same, "max_abs_err_R": err_r,
+           "max_err_t_over_lever": err_t}
+    if same < ICP_SAME_ITERS * len(calls) or not err_r <= ICP_TOL or not err_t <= ICP_TOL:
+        raise AssertionError(f"icp on the circuit against align_ref: {out}")
+    return out
 
 
 def phase_main() -> tuple[dict, dict]:
     from xchu_slam_tpu_torch.cli import run_sim
+    from xchu_slam_tpu_torch.ops import icp
 
-    (pipe, summary), counts = _count_launches(lambda: run_sim(SCANS, RADIUS, SEED, "cuda"))
+    calls, align = [], icp.align
+
+    def recording_align(*args, **kw):
+        res = align(*args, **kw)
+        calls.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                      res))
+        return res
+
+    icp.align = recording_align
+    try:
+        (pipe, summary), counts = _count_launches(
+            lambda: run_sim(SCANS, RADIUS, SEED, "cuda"))
+    finally:
+        icp.align = align
+    replay = _replay_verifications(calls)
+    print("main: the circuit's verifications again through align_ref " + json.dumps(replay))
     launches = counts["nn"]
     odo = pipe.odometry_trajectory()
     _, _, kf_opt = pipe.keyframe_trajectory()
+    _check_loop_kernels("main", counts, pipe.icp_verifications, summary["loops"],
+                        _inloop_gn(pipe))
     summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
-                   ndt_launches=counts["ndt"],
+                   ndt_launches=counts["ndt"], pgo_launches=counts["pgo"],
+                   icp_step_launches=counts["icp_step"],
+                   icp_live_trips=counts["icp_live_trips"],
                    mean_newton_iterations=round(float(np.mean(
                        [r["iterations"] for r in pipe.odom_log])), 3))
     print("main: " + json.dumps(summary))
@@ -589,8 +873,12 @@ def phase_session() -> dict:
             checkpoint_every=CHECKPOINT_EVERY, timers=timers))
         paths = summary.pop("artifacts")
         launches = counts["nn"]
+        _check_loop_kernels("session", counts, pipe.icp_verifications, summary["loops"],
+                            _inloop_gn(pipe))
         summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
-                       ndt_launches=counts["ndt"],
+                       ndt_launches=counts["ndt"], pgo_launches=counts["pgo"],
+                       icp_step_launches=counts["icp_step"],
+                       icp_live_trips=counts["icp_live_trips"],
                        mean_newton_iterations=round(float(np.mean(
                            [r["iterations"] for r in pipe.odom_log])), 3),
                        gps_factors=int(pipe.graph.gps_mask.sum()),
@@ -656,11 +944,12 @@ def phase_session() -> dict:
         rows = loc.pop("results")
         loc_launches = loc_counts["nn"]
         loc.update(session="checkpoint.npz", nn_launches=loc_launches,
-                   ndt_launches=loc_counts["ndt"],
+                   ndt_launches=loc_counts["ndt"], icp_step_launches=loc_counts["icp_step"],
+                   icp_live_trips=loc_counts["icp_live_trips"],
                    seconds=round(loc_s, 2), fitness_thresh=FITNESS_THRESH,
                    pos_err_m=[r.get("pos_err_m") for r in rows])
         print("localize: " + json.dumps(loc))
-        if loc["localized"] < 1 or loc_launches < 1:
+        if loc["localized"] < 1 or loc_launches < 1 or loc_counts["icp_step"] < 1:
             raise AssertionError("localize placed no query")
         if not loc["median_err_m"] < 1.5:
             raise AssertionError(f"localize: median error {loc['median_err_m']} m ≥ 1.5 m")
@@ -710,8 +999,11 @@ def _staged_chunks(n_chunks: int, cfg):
     out = []
     for c in range(n_chunks):
         lo = c * DEV_CHUNK
-        clouds, n_real = stager.stage([lazy[i] for i in range(lo, lo + DEV_CHUNK)])
-        out.append((clouds, gt_stamps[lo:lo + DEV_CHUNK], n_real))
+        hi = min(lo + DEV_CHUNK, SCANS)
+        clouds, n_real = stager.stage([lazy[i] for i in range(lo, hi)])
+        stamps = np.zeros(DEV_CHUNK, np.float32)
+        stamps[:hi - lo] = gt_stamps[lo:hi]
+        out.append((clouds, stamps, n_real))
     torch.cuda.synchronize()
     return out
 
@@ -759,47 +1051,77 @@ def phase_device_engine(host_summary: dict) -> dict:
     from xchu_slam_tpu_torch.io import kitti
     from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
 
-    # Part A under sync debug mode "error": a first chunk (seed, one eager
-    # scan, the capture, replays) and a second (replays only)
+    # the whole circuit, Part B included, under sync debug mode "error" (the
+    # chunks staged in this thread: the mode is global): the first chunk
+    # (seed, one eager scan, the capture, replays), then replays only; chunks
+    # 2-5 also under the profiler
     cfg = cli.sim_config()
-    chunks = _staged_chunks(2 + DEV_PROFILE_CHUNKS, cfg)
+    n_chunks = -(-SCANS // DEV_CHUNK)
+    chunks = _staged_chunks(n_chunks, cfg)
     pipe = DeviceSlamPipeline(cfg, log_capacity=8192, device="cuda", check_sync=True)
-    for clouds, stamps, n_real in chunks[:2]:
-        pipe.process_chunk(clouds, stamps, n_real)
-    torch.cuda.synchronize()
-    if pipe.part_a_replays != 2 * DEV_CHUNK - 2 or pipe.chunk_readbacks != 2:
-        raise AssertionError(f"Part A: {pipe.part_a_replays} graph replays and "
-                             f"{pipe.chunk_readbacks} readbacks over 2 chunks")
-    print(f"device: Part A of {2 * DEV_CHUNK - 1} scans under "
-          f"set_sync_debug_mode('error') without raising: 1 eager, "
-          f"{pipe.part_a_replays} CUDA-graph replays, {pipe.chunk_readbacks} "
-          f"readbacks (one a chunk)")
 
-    # the same engine, warm: 4 chunks under the profiler, then Part A alone
-    pipe.check_sync = False
-    rest = chunks[2:]
-    prof = _profile_window(
-        lambda: [pipe.process_chunk(c, st, n) for c, st, n in rest],
-        DEV_PROFILE_CHUNKS * DEV_CHUNK)
-    clouds, stamps, _n = rest[-1]
+    def feed(part):
+        for clouds, stamps, n_real in part:
+            pipe.process_chunk(clouds, stamps, n_real)
+
+    def checked():
+        feed(chunks[:2])
+        torch.cuda.synchronize()
+        if pipe.part_a_replays != 2 * DEV_CHUNK - 2 or pipe.chunk_readbacks != 2:
+            raise AssertionError(f"Part A: {pipe.part_a_replays} graph replays and "
+                                 f"{pipe.chunk_readbacks} readbacks over 2 chunks")
+        warm = _profile_window(lambda: feed(chunks[2:2 + DEV_PROFILE_CHUNKS]),
+                               DEV_PROFILE_CHUNKS * DEV_CHUNK)
+        feed(chunks[2 + DEV_PROFILE_CHUNKS:])
+        pipe.finalize()
+        return warm
+
+    prof, counts = _count_launches(checked)
+    if pipe.chunk_readbacks != n_chunks or pipe.scan_count != SCANS:
+        raise AssertionError(f"device: {pipe.chunk_readbacks} readbacks over {n_chunks} "
+                             f"chunks, {pipe.scan_count} scans")
+    _check_loop_kernels("device (checked)", counts, pipe.icp_verifications,
+                        pipe.loop_count, _inloop_gn(pipe))
+    if pipe.loop_count < 1 or pipe.icp_verifications < 1:
+        raise AssertionError("device: the checked circuit verified or closed no loop")
+    print(f"device: the circuit's {n_chunks} chunks, Part B included, under "
+          f"set_sync_debug_mode('error') without raising: {pipe.chunk_readbacks} "
+          f"readbacks (one a chunk), {pipe.part_a_replays} CUDA-graph replays, "
+          f"{pipe.kf_count} keyframes, {pipe.icp_verifications} verifications, "
+          f"{pipe.loop_count} loops; launches " + json.dumps(counts))
+    stage = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
+    print("device: stage seconds of the checked circuit " + json.dumps(stage))
+    # Part A alone, 16 replays, on the finished engine
+    clouds, stamps, _n = chunks[-1]
     one = type(clouds)(*(t[0] for t in clouds))
     stamp = torch.zeros((), device="cuda")
     prof_a = _profile_window(
         lambda: [pipe._run_part_a(one, stamp) for _ in range(DEV_CHUNK)], DEV_CHUNK)
     print("device: 4 warm chunks (Part A + readback + Part B) " + json.dumps(prof))
     print("device: Part A alone, 16 replays " + json.dumps(prof_a))
-    del pipe, chunks, rest
+    del pipe, chunks
     torch.cuda.empty_cache()
 
     # the circuit through run-sim --engine device, with its export
     with tempfile.TemporaryDirectory(prefix="xchu_device_") as tmp:
         (pipe, summary), counts = _count_launches(lambda: cli.run_sim(
             SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK, out=tmp))
+        dev_counts = counts
         ndt_n, nn_n = counts["ndt"], counts["nn"]
         paths = summary.pop("artifacts")
+        _check_loop_kernels("device", counts, pipe.icp_verifications, summary["loops"],
+                            _inloop_gn(pipe))
+        if pipe.chunk_readbacks != summary["chunk_attribution"]["chunks"]:
+            raise AssertionError(f"device: {pipe.chunk_readbacks} readbacks over "
+                                 f"{summary['chunk_attribution']['chunks']} chunks")
         summary.update(icp_verifications=pipe.icp_verifications, ndt_launches=ndt_n,
-                       nn_launches=nn_n, part_a_replays=pipe.part_a_replays,
+                       nn_launches=nn_n, pgo_launches=counts["pgo"],
+                       icp_step_launches=counts["icp_step"],
+                       icp_live_trips=counts["icp_live_trips"],
+                       part_a_replays=pipe.part_a_replays,
                        chunk_readbacks=pipe.chunk_readbacks,
+                       stage_seconds_device={k: round(v, 4)
+                                             for k, v in pipe.stage_seconds.items()},
                        host_engine_scans_per_sec=host_summary["scans_per_sec"],
                        mean_newton_iterations=round(float(np.mean(
                            [r["iterations"] for r in pipe.odom_log[1:]])), 3))
@@ -835,7 +1157,11 @@ def phase_device_engine(host_summary: dict) -> dict:
         DEV_RERUN_SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK,
         loop_method="radius", gps=True))
     ndt_r, nn_r = counts["ndt"], counts["nn"]
-    short.update(gps_factors=int(pipe.graph.gps_mask.sum()), ndt_launches=ndt_r)
+    radius_counts = counts
+    _check_loop_kernels("device radius + gps", counts, pipe.icp_verifications,
+                        short["loops"], _inloop_gn(pipe))
+    short.update(gps_factors=int(pipe.graph.gps_mask.sum()), ndt_launches=ndt_r,
+                 pgo_launches=counts["pgo"], icp_step_launches=counts["icp_step"])
     print("device: radius + gps " + json.dumps(short))
     if short["keyframes"] < 2 or short["gps_factors"] < 1 or ndt_r < DEV_RERUN_SCANS - 1 \
             or not np.isfinite(pipe.keyframe_trajectory()[2]).all():
@@ -855,8 +1181,7 @@ def phase_device_engine(host_summary: dict) -> dict:
         raise AssertionError("device: reruns differ (max |Δpose| "
                              f"{np.abs(runs[0] - runs[1]).max()})")
     print(f"device: {DEV_RERUN_SCANS} scans twice, poses bit-identical")
-    return {"ndt": {"device": ndt_n, "device_radius_gps": ndt_r},
-            "nn": {"device": nn_n, "device_radius_gps": nn_r},
+    return {"paths": {"device": dev_counts, "device_radius_gps": radius_counts},
             "profile": prof, "profile_part_a": prof_a, "summary": summary}
 
 
@@ -885,6 +1210,8 @@ def main() -> int:
     if "--kernel-only" in sys.argv[1:]:
         return 0
     ndt_rec = None if only_device else phase_ndt_kernel(smi)
+    pgo_rec = None if only_device else phase_pgo_kernel(smi)
+    icp_rec = None if only_device else phase_icp_kernel(smi)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     launches, host_summary = phase_main()
@@ -894,19 +1221,37 @@ def main() -> int:
     by_path = {"main": launches, **phase_session()}
     phase_determinism()
     dev = phase_device_engine(host_summary)
-    nn_by_path = {**{k: v["nn"] for k, v in by_path.items()}, **dev["nn"]}
-    ndt_by_path = {**{k: v["ndt"] for k, v in by_path.items()}, **dev["ndt"]}
+    by_path.update(dev["paths"])
+
+    def per_path(key):
+        return {k: v[key] for k, v in by_path.items()}
+
     kernels = [{"name": "nn_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/nn_kernel.cu",
                 "replaces": "xchu_slam_tpu/ops/pallas/nn_kernel.py:29",
-                "launches": launches["nn"], "launches_by_path": nn_by_path, **rec,
-                "ptxas": {k: v for k, v in ptxas.items() if k != "ndt align"}},
+                "launches": launches["nn"], "launches_by_path": per_path("nn"), **rec,
+                "ptxas": {k: v for k, v in ptxas.items() if k in ("first version", "merge",
+                                                                    "scan")}},
                {"name": "ndt_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/ndt_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/ops/ndt.py:477 and :539 (two "
                             "lax.while_loop that the reference leaves to XLA)",
-                "launches": launches["ndt"], "launches_by_path": ndt_by_path,
-                **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}}]
+                "launches": launches["ndt"], "launches_by_path": per_path("ndt"),
+                **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}},
+               {"name": "pgo_kernel", "route": "cuda",
+                "source": "xchu_slam_tpu_torch/csrc/pgo_kernel.cu",
+                "replaces": "none: xchu_slam_tpu/models/pose_graph.py:221, :251, :257 and "
+                            ":459 (lax.scan, two associative_scan, lax.while_loop that the "
+                            "reference leaves to XLA)",
+                "launches": launches["pgo"], "launches_by_path": per_path("pgo"),
+                **pgo_rec, "ptxas": {"pgo": ptxas["pgo"]}},
+               {"name": "icp_step", "route": "cuda",
+                "source": "xchu_slam_tpu_torch/csrc/icp_kernel.cu",
+                "replaces": "none: xchu_slam_tpu/ops/icp.py:114-173 (the body of a "
+                            "lax.while_loop that the reference leaves to XLA)",
+                "launches": launches["icp_step"], "launches_by_path": per_path("icp_step"),
+                "live_trips_by_path": per_path("icp_live_trips"), **icp_rec,
+                "ptxas": {k: ptxas[k] for k in ("icp step", "icp init", "icp fitness")}}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@ their plain PyTorch versions (the NN kernel also, bit for bit, to its first
 version, the oracle entry `nn_launch_simple`; the NDT align kernel to
 `ndt.align_ref`); the host engine's one launch a scan; the card-side code of the mapping session (ISC
 scoring, the map export's batched transform, a checkpoint loaded onto the
-card) against the same functions on the CPU; and the device engine's Part A
+card) against the same functions on the CPU; the device engine's Part A
 (CUDA-graph replay against eager, no synchronisation, staging through the
-pinned ring). Marked `cuda`;
+pinned ring); the loop back end: the PGO kernel's solve and the ICP graph
+route (NN kernel with its `live` flag + `icp_step`) against their plain
+versions, and Part B decided on the card against the CPU. Marked `cuda`;
 without a card the tests skip (the check runs inside the fixture, never at
 import). On the card:
 
@@ -16,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import icp_cases
 import nn_cases
+import pgo_cases
 from xchu_slam_tpu_torch import config as tconfig
 from xchu_slam_tpu_torch.models import pipeline as tpipe
 from xchu_slam_tpu_torch.io import prefetch as tprefetch
@@ -25,7 +29,8 @@ from xchu_slam_tpu_torch.ops import icp, isc, ndt, ndt_deriv, voxel_map as tvm
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import make_cloud
 from xchu_slam_tpu_torch.utils import checkpoint as tckpt, sim
-from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+from xchu_slam_tpu_torch.models import pose_graph as tpg
+from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -110,15 +115,93 @@ def test_nn_kernel_takes_only_what_it_checks(cuda):
 
 
 def test_icp_runs_the_kernel(cuda):
+    """A verification replays its CUDA graph: max_iterations + 1 NN launches
+    and max_iterations step launches, of which `iterations` were live."""
     rng = np.random.default_rng(0)
     tgt = torch.from_numpy(rng.uniform(-20, 20, (4096, 3)).astype(np.float32)).to(cuda)
     src = tgt[::4].contiguous() + 0.05
-    before = nn_kernel.launches
+    spec = icp.IcpSpec()
+    nn0, step0 = nn_kernel.launches, icp_kernel.launches
+    trips0 = icp.live_trip_count()
     res = icp.align(src, torch.ones(1024, dtype=torch.bool, device=cuda), tgt,
                     torch.ones(4096, dtype=torch.bool, device=cuda),
-                    torch.eye(4, device=cuda), icp.IcpSpec())
-    assert nn_kernel.launches - before == res.iterations + 1
-    assert res.converged and res.fitness < 1e-3
+                    torch.eye(4, device=cuda), spec)
+    assert nn_kernel.launches - nn0 == spec.max_iterations + 1
+    assert icp_kernel.launches - step0 == spec.max_iterations
+    assert icp.live_trip_count() - trips0 == int(res.iterations)
+    assert bool(res.converged) and float(res.fitness) < 1e-3
+
+
+def test_nn_kernel_with_live_flag_is_bit_equal(cuda):
+    """The `live` flag true changes nothing: idx and d² bit-equal to the
+    launch without it; false launches and returns at once."""
+    src, tgt, mask = (torch.from_numpy(a).to(cuda) for a in EDGE_CASES["4096x16384"])
+    idx, d2 = nn_kernel.nearest_neighbor(src, tgt, mask)
+    on = torch.ones(1, device=cuda)
+    idx_l, d2_l = nn_kernel.nearest_neighbor(src, tgt, mask, live=on)
+    nn_kernel.nearest_neighbor(src, tgt, mask, live=torch.zeros(1, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_l) and torch.equal(d2, d2_l)
+    with pytest.raises(ValueError):
+        nn_kernel.nearest_neighbor(src, tgt, mask, live=torch.ones(2, device=cuda))
+
+
+@pytest.mark.parametrize("cap", [100, 3])
+def test_icp_kernel_matches_plain_version(cuda, cap):
+    """The graph route (NN kernel + icp_step) against `align_ref` on the same
+    card inputs: T to 1e-5, the same iteration count and converged flag,
+    fitness to 1e-5 relative; a rerun bit-identical; no synchronisation."""
+    args = icp_cases.scene(cuda)
+    spec = icp.IcpSpec(max_iterations=cap)
+    want = icp.align_ref(*args, spec)
+    got = icp.align(*args, spec)          # captures the graph
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = icp.align(*args, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    assert int(got.iterations) == int(want.iterations)
+    assert bool(got.converged) == bool(want.converged) == (cap == 100)
+    torch.testing.assert_close(got.T, want.T, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.fitness, want.fitness, rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    off = icp.align(*args, spec, live=torch.zeros((), dtype=torch.bool, device=cuda))
+    assert torch.equal(off.T, args[4]) and int(off.iterations) == 0
+    assert float(off.fitness) == 0.0
+
+
+@pytest.mark.parametrize("n_live,L,n_loops", [(163, 256, 9), (2048, 256, 40), (40, 8, 0)])
+def test_pgo_kernel_solve_matches_plain_version(cuda, n_live, L, n_loops):
+    """`solve` on the card (one pgo_kernel launch a Gauss-Newton iteration,
+    no synchronisation) against `solve_ref` on the same card tensors at
+    K = 2048 with the circuit's in-loop spec (2 Gauss-Newton iterations,
+    odometry information 1e3, `cli.sim_config`): poses to 1e-4; a rerun
+    bit-identical; run false returns the input. (At the library's default
+    information of 1e6 the float32 PCG's result depends on the order of the
+    substitution's roundings at the 3e-4 level: a CPU emulation of the
+    kernel's sequential sweeps differs from the plain version's doubling
+    scans by as much.)"""
+    poses, graph = pgo_cases.chain_graph(K=2048, L=L, n_live=n_live, n_loops=n_loops,
+                                         gps=True)
+    spec = tpg.GraphSpec(gn_iterations=2, odom_info_t=1e3, odom_info_r=1e3)
+    p_d, g_d = torch.from_numpy(poses).to(cuda), pgo_cases.to_device(graph, cuda)
+    want = tpg.solve_ref(p_d, g_d, spec)
+    before = pgo_kernel.launches
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpg.solve(p_d, g_d, spec)
+        again = tpg.solve(p_d, g_d, spec)
+        off = tpg.solve(p_d, g_d, spec, run=torch.zeros((), dtype=torch.bool, device=cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert pgo_kernel.launches - before == 3 * spec.gn_iterations
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, again) and torch.equal(off, p_d)
+    assert float((want - p_d).abs().max()) > 1e-3
 
 
 def _isc_store(rng, K=300, live=260):
@@ -470,3 +553,36 @@ def test_chunk_prefetcher_on_the_card_matches_the_cpu(cuda):
     for (a, _), (b, _) in zip(on_card, on_cpu):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def test_device_engine_part_b_on_the_card_matches_the_cpu(cuda):
+    """Chunks with loop verifications, Part B included, under
+    `set_sync_debug_mode("error")` with one readback a chunk: keyframes,
+    loops and the loop diagnostics as on the CPU, optimised poses to 1e-3;
+    the ICP and PGO kernels ran where a loop was verified and accepted."""
+    over = {**_SMALL, "loop.method": "radius", "loop.radius_search": 12.0,
+            "loop.min_time_diff": 0.5, "loop.detect_period": 1,
+            "loop.icp_fitness_thresh": 1.5, "loop.max_correction": 5.0,
+            "pgo.odom_noise_trans": 1e-3, "pgo.odom_noise_rot": 1e-3}
+    cfg = tconfig.default_config().override(over)
+    scans = _small_scans(24)
+    runs = {}
+    for dev in ("cpu", cuda):
+        pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=dev,
+                                      check_sync=True)
+        stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=dev)
+        icp0, pgo0 = icp_kernel.launches, pgo_kernel.launches
+        for c in range(3):
+            clouds, n_real = stager.stage(scans[8 * c:8 * c + 8])
+            pipe.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+        assert pipe.chunk_readbacks == 3
+        pipe.finalize()
+        runs[str(dev)] = (pipe, icp_kernel.launches - icp0, pgo_kernel.launches - pgo0)
+    (cpu, _, _), (card, icp_n, pgo_n) = runs["cpu"], runs[str(cuda)]
+    assert card.kf_count == cpu.kf_count and card.loop_count == cpu.loop_count
+    assert card.icp_verifications == cpu.icp_verifications >= 1
+    assert icp_n >= card.icp_verifications and (pgo_n >= 1 or card.loop_count == 0)
+    for key in ("loop_cand", "loop_found", "loop_verify_ran"):
+        assert [r[key] for r in card.odom_log] == [r[key] for r in cpu.odom_log]
+    np.testing.assert_allclose(card.keyframe_trajectory()[2], cpu.keyframe_trajectory()[2],
+                               atol=1e-3)

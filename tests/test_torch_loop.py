@@ -261,3 +261,175 @@ def test_convert_graph_roundtrip():
     for f in graph._fields:
         got, want = back[f], np.asarray(getattr(graph, f))
         assert got.dtype == want.dtype and np.array_equal(got, want), f
+
+
+# ------------------------------------- the loop back end on the card's terms -- #
+
+def _kabsch_reference(M):
+    """The reference's rotation step (xchu_slam_tpu/ops/icp.py:132-135)."""
+    U, _s, Vt = jnp.linalg.svd(jnp.asarray(M))
+    det = jnp.linalg.det(jnp.matmul(U, Vt, precision=jax_highest()))
+    S = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(det)
+    return np.asarray(jnp.matmul(jnp.matmul(U, S, precision=jax_highest()), Vt,
+                                 precision=jax_highest()))
+
+
+def jax_highest():
+    import jax
+    return jax.lax.Precision.HIGHEST
+
+
+def _cross_cov(kind, rng):
+    """3×3 cross-covariances M = Σ (t − μt)(s − μs)ᵀ / n of the kinds ICP
+    meets: random, planar (rank 2), reflecting (det < 0), near identity."""
+    if kind == "random":
+        return rng.normal(size=(3, 3)).astype(np.float32)
+    if kind == "reflection":
+        M = rng.normal(size=(3, 3))
+        return (M if np.linalg.det(M) < 0 else -M).astype(np.float32)
+    scale = [10.0, 10.0, 0.0] if kind == "planar" else [20.0, 15.0, 3.0]
+    rot = 0.3 if kind == "planar" else 1e-4
+    s = rng.normal(size=(200, 3)) * scale
+    R = np.asarray(jse3.pose_to_matrix(jnp.asarray(
+        np.r_[0, 0, 0, rng.normal(size=3) * rot].astype(np.float32))))[:3, :3]
+    t = s @ R.T + rng.normal(size=(200, 3)) * (0.01 if kind == "planar" else 0.0)
+    return ((t - t.mean(0)).T @ (s - s.mean(0)) / 200).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "planar", "reflection", "near_identity"])
+def test_kabsch_step_matches_reference_svd_route(kind):
+    """The plain Kabsch step (the kernel's plain version) against the
+    reference's SVD route: R to 1e-5, a proper rotation in every case."""
+    rng = np.random.default_rng(["random", "planar", "reflection",
+                                 "near_identity"].index(kind))
+    for _ in range(8):
+        M = _cross_cov(kind, rng)
+        R = ticp.kabsch_ref(_t(M)).numpy()
+        np.testing.assert_allclose(R, _kabsch_reference(M), atol=1e-5)
+        assert abs(np.linalg.det(R) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("cap", [100, 16], ids=["converges", "hits-the-cap"])
+def test_fixed_trip_icp_matches_reference(icp_pair, cap):
+    """`align_ref`, the fixed-trip loop masked on `live`, against the
+    reference's while loop: the same iteration count and converged flag
+    (also where the cap ends it), T to 1e-5; with `live` false a no-op."""
+    src, smask, tgt, tmask, init, _true = icp_pair
+    jspec, tspec = jicp.IcpSpec(max_iterations=cap), ticp.IcpSpec(max_iterations=cap)
+    j = jicp.align(jnp.asarray(src), jnp.asarray(smask), jnp.asarray(tgt),
+                   jnp.asarray(tmask), jnp.asarray(init), jspec)
+    args = (_t(src), _t(smask), _t(tgt), _t(tmask), _t(init), tspec)
+    t = ticp.align(*args, live=torch.tensor(True))
+    assert int(t.iterations) == int(j.iterations) and bool(t.converged) == bool(j.converged)
+    assert (int(t.iterations), bool(t.converged)) == ((cap, False) if cap == 16
+                                                      else (int(j.iterations), True))
+    np.testing.assert_allclose(t.T.numpy(), np.asarray(j.T), atol=1e-5)
+    off = ticp.align(*args, live=torch.tensor(False))
+    assert torch.equal(off.T, _t(init)) and int(off.iterations) == 0
+    assert not bool(off.converged) and float(off.fitness) == 0.0
+
+
+def test_pose_graph_solve_at_capacity_matches_reference():
+    """K = 2048 slots with 160 live keyframes, 9 live loops of 256 slots and
+    altitude factors (the circuit's shape), the in-loop spec: poses within
+    1e-4 of the reference's `solve`; the live prefix found without a
+    readback equals the one the plain factor reads back."""
+    import pgo_cases
+
+    poses, graph = pgo_cases.chain_graph(K=2048, L=256, n_live=160, n_loops=9, gps=True)
+    spec = jpg.GraphSpec(gn_iterations=2, odom_info_t=1e3, odom_info_r=1e3)
+    ref = convert.graph_to_ref(graph)
+    oj = np.asarray(jpg.solve(jnp.asarray(poses),
+                              jpg.GraphData(**{k: jnp.asarray(v) for k, v in ref.items()}),
+                              spec))
+    ot = tpg.solve(_t(poses), graph, tpg.GraphSpec(*spec)).numpy()
+    assert np.abs(oj - poses).max() > 1e-2
+    np.testing.assert_allclose(ot, oj, atol=1e-4)
+    assert np.array_equal(ot[160:], poses[160:])
+    # the prefix: today's readback form against the device form
+    Ts = se3_t().pose_to_matrix(_t(poses))
+    s = tpg._gn_system(Ts, graph, tpg.GraphSpec(*spec))
+    coupled = (s.U[1:] != 0).flatten(1).any(1).nonzero()
+    n_seq_readback = int(coupled.max()) + 2 if coupled.numel() else 1
+    n_seq, n_act = tpg.live_prefix(s.U, graph.kf_mask)
+    assert int(n_seq) == n_seq_readback == 160 and int(n_act) == 160
+    ran = tpg.solve(_t(poses), graph, tpg.GraphSpec(*spec), run=torch.tensor(False))
+    assert torch.equal(ran, _t(poses))
+
+
+def se3_t():
+    from xchu_slam_tpu_torch.utils import se3
+    return se3
+
+
+def _descriptor_store(rng, K=40, R=20, S=60, sparse=0.0):
+    """A store of nonnegative polar images whose entry 4, rolled by 7
+    columns and perturbed, is the query."""
+    db = rng.uniform(0.1, 3.0, (K, R, S)).astype(np.float32)
+    if sparse:
+        db *= rng.random((K, R, S)) < sparse
+    query = np.roll(db[4], -7, axis=1) * rng.uniform(0.98, 1.02, (R, S)).astype(np.float32)
+    return db, query.astype(np.float32)
+
+
+@pytest.mark.parametrize("found", [True, False], ids=["found", "not-found"])
+@pytest.mark.parametrize("method", ["sc", "isc", "radius"])
+def test_detect_loop_tensor_forms_equal_host_forms(method, found):
+    """The retrievals' device forms (0-d tensors, nothing read back) equal
+    their host forms and the reference's traced forms: index (-1 where none),
+    found, yaw."""
+    from xchu_slam_tpu.ops import isc as jisc
+    from xchu_slam_tpu.models import device_pipeline as jdp
+    from xchu_slam_tpu_torch.models import pipeline as tpipe
+    from xchu_slam_tpu_torch.ops import isc as tisc
+
+    rng = np.random.default_rng(5)
+    K, cur = 40, 30
+    if method == "sc":
+        db, q = _descriptor_store(rng)
+        spec = tsc.ScSpec(num_exclude_recent=3, dist_thresh=0.2 if found else 1e-6)
+        dev = tsc.detect_loop_on_device(_t(q), _t(db), cur + 1, spec, cur=cur)
+        host = tsc.detect_loop(_t(q), _t(db), cur + 1, spec, cur=cur)
+        ref = jsc.detect_loop(jnp.asarray(q), jnp.asarray(db), jnp.int32(cur + 1),
+                              jsc.ScSpec(*spec), cur=jnp.int32(cur))
+    elif method == "isc":
+        db, q = _descriptor_store(rng, R=60, sparse=0.3)
+        travel = (3.0 * np.arange(K)).astype(np.float32)
+        pos = np.zeros((K, 3), np.float32)
+        pos[:, 0] = travel * 0.01
+        pos[4, 0] = pos[cur, 0] - 0.5
+        spec = tisc.IscSpec(geometry_thresh=0.3, intensity_thresh=0.3 if found else 0.999)
+        args = (_t(q), _t(db), cur + 1, _t(pos), _t(travel), spec)
+        dev = tisc.detect_loop_on_device(*args, cur=cur)
+        host = tisc.detect_loop(*args, cur=cur)
+        ref = jisc.detect_loop(jnp.asarray(q), jnp.asarray(db), jnp.int32(cur + 1),
+                               jnp.asarray(pos), jnp.asarray(travel), jisc.IscSpec(*spec),
+                               cur=jnp.int32(cur))
+    else:
+        from types import SimpleNamespace as NS
+
+        from xchu_slam_tpu_torch import config as tconfig
+        from xchu_slam_tpu_torch.models import device_pipeline as tdp
+
+        opt = np.zeros((64, 6), np.float32)
+        opt[:cur + 1, 0] = 4.0 * np.arange(cur + 1)
+        opt[4, 0] = opt[cur, 0] - 1.0
+        stamps = (2.0 * np.arange(64)).astype(np.float32)
+        spec = NS(radius_search=5.0 if found else 0.1, min_time_diff=30.0)
+        db = tpipe.empty_db(tconfig.default_config().override({"pgo.max_keyframes": 64}), 16)
+        db = db._replace(opt_poses=_t(opt), poses=_t(opt), stamps=_t(stamps), count=cur + 1)
+        d_idx, d_found = tdp._sc_radius_candidate(NS(db=db), cur, float(stamps[cur]), spec)
+        h_idx = tpipe._radius_candidate(db, cur, float(stamps[cur]), spec.radius_search,
+                                        spec.min_time_diff)
+        jdb = NS(poses=jnp.asarray(opt), opt_poses=jnp.asarray(opt), stamps=jnp.asarray(stamps))
+        r_idx, r_found = jdp._sc_radius_candidate(NS(db=jdb), jnp.int32(cur),
+                                                  jnp.float32(stamps[cur]), spec)
+        assert d_idx.dim() == 0 and d_found.dim() == 0
+        assert int(d_idx) == h_idx == int(r_idx) == (4 if found else -1)
+        assert bool(d_found) == bool(r_found) == found
+        return
+    assert all(isinstance(v, torch.Tensor) and v.dim() == 0 for v in dev)
+    assert int(dev.idx) == host.idx == int(ref.idx) == (4 if found else -1)
+    assert bool(dev.found) == host.found == bool(ref.found) == found
+    assert abs(float(dev.yaw) - host.yaw) == 0.0
+    assert abs(float(dev.yaw) - float(ref.yaw)) <= 1e-6

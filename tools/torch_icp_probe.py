@@ -1,21 +1,20 @@
 #!/usr/bin/env python3
-"""ICP loop verification on one GPU, with the nearest-neighbour kernel and
-with its first version in its place.
+"""ICP loop verification on one GPU: the CUDA-graph route (NN kernel +
+`icp_step`, nothing read back) against the plain version `align_ref` (a
+readback and the Kabsch step on the host every iteration).
 
     python3 tools/torch_icp_probe.py [--scans 430] [--reps 10]
 
 Runs the port's `run-sim` circuit once (430 scans, radius 55, seed 0) and
 keeps the arguments of every `icp.align` call the loop closure makes. Then
-replays those calls, `--reps` times each, in turns: first version, kernel,
-kernel, first version; every replay is timed on the host clock between two
-device syncs. Prints, per turn, ms per verification, ICP iterations and
-kernel launches. The results of the two kernels must be identical (same
-transforms, fitness and iteration counts). Then one replay of each under
-torch.profiler gives the device time of all kernels and of the
-nearest-neighbour kernels per verification: the share of the wall time in
-which the card is busy says whether the kernel's time can show end to end.
-Last, one JSON line with the means. The card's name and power limit come
-first.
+replays those calls, `--reps` times each, in turns: plain, graph, graph,
+plain; every replay is timed on the host clock between two device syncs.
+Prints, per turn, ms per verification and ICP iterations, the share of
+verifications whose iteration count the two routes agree on, the largest
+rotation difference and the largest translation difference over the source
+cloud's lever arm. Then one replay of each under torch.profiler gives the
+device time per verification. Last, one JSON line with the means. The
+card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from xchu_slam_tpu_torch.cli import run_sim  # noqa: E402
 from xchu_slam_tpu_torch.ops import icp  # noqa: E402
-from xchu_slam_tpu_torch.ops.cuda import nn_kernel  # noqa: E402
 
 
 def main() -> int:
@@ -48,10 +46,10 @@ def main() -> int:
     calls = []
     align = icp.align
 
-    def recording_align(src, src_mask, tgt, tgt_mask, init_T, spec):
+    def recording_align(src, src_mask, tgt, tgt_mask, init_T, spec, live=None):
         calls.append((src.clone(), src_mask.clone(), tgt.clone(), tgt_mask.clone(),
                       init_T.clone(), spec))
-        return align(src, src_mask, tgt, tgt_mask, init_T, spec)
+        return align(src, src_mask, tgt, tgt_mask, init_T, spec, live)
 
     icp.align = recording_align
     try:
@@ -61,78 +59,59 @@ def main() -> int:
     print("circuit: " + json.dumps(summary))
     if not calls:
         raise SystemExit("the circuit closed no loop: nothing to replay")
-    shapes = sorted({(c[0].shape[0], c[2].shape[0]) for c in calls})
-    print(f"{len(calls)} verifications, shapes (N, M): {shapes}")
 
-    kernel = nn_kernel.nearest_neighbor
+    routes = {"plain": icp.align_ref, "graph": icp.align}
 
-    def replay(simple: bool, reps: int = args.reps):
-        """(ms per verification, results, launches) over all calls × reps."""
-        nn_kernel.nearest_neighbor = (nn_kernel._nearest_neighbor_simple
-                                      if simple else kernel)
-        nn_kernel.launches = 0
-        try:
-            results = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                for c in calls:
-                    results.append(align(*c))
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t0) / (reps * len(calls))
-        finally:
-            nn_kernel.nearest_neighbor = kernel
-        return ms, results, nn_kernel.launches
+    def replay(route: str, reps: int = args.reps):
+        """(ms per verification, results) over all calls × reps."""
+        fn = routes[route]
+        results = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for c in calls:
+                results.append(fn(*c))
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (reps * len(calls)), results
 
-    replay(False), replay(True)  # warm both
+    replay("plain", 1), replay("graph", 1)   # warm both
     turns = []
-    for simple in (True, False, False, True):
-        ms, results, launches = replay(simple)
-        iters = sum(r.iterations for r in results) / args.reps
-        turns.append((simple, ms, results, launches))
-        print(f"{'first version' if simple else 'kernel':13s}: {ms:.3f} ms per "
-              f"verification, {iters:.0f} ICP iterations over {len(calls)} "
-              f"verifications, {launches} counted launches")
-    base = turns[0][2]
-    for _simple, _ms, results, _launches in turns[1:]:
-        for a, b in zip(base, results):
-            if not (torch.equal(a.T, b.T) and a.fitness == b.fitness
-                    and a.iterations == b.iterations and a.converged == b.converged):
-                raise AssertionError("the two kernels give different ICP results")
+    for route in ("plain", "graph", "graph", "plain"):
+        ms, results = replay(route)
+        iters = sum(int(r.iterations) for r in results) / args.reps / len(calls)
+        turns.append((route, ms, results))
+        print(f"{route:5s}: {ms:.3f} ms per verification, {iters:.2f} ICP iterations a "
+              "verification")
+    plain = turns[0][2][:len(calls)]
+    graph = turns[1][2][:len(calls)]
+    same, err_r, err_t = 0, 0.0, 0.0
+    for c, a, b in zip(calls, plain, graph):
+        if int(a.iterations) != int(b.iterations):
+            continue
+        same += 1
+        lever = max(1.0, float(torch.linalg.norm(c[0][c[1]], dim=1).max()))
+        err_r = max(err_r, float((a.T[:3, :3] - b.T[:3, :3]).abs().max()))
+        err_t = max(err_t, float((a.T[:3, 3] - b.T[:3, 3]).abs().max()) / lever)
 
-    def device_ms(simple: bool):
-        """(device ms of all kernels, of the NN kernels) per verification,
-        from one profiled replay."""
+    def device_ms(route: str) -> float:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            replay(simple, reps=1)
-        total = nn = 0.0
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            total += e.self_device_time_total
-            if "nn_kernel" in e.key or "nn_merge_kernel" in e.key:
-                nn += e.self_device_time_total
-        return 1e-3 * total / len(calls), 1e-3 * nn / len(calls)
+            replay(route, reps=1)
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        return 1e-3 * total / len(calls)
 
-    dev_old, nn_old = device_ms(True)
-    dev_new, nn_new = device_ms(False)
-    print(f"device time per verification: first version {dev_old:.3f} ms "
-          f"(NN kernel {nn_old:.3f} ms), kernel {dev_new:.3f} ms "
-          f"(NN kernels {nn_new:.3f} ms)")
-    new_ms = float(np.mean([t[1] for t in turns if not t[0]]))
-    old_ms = float(np.mean([t[1] for t in turns if t[0]]))
-    iters = sum(r.iterations for r in base) / args.reps / len(calls)
-    print(json.dumps({"verifications": len(calls), "iterations_per_verification": iters,
-                      "ms_per_verification": new_ms,
-                      "ms_per_verification_first_version": old_ms,
-                      "saved_ms": old_ms - new_ms,
-                      "device_ms_per_verification": dev_new,
-                      "device_ms_per_verification_first_version": dev_old,
-                      "nn_device_ms_per_verification": nn_new,
-                      "nn_device_ms_per_verification_first_version": nn_old,
-                      "results_identical": True}))
+    dev_plain, dev_graph = device_ms("plain"), device_ms("graph")
+    print(f"device time per verification: plain {dev_plain:.3f} ms, graph {dev_graph:.3f} ms")
+    out = {"verifications": len(calls),
+           "ms_per_verification": float(np.mean([t[1] for t in turns if t[0] == "graph"])),
+           "ms_per_verification_plain": float(np.mean([t[1] for t in turns
+                                                        if t[0] == "plain"])),
+           "device_ms_per_verification": dev_graph,
+           "device_ms_per_verification_plain": dev_plain,
+           "same_iterations": same, "max_abs_err_R": err_r, "max_err_t_over_lever": err_t}
+    print(json.dumps(out))
     return 0
 
 

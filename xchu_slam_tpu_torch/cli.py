@@ -194,7 +194,7 @@ def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
             ts.append(time.perf_counter())
             if verbose:
                 print(f"scan {base}: kf={pipe.state.db.count} "
-                      f"loops={pipe.state.loop_count}", file=sys.stderr)
+                      f"loops={int(pipe.state.loop_count)}", file=sys.stderr)
     return {"wait_s": wait_s, "dispatch_s": dispatch_s, "span": span, "ts": ts}
 
 

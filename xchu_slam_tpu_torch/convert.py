@@ -8,9 +8,9 @@ The only layout that differs is the voxel grid's finalized table: the
 reference keeps a border-padded DIRECT7-packed [Vp,70] table whose lane
 block 0 of each interior row is that voxel's base row; the port keeps the
 base [V,10] table itself. The device engine's `DevState` crosses whole
-(`dev_state_from_ref`, `dev_state_to_ref`): the reference's device scalars
-that the port keeps on the host (`db.count`, `loop_count`, `diag`) change
-sides, and the port's device keyframe counter is the store's count.
+(`dev_state_from_ref`, `dev_state_to_ref`): the store's count, a device
+scalar there, is a host int in the port, and the port's device keyframe
+counter is the store's count.
 """
 
 from __future__ import annotations
@@ -137,13 +137,13 @@ def dev_state_from_ref(st, spec: GridSpec, device="cpu"):
         kf_accum=_t(st.kf_accum, device, np.float32),
         travel=_t(st.travel, device, np.float32),
         last_kf_odom=_t(st.last_kf_odom, device, np.float32),
-        loop_count=int(st.loop_count),
+        loop_count=_t(st.loop_count, device, np.int64),
         scan_count=_t(st.scan_count, device, np.int64),
         kf_count=_t(st.db.count, device, np.int64),
         imu_vel=_t(st.imu_vel, device, np.float32),
         last_stamp=_t(st.last_stamp, device, np.float32),
         log=_t(st.log, device, np.float32),
-        diag=_t(st.diag, "cpu", np.float32),
+        diag=_t(st.diag, device, np.float32),
     )
 
 
@@ -154,7 +154,7 @@ def dev_state_to_ref(st, spec: GridSpec) -> dict:
             "db": kfdb_to_ref(st.db), "graph": graph_to_ref(st.graph),
             "kf_accum": _np(st.kf_accum), "travel": _np(st.travel),
             "last_kf_odom": _np(st.last_kf_odom),
-            "loop_count": np.int32(st.loop_count),
+            "loop_count": np.int32(int(st.loop_count)),
             "scan_count": _np(st.scan_count).astype(np.int32),
             "imu_vel": _np(st.imu_vel), "last_stamp": _np(st.last_stamp),
             "log": _np(st.log), "diag": _np(st.diag)}

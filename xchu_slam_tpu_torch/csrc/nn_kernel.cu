@@ -99,7 +99,9 @@ __device__ __forceinline__ float4 stage_target(const float* __restrict__ tgt,
 __global__ void __launch_bounds__(kThreads)
 nn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
           const unsigned char* __restrict__ mask, int n, int m, int sub_len,
-          float* __restrict__ scratch_d, int* __restrict__ scratch_j) {
+          float* __restrict__ scratch_d, int* __restrict__ scratch_j,
+          const float* __restrict__ live) {
+  if (live != nullptr && !(*live > 0.5f)) return;
   __shared__ float4 stage[kWarps][kRound];
   __shared__ float part_d[kWarps][kSrcTile];
   __shared__ int part_j[kWarps][kSrcTile];
@@ -178,7 +180,9 @@ nn_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 __global__ void __launch_bounds__(256)
 nn_merge_kernel(const float* __restrict__ scratch_d,
                 const int* __restrict__ scratch_j, int n, int slices,
-                int* __restrict__ idx_out, float* __restrict__ d2_out) {
+                int* __restrict__ idx_out, float* __restrict__ d2_out,
+                const float* __restrict__ live) {
+  if (live != nullptr && !(*live > 0.5f)) return;
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   float b = scratch_d[i];
@@ -246,12 +250,16 @@ nn_kernel_simple(const float* __restrict__ src, const float* __restrict__ tgt,
 // src [n,3] f32, tgt [m,3] f32, mask [m] bool (1 byte), all contiguous on
 // the device; writes idx [n] int32 and d2 [n] f32. The targets are scanned
 // as slices × kWarps sub-slices of `sub_len` targets each, which must cover
-// m; scratch_d and scratch_j [slices][n] take the slices' partials. Launches
-// on `stream` and returns the CUDA error of the launch (0 on success).
+// m; scratch_d and scratch_j [slices][n] take the slices' partials. `live`
+// (one float on the device, or null for always) is read by both kernels,
+// which return at once where it is not > 0.5 and leave idx and d2 as they
+// were: a loop captured in a CUDA graph skips its finished trips this way.
+// Launches on `stream` and returns the CUDA error of the launch (0 on
+// success).
 extern "C" int nn_launch(const float* src, const float* tgt,
                          const unsigned char* mask, int n, int m, int slices,
                          int sub_len, int* idx, float* d2, float* scratch_d,
-                         int* scratch_j, void* stream) {
+                         int* scratch_j, const float* live, void* stream) {
   if (n <= 0) return 0;
   if (scratch_d == nullptr || scratch_j == nullptr || slices < 1 ||
       slices > 65535 || sub_len < 1 ||
@@ -261,11 +269,11 @@ extern "C" int nn_launch(const float* src, const float* tgt,
   const dim3 grid((n + kSrcTile - 1) / kSrcTile, slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   nn_kernel<<<grid, kThreads, 0, s>>>(src, tgt, mask, n, m, sub_len, scratch_d,
-                                      scratch_j);
+                                      scratch_j, live);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   nn_merge_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch_d, scratch_j, n,
-                                                  slices, idx, d2);
+                                                  slices, idx, d2, live);
   return static_cast<int>(cudaGetLastError());
 }
 

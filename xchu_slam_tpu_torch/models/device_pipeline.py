@@ -14,15 +14,23 @@ keeps the reference's results in scan order:
   scan. Part A keeps, per slot of the chunk, what Part B needs: the filtered
   cloud, the pose, the stamp and the travel.
 - one readback per chunk: the chunk's log rows (they hold `is_kf`).
-- Part B, on the host, in scan order, for the flagged slots only: the
-  keyframe branch (`_add_keyframe_branch` with `_detect_candidate` and
-  `_verify_and_apply`) on the functions the host engine uses, writing the
-  loop diagnostics into columns 11-15 of that scan's log row.
+- Part B, in scan order, for the flagged slots only: the keyframe branch
+  (`_add_keyframe_branch` with `_detect_candidate` and `_verify_and_apply`),
+  decided on the card as the reference's nested `lax.cond`s decide it. The
+  host holds only what the readback gave (which slots are keyframes, their
+  stamps and travel) and the store's count; the candidate, the 2-D gate,
+  the ICP verification (its CUDA graph replayed with `live` = the gate),
+  acceptance, the masked loop-table writes, `loop_count`, the solve's
+  cadence and its kernel's `run` flag, the diagnostics (columns 11-15 of
+  that scan's log row) and the verification counter are tensors on the
+  card. The counters are read in `finalize`.
 
 Part A reads nothing that Part B writes (the keyframe store, the graph): it
 needs only the gate's own scalars, which stay on the card. So the results
 are those of the reference's step in order. `process_scan` is a chunk of
-one.
+one. With `check_sync` the whole of a chunk but its one readback runs under
+`torch.cuda.set_sync_debug_mode("error")` (the first scan's seed, once a
+run, is outside it).
 
 Not ported here, and refused by the constructor: `odom.use_imu` /
 `odom.use_odom` (the guess providers integrated on the card); also `mesh`,
@@ -31,6 +39,7 @@ Not ported here, and refused by the constructor: `odom.use_imu` /
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from typing import NamedTuple
@@ -102,9 +111,10 @@ def spec_from_config(cfg: SlamConfig, kf_points: int = 4096,
 
 
 class DevState(NamedTuple):
-    """The engine's state. Part A's fields are device tensors that keep their
-    address (they are updated in place, as a CUDA graph needs); Part B's are
-    the host engine's store and graph with host counters."""
+    """The engine's state, on the device. Part A's fields are tensors that
+    keep their address (they are updated in place, as a CUDA graph needs);
+    Part B's are the host engine's store and graph, whose only host value is
+    the store's `count` (the keyframe rows come from the chunk's readback)."""
 
     odom: odometry.OdomState
     db: KfDb                    # `count` is a host int (Part B's)
@@ -112,7 +122,7 @@ class DevState(NamedTuple):
     kf_accum: torch.Tensor      # f32: travel since the last keyframe
     travel: torch.Tensor        # f32: total odometric travel
     last_kf_odom: torch.Tensor  # f32[6]: odometric pose at the last keyframe
-    loop_count: int             # host int (Part B's)
+    loop_count: torch.Tensor    # i64 on the device (Part B's)
     scan_count: torch.Tensor    # i64 on the device: indexes the log ring
     kf_count: torch.Tensor      # i64 on the device: the gate's keyframe counter
     imu_vel: torch.Tensor       # f32[3] (carried for the reference's layout)
@@ -121,7 +131,7 @@ class DevState(NamedTuple):
     #                             is_kf, stamp, + loop diagnostics: cand idx,
     #                             retrieval found, icp fitness, icp correction,
     #                             verify ran
-    diag: torch.Tensor          # f32[5] on the host: Part B's diagnostics scratch
+    diag: torch.Tensor          # f32[5]: Part B's diagnostics scratch
 
 
 _DIAG_RESET = (-1.0, 0.0, 0.0, 0.0, 0.0)
@@ -132,10 +142,19 @@ def _diag_reset() -> torch.Tensor:
     return torch.tensor(_DIAG_RESET, dtype=torch.float32)
 
 
+def _as(x, dtype, dev) -> torch.Tensor:
+    """`x` as a 0-d tensor of `dtype` on `dev`; a host value becomes a fill
+    (no copy from host memory)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return torch.full((), x, dtype=dtype, device=dev)
+
+
 def _sc_radius_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
     """Loop method "radius": the nearest keyframe before `k` (2-D, optimized
     poses) that is at least `min_time_diff` older, if within
-    `radius_search`. Returns (idx or -1, found); one readback."""
+    `radius_search`. Returns (idx or -1, found) as 0-d tensors on the
+    device."""
     db = state.db
     K = db.poses.shape[0]
     pos = db.opt_poses[k, :2]
@@ -143,46 +162,59 @@ def _sc_radius_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
     eligible = (torch.arange(K, device=d.device) < k) \
         & (db.stamps < stamp - spec.min_time_diff)
     d = torch.where(eligible, d, torch.inf)
-    best = torch.argmin(d)
-    dist, best = torch.stack([d[best], best.to(torch.float32)]).cpu().tolist()
-    found = dist < spec.radius_search
-    return (int(best) if found else -1), found
+    best = torch.argmin(d).reshape(1)
+    found = d.gather(0, best)[0] < spec.radius_search
+    return torch.where(found, best[0], -1), found
 
 
 def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
-    """Method-dispatched retrieval. Returns (idx, found, yaw): yaw is the
-    descriptor-measured relative heading ψ_cand − ψ_query (0 for methods
-    without a rotation estimate)."""
+    """Method-dispatched retrieval. Returns (idx, found, yaw) as 0-d tensors
+    on the device: yaw is the descriptor-measured relative heading
+    ψ_cand − ψ_query (0 for methods without a rotation estimate)."""
     db = state.db
+    dev = db.poses.device
     if spec.method == "sc":
-        res = sc.detect_loop(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k)
+        res = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k)
         return res.idx, res.found, res.yaw
     if spec.method == "isc":
-        res = isc_ops.detect_loop(db.isc_db[k], db.isc_db, db.count,
-                                  db.poses[:, :3], db.travel, spec.iscspec, cur=k)
+        res = isc_ops.detect_loop_on_device(db.isc_db[k], db.isc_db, db.count,
+                                            db.poses[:, :3], db.travel, spec.iscspec, cur=k)
         return res.idx, res.found, res.yaw
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     if spec.method == "radius":
         idx, found = _sc_radius_candidate(state, k, stamp, spec)
-        return idx, found, 0.0
-    return -1, False, 0.0
+        return idx, found, zero
+    return (torch.full((), -1, dtype=torch.int64, device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev), zero)
 
 
-def _verify_and_apply(state: DevState, k: int, cand: int, yaw: float,
-                      spec: DevSpec) -> DevState:
+def _masked_put(t: torch.Tensor, q: torch.Tensor, ok: torch.Tensor, val) -> None:
+    """t[q] = val where `ok`, in place, with q and ok on the device."""
+    old = t.index_select(0, q)
+    new = val if isinstance(val, torch.Tensor) else torch.full_like(old, val)
+    t.index_copy_(0, q, torch.where(ok, new.reshape(old.shape).to(t.dtype), old))
+
+
+def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec) -> DevState:
     """ICP-verify the candidate and, on acceptance, add the loop factor and
-    re-solve the graph. A rejected or absent candidate costs one distance
-    check."""
+    re-solve the graph, all decided on the card as the reference's nested
+    conds decide it: the 2-D gate is the ICP's `live` flag, acceptance the
+    masked loop-table writes and the solve's `run` flag. `cand` (-1 for
+    none) and `yaw` are 0-d tensors or host values; `loop_count` and `diag`
+    come back as tensors on the device, and nothing is read back."""
     db = state.db
-    if cand < 0:
-        return state
+    dev = db.poses.device
+    cand = _as(cand, torch.int64, dev)
+    yaw = _as(yaw, torch.float32, dev)
+    c = torch.clamp(cand, min=0).reshape(1)
+    opt_c = db.opt_poses.index_select(0, c)[0]
     # 2-D sanity gate
-    d2 = float(torch.linalg.norm(db.opt_poses[k, :2] - db.opt_poses[cand, :2]))
-    if d2 > spec.max_loop_dist:
-        return state
+    d2 = torch.linalg.norm(db.opt_poses[k, :2] - opt_c[:2])
+    do_verify = (cand >= 0) & (d2 <= spec.max_loop_dist)
 
-    tgt_xyz, tgt_mask, _ = build_submap(db, cand, cand, spec.submap_half_width,
+    tgt_xyz, tgt_mask, _ = build_submap(db, c, c, spec.submap_half_width,
                                         spec.submap_points)
-    T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(db.opt_poses[cand])),
+    T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(opt_c)),
                           se3.pose_to_matrix(db.opt_poses[k]))
     if spec.use_sc_yaw and spec.method in ("sc", "isc"):
         # heading from the descriptor's rotation estimate (−yaw = the query's
@@ -191,30 +223,32 @@ def _verify_and_apply(state: DevState, k: int, cand: int, yaw: float,
         p_init[5] = -yaw
         T_init = se3.pose_to_matrix(p_init)
     res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask, T_init,
-                    spec.icpspec)
-    corr = float(torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3]))
+                    spec.icpspec, live=do_verify)
+    corr = torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3])
+    loop_count = _as(state.loop_count, torch.int64, dev)
     # accept only converged ICP: a verification that hits the iteration cap
     # while still moving must not become a loop factor
-    ok = (res.converged and res.fitness <= spec.icp_fitness_thresh
-          and corr <= spec.max_correction
-          and state.loop_count < spec.gspec.max_loops)
-    state.diag[2], state.diag[3], state.diag[4] = float(res.fitness), corr, 1.0
-    if not ok:
-        return state
+    ok = (do_verify & res.converged & (res.fitness <= spec.icp_fitness_thresh)
+          & (corr <= spec.max_correction) & (loop_count < spec.gspec.max_loops))
+    diag = _as(state.diag, torch.float32, dev)
+    ran = torch.stack([res.fitness, corr, torch.ones_like(corr)])
+    diag = torch.cat([diag[:2], torch.where(do_verify, ran, diag[2:])])
 
-    q, g = state.loop_count, state.graph
-    g.loop_i[q] = cand
-    g.loop_j[q] = k
-    g.loop_T[q] = res.T
-    g.loop_info[q] = 1.0 / max(res.fitness, 1e-2)
-    g.loop_mask[q] = True
-    state = state._replace(loop_count=q + 1)
-    # warm-started in-step solve at the configured cadence; finalize() always
-    # runs the full-strength solve
-    if spec.gspec.solve_every <= 1 or state.loop_count % spec.gspec.solve_every == 0:
-        opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec))
-        state = state._replace(db=db._replace(opt_poses=opt))
-    return state
+    g = state.graph
+    q = torch.clamp(loop_count, max=g.loop_i.shape[0] - 1).reshape(1)
+    _masked_put(g.loop_i, q, ok, cand)
+    _masked_put(g.loop_j, q, ok, k)
+    _masked_put(g.loop_T, q, ok, res.T)
+    _masked_put(g.loop_info, q, ok, 1.0 / torch.clamp(res.fitness, min=1e-2))
+    _masked_put(g.loop_mask, q, ok, True)
+    loop_count = loop_count + ok.to(torch.int64)
+    # warm-started in-step solve at the configured cadence (its kernel's run
+    # flag); finalize() always runs the full-strength solve
+    run = ok
+    if spec.gspec.solve_every > 1:
+        run = ok & (loop_count % spec.gspec.solve_every == 0)
+    opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run)
+    return state._replace(db=db._replace(opt_poses=opt), loop_count=loop_count, diag=diag)
 
 
 def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
@@ -248,18 +282,19 @@ def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
         opt_pose = pose
     db = _add_keyframe(db, pose, stamp, travel, cxyz, cmask, sc_desc, isc_desc,
                        opt_pose)
-    state.graph.kf_mask[k] = True
+    state.graph.kf_mask[k].fill_(True)
     if spec.use_gps and gps_valid:
-        state.graph.gps_alt[k] = gps_alt
-        state.graph.gps_mask[k] = True
+        state.graph.gps_alt[k].fill_(gps_alt)
+        state.graph.gps_mask[k].fill_(True)
     state = state._replace(db=db)
 
     # loop detection every detect_period-th keyframe
     if spec.method != "none" and k >= 1 and k % spec.detect_period == 0:
         cand, found, yaw = _detect_candidate(state, k, stamp, spec)
-        cand = cand if found else -1
-        state.diag[0], state.diag[1] = float(cand), float(found)
-        state = _verify_and_apply(state, k, cand, yaw, spec)
+        cand = torch.where(found, cand, -1)
+        diag = torch.cat([torch.stack([cand.to(torch.float32), found.to(torch.float32)]),
+                          state.diag[2:]])
+        state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec)
     return state
 
 
@@ -279,11 +314,11 @@ def raw_state(spec: DevSpec, cloud0: Cloud, cfg: SlamConfig) -> DevState:
         db=empty_db(cfg, spec.kf_points, dev),
         graph=pg.empty_graph(spec.gspec, dev),
         kf_accum=z(), travel=z(), last_kf_odom=z(6),
-        loop_count=0,
+        loop_count=z(dtype=torch.int64),
         scan_count=z(dtype=torch.int64), kf_count=z(dtype=torch.int64),
         imu_vel=z(3), last_stamp=z(),
         log=z(spec.log_capacity, LOG_COLS),
-        diag=_diag_reset(),
+        diag=_diag_reset().to(dev),
     )
 
 
@@ -301,6 +336,16 @@ def init_state(spec: DevSpec, cloud0: Cloud, stamp0: float, cfg: SlamConfig) -> 
     state.kf_count.fill_(1)
     state.last_stamp.fill_(float(stamp0))
     return state
+
+
+@contextlib.contextmanager
+def _sync_debug_mode(mode: str):
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def _assign(dst, src) -> None:
@@ -335,9 +380,10 @@ class DeviceSlamPipeline:
                  use_graph: bool | None = None, check_sync: bool = False):
         """`use_graph` (default: on a CUDA device) replays Part A of a scan
         as one CUDA graph, captured after the first scan has run eagerly.
-        `check_sync` runs Part A under `torch.cuda.set_sync_debug_mode
-        ("error")`, which raises on a host synchronisation that PyTorch makes
-        (it cannot see one made through `ctypes`)."""
+        `check_sync` runs every chunk, Part B included, under
+        `torch.cuda.set_sync_debug_mode("error")` but for its one readback:
+        it raises on a host synchronisation that PyTorch makes (it cannot see
+        one made through `ctypes`)."""
         if cfg.loop.method not in ("sc", "isc", "radius", "none"):
             raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
         if cfg.odom.use_imu or cfg.odom.use_odom:
@@ -374,6 +420,9 @@ class DeviceSlamPipeline:
         # host seconds spent enqueueing Part A, waiting in the chunk's
         # readback (the card finishing Part A) and in Part B
         self.stage_seconds = {"part_a_enqueue": 0.0, "readback_wait": 0.0, "part_b": 0.0}
+        # ICP verifications run: a device counter during the run, a host int
+        # after finalize()
+        self._verifications = None
         self.icp_verifications = 0
         # log-wrap protection: the device log is a ring of log_capacity rows.
         # The host archives the ring before a feed would overwrite rows not
@@ -500,40 +549,50 @@ class DeviceSlamPipeline:
         self._reserve_log(n_real - first)
         if n_real <= first:
             return
+        stamps_h = torch.from_numpy(stamps)
+        if self.device.type == "cuda":
+            stamps_h = stamps_h.pin_memory()
+        with self._sync_check():
+            self._chunk(clouds, stamps_h, alts, first, n_real)
 
+    def _sync_check(self, mode: str = "error"):
+        """Sync debug mode `mode` inside the block where `check_sync` is on."""
+        if not self.check_sync:
+            return contextlib.nullcontext()
+        return _sync_debug_mode(mode)
+
+    def _chunk(self, clouds: Cloud, stamps_h, alts, first: int, n_real: int) -> None:
+        """Part A of the real slots, the chunk's one readback, then Part B of
+        the flagged slots, in scan order, on the card."""
         # Part A for every real slot, nothing read back
-        stamps_d = torch.from_numpy(stamps).to(self.device, non_blocking=True)
+        stamps_d = stamps_h.to(self.device, non_blocking=True)
         t0 = time.perf_counter()
-        prev_mode = None
-        if self.check_sync:
-            prev_mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s])
-                     for s in range(first, n_real)]
-            rows_d = torch.stack([row for _filt, row in slots])
-        finally:
-            if prev_mode is not None:
-                torch.cuda.set_sync_debug_mode(prev_mode)
+        slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s])
+                 for s in range(first, n_real)]
+        rows_d = torch.stack([row for _filt, row in slots])
         # the one readback of the chunk
         t1 = time.perf_counter()
-        rows = rows_d.cpu().numpy()
+        with self._sync_check("default"):
+            rows = rows_d.cpu().numpy()
         self.chunk_readbacks += 1
         t2 = time.perf_counter()
 
-        # Part B, in scan order, for the flagged slots
+        # Part B, in scan order, for the flagged slots: the keyframe rows and
+        # stamps are host values from the readback, every decision below the
+        # retrieval a tensor on the card
+        if self._verifications is None:
+            self._verifications = torch.zeros((), device=self.device)
         for j, (filt, _row) in enumerate(slots):
             if rows[j, 9] <= 0.5:
                 continue
             s = first + j
-            self.state.diag.copy_(_diag_reset())
             self.state = _add_keyframe_branch(
-                self.state, filt, rows_d[j, :6], float(rows[j, 10]),
-                float(rows[j, LOG_COLS]), float(np.nan_to_num(alts[s])),
-                bool(np.isfinite(alts[s])), self.spec)
-            self.icp_verifications += int(self.state.diag[4] > 0.5)
+                self.state._replace(diag=self._diag_reset_dev.clone()), filt,
+                rows_d[j, :6], float(rows[j, 10]), float(rows[j, LOG_COLS]),
+                float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec)
+            self._verifications += self.state.diag[4]
             slot = (self._scans_fed + j) % self.spec.log_capacity
-            self.state.log[slot, 11:LOG_COLS] = self.state.diag.to(self.device)
+            self.state.log[slot, 11:LOG_COLS] = self.state.diag
         self._scans_fed += n_real - first
         for key, dt in (("part_a_enqueue", t1 - t0), ("readback_wait", t2 - t1),
                         ("part_b", time.perf_counter() - t2)):
@@ -569,11 +628,14 @@ class DeviceSlamPipeline:
         self.db = st.db
         self.graph = st.graph
         self.kf_count = st.db.count
-        self.loop_count = st.loop_count
-        self.scan_count = int(st.scan_count)
-        if int(st.kf_count) != self.kf_count or self.scan_count != self._scans_fed:
+        verifications = (torch.zeros((), device=self.device) if self._verifications is None
+                         else self._verifications)
+        counts = torch.stack([st.loop_count.to(torch.float32), st.scan_count.to(torch.float32),
+                              st.kf_count.to(torch.float32), verifications]).cpu().tolist()
+        self.loop_count, self.scan_count, kf_dev, self.icp_verifications = map(int, counts)
+        if kf_dev != self.kf_count or self.scan_count != self._scans_fed:
             raise RuntimeError("the device's counters and the host's disagree: "
-                               f"keyframes {int(st.kf_count)} / {self.kf_count}, "
+                               f"keyframes {kf_dev} / {self.kf_count}, "
                                f"scans {self.scan_count} / {self._scans_fed}")
         cap = self.spec.log_capacity
         host_log = st.log.cpu().numpy()

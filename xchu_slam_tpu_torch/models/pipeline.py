@@ -87,8 +87,8 @@ def _add_keyframe(db: KfDb, pose6, stamp, travel, cloud_xyz, cloud_mask,
     k = db.count
     db.poses[k] = pose6
     db.opt_poses[k] = opt_pose6
-    db.stamps[k] = stamp
-    db.travel[k] = travel
+    db.stamps[k].fill_(stamp)
+    db.travel[k].fill_(travel)
     db.clouds[k] = cloud_xyz
     db.cloud_mask[k] = cloud_mask
     db.sc_db[k] = sc_desc
@@ -100,14 +100,19 @@ def _add_keyframe(db: KfDb, pose6, stamp, travel, cloud_xyz, cloud_mask,
 def build_submap(db: KfDb, centre_idx: int, frame_idx: int, half_width: int,
                  out_n: int):
     """±half_width keyframe clouds at optimized poses, expressed in keyframe
-    `frame_idx`'s frame, subsampled to `out_n` points."""
+    `frame_idx`'s frame, subsampled to `out_n` points. The indices are host
+    ints or one-element integer tensors."""
     K = db.poses.shape[0]
     dev = db.poses.device
     ks = centre_idx + torch.arange(-half_width, half_width + 1, device=dev)
     ok = (ks >= 0) & (ks < db.count)
     ksc = torch.clamp(ks, 0, K - 1)
     T_w = se3.pose_to_matrix(db.opt_poses[ksc])             # [W,4,4]
-    T_i_inv = se3.inverse(se3.pose_to_matrix(db.opt_poses[frame_idx]))
+    if isinstance(frame_idx, torch.Tensor):   # on the device: no readback
+        frame = db.opt_poses.index_select(0, frame_idx.reshape(1).to(torch.int64))[0]
+    else:
+        frame = db.opt_poses[frame_idx]
+    T_i_inv = se3.inverse(se3.pose_to_matrix(frame))
     T_rel = torch.einsum("ab,wbc->wac", T_i_inv, T_w)
     pts = se3.transform_points(T_rel, db.clouds[ksc])        # [W,P,3]
     mask = db.cloud_mask[ksc] & ok[:, None]
@@ -120,19 +125,26 @@ def _transform_all_clouds(poses6: torch.Tensor, clouds: torch.Tensor) -> torch.T
     return se3.transform_points(se3.pose_to_matrix(poses6), clouds)
 
 
-def _radius_candidate(db: KfDb, cur_idx: int, cur_stamp: float, radius: float,
-                      min_time: float) -> int:
+def radius_candidate_on_device(db: KfDb, cur_idx: int, cur_stamp: float, radius: float,
+                               min_time: float):
     """Nearest keyframe (2-D, optimized poses) within `radius` that is at
-    least `min_time` seconds older; -1 if none."""
+    least `min_time` seconds older: (idx or -1, found) as 0-d tensors on
+    the device."""
     K = db.poses.shape[0]
     pos = db.opt_poses[cur_idx, :2]
     d = torch.linalg.norm(db.opt_poses[:, :2] - pos[None], dim=-1)
     eligible = (torch.arange(K, device=d.device) < db.count) \
         & (db.stamps < cur_stamp - min_time)
     d = torch.where(eligible, d, torch.inf)
-    best = torch.argmin(d)
-    dist, best = torch.stack([d[best], best.to(torch.float32)]).cpu()
-    return int(best) if float(dist) < radius else -1
+    best = torch.argmin(d).reshape(1)
+    found = d.gather(0, best)[0] < radius
+    return torch.where(found, best[0], -1), found
+
+
+def _radius_candidate(db: KfDb, cur_idx: int, cur_stamp: float, radius: float,
+                      min_time: float) -> int:
+    """`radius_candidate_on_device` read back: the index, -1 if none."""
+    return int(radius_candidate_on_device(db, cur_idx, cur_stamp, radius, min_time)[0])
 
 
 class LoopRecord(NamedTuple):
@@ -322,33 +334,32 @@ class SlamPipeline:
     # ------------------------------------------------------------------ #
     def detect_and_verify_snapshot(self, k: int, stamp: float) -> VerifiedLoop | None:
         """Detection + ICP verification of keyframe k against the current
-        database. Mutates nothing but the verification counter."""
+        database. Mutates nothing but the verification counter. Two
+        readbacks: the candidate with its 2-D gate distance, then the ICP
+        result (the ICP loop reads nothing back on the card)."""
         cfg = self.cfg
         db = self.db
         method = cfg.loop.method
-        yaw = None  # descriptor-measured relative yaw (ψ_cand − ψ_query)
         if method == "sc":
-            res = sc.detect_loop(db.sc_db[k], db.sc_db, db.count, self.scspec, cur=k)
-            cand = res.idx
-            if res.found:
-                yaw = res.yaw
+            c = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, self.scspec, cur=k)
+            cand, found, yaw = c.idx, c.found, c.yaw
         elif method == "isc":
-            res = isc_ops.detect_loop(db.isc_db[k], db.isc_db, db.count,
-                                      db.poses[:, :3], db.travel, self.iscspec, cur=k)
-            cand = res.idx
-            if res.found:
-                yaw = res.yaw
+            c = isc_ops.detect_loop_on_device(db.isc_db[k], db.isc_db, db.count,
+                                              db.poses[:, :3], db.travel, self.iscspec, cur=k)
+            cand, found, yaw = c.idx, c.found, c.yaw
         elif method == "radius":
-            cand = _radius_candidate(db, k, stamp, cfg.loop.radius_search,
-                                     cfg.loop.min_time_diff)
+            cand, found = radius_candidate_on_device(db, k, stamp, cfg.loop.radius_search,
+                                                     cfg.loop.min_time_diff)
+            yaw = torch.zeros((), device=cand.device)
         else:
-            cand = -1
-        if cand < 0:
             return None
-
-        # 2-D sanity gate
-        d2 = float(torch.linalg.norm(db.opt_poses[k, :2] - db.opt_poses[cand, :2]))
-        if d2 > cfg.loop.max_loop_dist:
+        # 2-D sanity gate, read back with the candidate
+        other = db.opt_poses.index_select(0, torch.clamp(cand, min=0).reshape(1))[0]
+        d2 = torch.linalg.norm(db.opt_poses[k, :2] - other[:2])
+        cand, found, yaw, d2 = torch.stack([cand.to(torch.float32), found.to(torch.float32),
+                                            yaw, d2]).cpu().tolist()
+        cand = int(cand)
+        if cand < 0 or d2 > cfg.loop.max_loop_dist:
             return None
 
         # ICP verification: current kf cloud vs submap around candidate
@@ -356,7 +367,7 @@ class SlamPipeline:
                                             cfg.loop.submap_points)
         T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(db.opt_poses[cand])),
                               se3.pose_to_matrix(db.opt_poses[k]))
-        if cfg.loop.use_sc_yaw and yaw is not None:
+        if cfg.loop.use_sc_yaw and method in ("sc", "isc") and found > 0.5:
             # the true relative heading (query in cand's frame) is −yaw
             p_init = se3.matrix_to_pose(T_init)
             p_init[5] = -yaw
@@ -364,13 +375,15 @@ class SlamPipeline:
         res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask,
                         T_init, self.icpspec)
         self.icp_verifications += 1
-        if not (res.converged and res.fitness <= cfg.loop.icp_fitness_thresh):
-            return None
         # divergence guard: the odometric guess bounds a genuine correction
-        corr = float(torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3]))
+        corr = torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3])
+        conv, fitness, corr = torch.stack([res.converged.to(torch.float32), res.fitness,
+                                           corr]).cpu().tolist()
+        if not (conv > 0.5 and fitness <= cfg.loop.icp_fitness_thresh):
+            return None
         if corr > cfg.loop.max_correction:
             return None
-        return VerifiedLoop(i=cand, j=k, T=res.T, fitness=res.fitness, method=method)
+        return VerifiedLoop(i=cand, j=k, T=res.T, fitness=fitness, method=method)
 
     def _apply_loop(self, v: VerifiedLoop) -> LoopRecord | None:
         """Add a verified loop factor and re-solve the graph."""

@@ -9,12 +9,20 @@ gradient, the Hessian-vector product and the preconditioner from them. The
 preconditioner solves the chain part of the Hessian exactly: a block-LDLᵀ
 (Thomas) factorization plus two affine prefix scans for the substitutions.
 
-Differences from the reference, none of which changes the result beyond
-float rounding: the Thomas recursion is a Python loop over the live prefix
-of the chain (dead keyframes have zero coupling, so their blocks factor as
-one batch); the prefix scans are Hillis-Steele doubling scans (log₂K
-batched steps) where the reference uses `associative_scan`; the CG loop
-reads its stopping test back once per iteration.
+Two routes, picked by where the tensors live (as `ndt.align` picks its
+own). On the card (`solve`) each Gauss-Newton iteration's system is
+assembled in PyTorch, a fixed number of launches, and solved by one launch
+of `csrc/pgo_kernel.cu` (`ops/cuda/pgo_kernel.py`): the factor recursion,
+both substitutions and the PCG loop with its stop test, in one block, with
+no host synchronisation; the iteration is captured once as a CUDA graph and
+replayed. On the CPU `solve_ref`, the plain version, does the
+same arithmetic paced from the host: the Thomas recursion is a Python loop
+over the live prefix of the chain (dead keyframes have zero coupling, so
+their blocks factor as one batch; one readback finds the prefix), the
+prefix scans are Hillis-Steele doubling scans (log₂K batched steps) where
+the reference uses `associative_scan`, and the CG loop reads its stopping
+test back once per iteration. Neither changes the result beyond float
+rounding.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from xchu_slam_tpu_torch.ops.cuda import pgo_kernel
 from xchu_slam_tpu_torch.utils import se3
 from xchu_slam_tpu_torch.utils.scatter import index_add
 
@@ -125,6 +134,21 @@ def _chol(S):
     return torch.linalg.cholesky_ex(S).L
 
 
+def live_prefix(U, kf_mask):
+    """(n_seq, n_act) as 0-d int64 tensors on U's device, with no readback:
+    n_seq is one past the last keyframe with a non-zero chain coupling U[k]
+    (k ≥ 1), 1 if none; n_act the larger of n_seq and one past the last
+    live keyframe. The factor recursion runs over [0, n_seq); past n_act
+    every vector of the solve is 0. `csrc/pgo_kernel.cu` finds the same two
+    on the card."""
+    K = U.shape[0]
+    idx = torch.arange(K, device=U.device)
+    coupled = (U != 0).flatten(1).any(1) & (idx >= 1)
+    n_seq = torch.max(torch.where(coupled, idx, 0)) + 1
+    n_act = torch.maximum(n_seq, torch.max(torch.where(kf_mask, idx, 0)) + 1)
+    return n_seq, n_act
+
+
 def block_tridiag_factor(D, U):
     """Block-LDLᵀ factorization of the symmetric block-tridiagonal matrix
     with diagonal blocks D [K,6,6] and couplings U [K,6,6] (U[k] couples
@@ -142,8 +166,7 @@ def block_tridiag_factor(D, U):
     dprev = torch.cat([d[:1], d[:-1]], 0)
     Un = U / (dprev[:, :, None] * d[:, None, :])
 
-    coupled = (U[1:] != 0).flatten(1).any(1).nonzero()
-    n_seq = int(coupled.max()) + 2 if coupled.numel() else 1
+    n_seq = int(live_prefix(U, torch.zeros(K, dtype=torch.bool, device=U.device))[0])
     chols = torch.empty_like(D)
     A = torch.zeros_like(D)
     chols[0] = _chol(_damp(Dn[0]))
@@ -212,13 +235,28 @@ def _jtwj(Ja, W, Jb):  # Jaᵀ·diag(W)·Jb per factor, W [F,6]
     return torch.einsum("fba,fbc->fac", Ja, W[..., None] * Jb)
 
 
-def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec) -> torch.Tensor:
-    """Optimize all keyframe poses. poses6 [K,6] → optimized [K,6];
-    keyframes outside kf_mask keep their input poses."""
-    if spec.precond != "tridiag":
-        raise ValueError(f"precond {spec.precond!r} is not ported")
-    K = poses6.shape[0]
-    dev = poses6.device
+class _System(NamedTuple):
+    """One Gauss-Newton iteration's linear system, assembled from the
+    per-factor 6×6 Jacobian blocks: what the PCG (plain loop or kernel)
+    needs."""
+
+    g: torch.Tensor        # [K,6] gradient JᵀW r, node 0 zeroed
+    blocks: torch.Tensor   # [K,6,6] diagonal blocks, node 0 = I, + 1e-6·I
+    U: torch.Tensor        # [K,6,6] chain couplings (U[0] = U[1] = 0)
+    Ji: torch.Tensor       # [K,6,6] chain Jacobians w.r.t. node ke-1
+    Jj: torch.Tensor       # [K,6,6] chain Jacobians w.r.t. node ke
+    Jli: torch.Tensor      # [L,6,6]
+    Jlj: torch.Tensor      # [L,6,6]
+    wl: torch.Tensor       # [L] robust loop weights
+    A: torch.Tensor        # [K,3] GPS altitude rows
+    odom_info: torch.Tensor
+    wp: torch.Tensor       # [K] chain factor weights
+    gz: torch.Tensor       # [K] altitude information
+
+
+def _gn_system(Ts, graph: GraphData, spec: GraphSpec) -> _System:
+    K = Ts.shape[0]
+    dev = Ts.device
     odom_info = torch.cat([torch.full((3,), spec.odom_info_t, device=dev),
                            torch.full((3,), spec.odom_info_r, device=dev)])
     kf = graph.kf_mask
@@ -229,88 +267,203 @@ def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec) -> torch.Tens
     gz = torch.where(graph.gps_mask & kf, spec.gps_info_z, 0.0)      # [K]
     wp = pairmask.to(torch.float32)                                   # [K]
     mask0 = torch.ones((K, 1), device=dev)
-    mask0[0] = 0.0
+    mask0[0].fill_(0.0)
     eye6 = torch.eye(6, device=dev)
 
     def gps6(x3):
         return torch.cat([x3, torch.zeros_like(x3)], -1)
 
-    def gn_iter(Ts):
-        r_o = _between_residual(Ts[ke - 1], Ts[ke], graph.between_T)
-        r_l = _between_residual(Ts[li], Ts[lj], lT)
-        w_lin = torch.where(graph.loop_mask, torch.clamp(graph.loop_info, min=0.0), 0.0)
-        wl = w_lin * _cauchy_weights(r_l * torch.sqrt(w_lin)[:, None], spec.cauchy_k)
+    r_o = _between_residual(Ts[ke - 1], Ts[ke], graph.between_T)
+    r_l = _between_residual(Ts[li], Ts[lj], lT)
+    w_lin = torch.where(graph.loop_mask, torch.clamp(graph.loop_info, min=0.0), 0.0)
+    wl = w_lin * _cauchy_weights(r_l * torch.sqrt(w_lin)[:, None], spec.cauchy_k)
 
-        Ji, Jj = _edge_jacobians(Ts, ke - 1, ke, graph.between_T)
-        Jli, Jlj = _edge_jacobians(Ts, li, lj, lT)
-        A = Ts[:, 2, :3]          # GPS altitude row: dz/dρ = R[2,:]
-        r_g = Ts[:, 2, 3] - graph.gps_alt
+    Ji, Jj = _edge_jacobians(Ts, ke - 1, ke, graph.between_T)
+    Jli, Jlj = _edge_jacobians(Ts, li, lj, lT)
+    A = Ts[:, 2, :3]          # GPS altitude row: dz/dρ = R[2,:]
+    r_g = Ts[:, 2, 3] - graph.gps_alt
 
-        # gradient g = JᵀW r
-        wro = r_o * odom_info[None, :] * wp[:, None]
-        wrl = r_l * wl[:, None]
-        g = torch.zeros((K, 6), device=dev)
-        index_add(g, ke - 1, _bmtv(Ji, wro))
-        index_add(g, ke, _bmtv(Jj, wro))
-        index_add(g, li, _bmtv(Jli, wrl))
-        index_add(g, lj, _bmtv(Jlj, wrl))
-        g = g + gps6((gz * r_g)[:, None] * A)
+    # gradient g = JᵀW r
+    wro = r_o * odom_info[None, :] * wp[:, None]
+    wrl = r_l * wl[:, None]
+    g = torch.zeros((K, 6), device=dev)
+    index_add(g, ke - 1, _bmtv(Ji, wro))
+    index_add(g, ke, _bmtv(Jj, wro))
+    index_add(g, li, _bmtv(Jli, wrl))
+    index_add(g, lj, _bmtv(Jlj, wrl))
+    g = g + gps6((gz * r_g)[:, None] * A)
 
-        def hvp(v):
-            v = v * mask0
-            wjv = (_bmv(Ji, v[ke - 1]) + _bmv(Jj, v[ke])) * odom_info[None, :] * wp[:, None]
-            wjvl = (_bmv(Jli, v[li]) + _bmv(Jlj, v[lj])) * wl[:, None]
-            y = torch.zeros((K, 6), device=dev)
-            index_add(y, ke - 1, _bmtv(Ji, wjv))
-            index_add(y, ke, _bmtv(Jj, wjv))
-            index_add(y, li, _bmtv(Jli, wjvl))
-            index_add(y, lj, _bmtv(Jlj, wjvl))
-            s = torch.sum(A * v[:, :3], -1)
-            y = y + gps6((gz * s)[:, None] * A)
-            return y * mask0
+    # 6×6 diagonal blocks and chain couplings from the same Jacobians
+    Wo = odom_info.expand(K, 6)
+    blocks = torch.zeros((K, 6, 6), device=dev)
+    index_add(blocks, ke - 1, _jtwj(Ji, Wo, Ji) * wp[:, None, None])
+    index_add(blocks, ke, _jtwj(Jj, Wo, Jj) * wp[:, None, None])
+    index_add(blocks, li, Jli.transpose(1, 2) @ Jli * wl[:, None, None])
+    index_add(blocks, lj, Jlj.transpose(1, 2) @ Jlj * wl[:, None, None])
+    blocks = blocks + gz[:, None, None] * torch.nn.functional.pad(
+        A[:, :, None] * A[:, None, :], (0, 3, 0, 3))
+    # chain-exact preconditioner M = H_chain + diag(loop/GPS/damping);
+    # U[1] = 0 keeps the gauge-fixed node 0 isolated
+    U = torch.zeros((K, 6, 6), device=dev)
+    index_add(U, ke, _jtwj(Ji, Wo, Jj) * wp[:, None, None])
+    g = g * mask0
+    blocks[0] = eye6
+    blocks = blocks + 1e-6 * eye6
+    U[1].fill_(0.0)
+    return _System(g, blocks, U, Ji, Jj, Jli, Jlj, wl, A, odom_info, wp, gz)
 
-        # 6×6 diagonal blocks and chain couplings from the same Jacobians
-        Wo = odom_info.expand(K, 6)
-        blocks = torch.zeros((K, 6, 6), device=dev)
-        index_add(blocks, ke - 1, _jtwj(Ji, Wo, Ji) * wp[:, None, None])
-        index_add(blocks, ke, _jtwj(Jj, Wo, Jj) * wp[:, None, None])
-        index_add(blocks, li, Jli.transpose(1, 2) @ Jli * wl[:, None, None])
-        index_add(blocks, lj, Jlj.transpose(1, 2) @ Jlj * wl[:, None, None])
-        blocks = blocks + gz[:, None, None] * torch.nn.functional.pad(
-            A[:, :, None] * A[:, None, :], (0, 3, 0, 3))
-        # chain-exact preconditioner M = H_chain + diag(loop/GPS/damping);
-        # U[1] = 0 keeps the gauge-fixed node 0 isolated
-        U = torch.zeros((K, 6, 6), device=dev)
-        index_add(U, ke, _jtwj(Ji, Wo, Jj) * wp[:, None, None])
-        g = g * mask0
-        blocks[0] = eye6
-        blocks = blocks + 1e-6 * eye6
-        U[1] = 0.0
-        dsc, chols, Af = block_tridiag_factor(blocks, U)
 
-        def precond(v):
-            return block_tridiag_solve(dsc, chols, Af, v)
+def _hvp(sys_: _System, graph: GraphData, v):
+    """H v from the system's factor blocks (node 0 masked)."""
+    K = v.shape[0]
+    ke = torch.clamp(torch.arange(K, device=v.device), 1, K - 1)
+    li, lj = graph.loop_i, graph.loop_j
+    mask0 = torch.ones((K, 1), device=v.device)
+    mask0[0].fill_(0.0)
+    Ji, Jj, Jli, Jlj, A = sys_.Ji, sys_.Jj, sys_.Jli, sys_.Jlj, sys_.A
+    v = v * mask0
+    wjv = (_bmv(Ji, v[ke - 1]) + _bmv(Jj, v[ke])) * sys_.odom_info[None, :] \
+        * sys_.wp[:, None]
+    wjvl = (_bmv(Jli, v[li]) + _bmv(Jlj, v[lj])) * sys_.wl[:, None]
+    y = torch.zeros((K, 6), device=v.device)
+    index_add(y, ke - 1, _bmtv(Ji, wjv))
+    index_add(y, ke, _bmtv(Jj, wjv))
+    index_add(y, li, _bmtv(Jli, wjvl))
+    index_add(y, lj, _bmtv(Jlj, wjvl))
+    s = torch.sum(A * v[:, :3], -1)
+    y = y + torch.cat([(sys_.gz * s)[:, None] * A, torch.zeros_like(A)], -1)
+    return y * mask0
 
-        # PCG with a relative stop on the preconditioned norm
-        b = -g
-        x = torch.zeros_like(b)
-        r, z = b, precond(b)
-        p, rz = z, torch.sum(b * z)
-        rz0 = rz
-        for _ in range(spec.cg_iterations):
-            if not bool(rz > spec.cg_tol * rz0):
-                break
-            Hp = hvp(p)
-            alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-20)
-            x = x + alpha * p
-            r = r - alpha * Hp
-            z = precond(r)
-            rz_new = torch.sum(r * z)
-            beta = rz_new / torch.clamp(rz, min=1e-20)
-            p, rz = z + beta * p, rz_new
-        return torch.matmul(Ts, se3.se3_exp(x * mask0))
 
+def _pcg_ref(sys_: _System, graph: GraphData, spec: GraphSpec) -> torch.Tensor:
+    """The plain PCG with a relative stop on the preconditioned norm; its
+    stop test is read back once per iteration."""
+    dsc, chols, Af = block_tridiag_factor(sys_.blocks, sys_.U)
+
+    def precond(v):
+        return block_tridiag_solve(dsc, chols, Af, v)
+
+    b = -sys_.g
+    x = torch.zeros_like(b)
+    r, z = b, precond(b)
+    p, rz = z, torch.sum(b * z)
+    rz0 = rz
+    for _ in range(spec.cg_iterations):
+        if not bool(rz > spec.cg_tol * rz0):
+            break
+        Hp = _hvp(sys_, graph, p)
+        alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-20)
+        x = x + alpha * p
+        r = r - alpha * Hp
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp(rz, min=1e-20)
+        p, rz = z + beta * p, rz_new
+    return x
+
+
+def _check_spec(spec: GraphSpec):
+    if spec.precond != "tridiag":
+        raise ValueError(f"precond {spec.precond!r} is not ported")
+
+
+def solve_ref(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
+              run: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of `solve`: the factor recursion, the substitutions
+    and the CG loop paced from the host. `run` (a bool tensor) false returns
+    the input poses, as the kernel route does; it is read here."""
+    _check_spec(spec)
+    if run is not None and not bool(run):
+        return poses6
+    K = poses6.shape[0]
+    mask0 = torch.ones((K, 1), device=poses6.device)
+    mask0[0].fill_(0.0)
     Ts = se3.pose_to_matrix(poses6)
     for _ in range(spec.gn_iterations):
-        Ts = gn_iter(Ts)
-    return torch.where(kf[:, None], se3.matrix_to_pose(Ts), poses6)
+        x = _pcg_ref(_gn_system(Ts, graph, spec), graph, spec)
+        Ts = torch.matmul(Ts, se3.se3_exp(x * mask0))
+    return torch.where(graph.kf_mask[:, None], se3.matrix_to_pose(Ts), poses6)
+
+
+def _gn_step_cuda(Ts, graph: GraphData, spec: GraphSpec, run) -> torch.Tensor:
+    """One Gauss-Newton iteration on the card: the system assembled in
+    PyTorch, solved by one launch of the PGO kernel."""
+    K = Ts.shape[0]
+    mask0 = torch.ones((K, 1), device=Ts.device)
+    mask0[0].fill_(0.0)
+    s = _gn_system(Ts, graph, spec)
+    x, _iters = pgo_kernel.cg(
+        s.blocks.contiguous(), s.U.contiguous(), s.g.contiguous(), s.Ji.contiguous(),
+        s.Jj.contiguous(), s.odom_info, s.wp, s.Jli.contiguous(), s.Jlj.contiguous(),
+        graph.loop_i, graph.loop_j, s.wl.contiguous(), s.A.contiguous(),
+        s.gz.contiguous(), graph.kf_mask, run, spec.cg_tol, spec.cg_iterations)
+    return torch.matmul(Ts, se3.se3_exp(x * mask0))
+
+
+class _GnGraph:
+    """One Gauss-Newton iteration on the card, captured once per store shape
+    and spec (its Gauss-Newton count aside) as a CUDA graph over static
+    buffers: the transforms, `run` and a copy of the factor store. The
+    assembly is some 1,500 small launches an iteration, which the host would
+    otherwise enqueue one by one; a replay is one."""
+
+    def __init__(self, graph: GraphData, spec: GraphSpec, dev: torch.device):
+        K = graph.kf_mask.shape[0]
+        self.graph = GraphData(*(torch.zeros_like(t) for t in graph))
+        self.Ts = torch.eye(4, device=dev).repeat(K, 1, 1)
+        self.run = torch.zeros((), dtype=torch.bool, device=dev)
+        counts = pgo_kernel.launches
+        _gn_step_cuda(self.Ts, self.graph, spec, self.run)   # warm-up, run false
+        warm = pgo_kernel.launches
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        # entering a capture synchronises the device, once per shape and spec
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            with torch.cuda.graph(self.cuda_graph, capture_error_mode="thread_local"):
+                self.out = _gn_step_cuda(self.Ts, self.graph, spec, self.run)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        # a capture records launches, it makes none: each replay makes them
+        self.launches = pgo_kernel.launches - warm
+        pgo_kernel.launches = counts
+
+    def solve(self, poses6, graph: GraphData, gn_iterations: int, run) -> torch.Tensor:
+        for dst, src in zip(self.graph, graph):
+            dst.copy_(src)
+        self.run.copy_(run)
+        self.Ts.copy_(se3.pose_to_matrix(poses6))
+        for _ in range(gn_iterations):
+            self.cuda_graph.replay()
+            pgo_kernel.launches += self.launches
+            self.Ts.copy_(self.out)
+        return torch.where((graph.kf_mask & run)[:, None], se3.matrix_to_pose(self.Ts),
+                           poses6)
+
+
+_gn_graphs: dict = {}
+
+
+def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
+          run: torch.Tensor | None = None) -> torch.Tensor:
+    """Optimize all keyframe poses. poses6 [K,6] → optimized [K,6];
+    keyframes outside kf_mask keep their input poses, and so do all when
+    `run` (a 0-d bool tensor on the poses' device) is false.
+
+    CPU tensors take `solve_ref`. CUDA tensors replay one Gauss-Newton
+    iteration's CUDA graph (`_GnGraph`, captured at the first solve of a
+    store shape and spec) `gn_iterations` times: the system assembled in
+    PyTorch, a fixed number of launches, and solved by one launch of
+    `csrc/pgo_kernel.cu` (factor and PCG, the stop test on the card). No host
+    synchronisation."""
+    if poses6.device.type == "cpu":
+        return solve_ref(poses6, graph, spec, run)
+    _check_spec(spec)
+    dev = poses6.device
+    if run is None:
+        run = torch.ones((), dtype=torch.bool, device=dev)
+    key = (tuple(t.shape for t in graph), spec._replace(gn_iterations=0), str(dev))
+    g = _gn_graphs.get(key)
+    if g is None:
+        g = _gn_graphs[key] = _GnGraph(graph, spec, dev)
+    return g.solve(poses6, graph, spec.gn_iterations, run)

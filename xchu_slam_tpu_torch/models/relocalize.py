@@ -80,12 +80,14 @@ class SessionLocalizer:
         T_init = se3.pose_to_matrix(torch.tensor(
             [0.0, 0.0, 0.0, 0.0, 0.0, -yaw], dtype=torch.float32, device=self.device))
         res = icp.align(src_xyz, src_mask, tgt_xyz, tgt_mask, T_init, self.icpspec)
-        ok = res.converged and res.fitness <= cfg.loop.icp_fitness_thresh
-        # query pose in the map frame: T_map(match) ∘ T_refined
+        # query pose in the map frame: T_map(match) ∘ T_refined; one readback
+        # with the ICP's result
         T_q = torch.matmul(se3.pose_to_matrix(self.db.opt_poses[k]), res.T)
-        pose = se3.matrix_to_pose(T_q).cpu().numpy()
-        return LocalizeResult(ok, k, pose, cand.dist, yaw, res.fitness,
-                              res.converged)
+        host = torch.cat([se3.matrix_to_pose(T_q), res.converged.to(torch.float32)[None],
+                          res.fitness[None]]).cpu().numpy()
+        pose, converged, fitness = host[:6].copy(), bool(host[6] > 0.5), float(host[7])
+        ok = converged and fitness <= cfg.loop.icp_fitness_thresh
+        return LocalizeResult(ok, k, pose, cand.dist, yaw, fitness, converged)
 
 
 def localizer_from_checkpoint(path: str, device: torch.device | str = "cuda"

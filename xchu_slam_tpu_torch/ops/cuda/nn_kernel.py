@@ -95,7 +95,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nn_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
-                              ptr, ptr, ptr, ptr, ptr]
+                              ptr, ptr, ptr, ptr, ptr, ptr]
     lib.nn_launch.restype = i32
     lib.nn_launch_simple.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
     lib.nn_launch_simple.restype = i32
@@ -125,10 +125,13 @@ def _check(src, tgt, tgt_mask):
         raise ValueError("empty target cloud")
 
 
-def _launch(src, tgt, tgt_mask, simple: bool):
+def _launch(src, tgt, tgt_mask, simple: bool, live=None):
     """Check, allocate the outputs and launch one of the two kernels on
     PyTorch's current stream."""
     _check(src, tgt, tgt_mask)
+    if live is not None and (live.device != src.device or live.dtype != torch.float32
+                             or live.numel() != 1):
+        raise ValueError("live must be one float32 on the kernel's device")
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     if not (src.is_contiguous() and tgt.is_contiguous() and tgt_mask.is_contiguous()):
@@ -155,21 +158,26 @@ def _launch(src, tgt, tgt_mask, simple: bool):
             rc = lib.nn_launch(src.data_ptr(), tgt.data_ptr(), tgt_mask.data_ptr(),
                                n, m, slices, sub_len,
                                idx.data_ptr(), d2.data_ptr(), scratch.data_ptr(),
-                               scratch.data_ptr() + 4 * slices * n, stream)
+                               scratch.data_ptr() + 4 * slices * n,
+                               None if live is None else live.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"nn_kernel launch failed: CUDA error {rc}")
     return idx, d2
 
 
-def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor):
+def nearest_neighbor(src: torch.Tensor, tgt: torch.Tensor, tgt_mask: torch.Tensor,
+                     live: torch.Tensor | None = None):
     """(idx [N] int32, d2 [N] float32) of the nearest valid target per
     source point. CUDA tensors run the kernel; CPU tensors the plain
-    version."""
+    version. `live` (one float32 on the card) makes the kernel return at
+    once, its outputs unwritten, where it is not > 0.5: what a loop
+    captured in a CUDA graph (`ops/icp.py`) does on its finished trips. The
+    plain version ignores it."""
     global launches
     if src.device.type == "cpu":
         _check(src, tgt, tgt_mask)
         return nearest_neighbor_ref(src, tgt, tgt_mask)
-    out = _launch(src, tgt, tgt_mask, simple=False)
+    out = _launch(src, tgt, tgt_mask, simple=False, live=live)
     launches += 1
     return out
 

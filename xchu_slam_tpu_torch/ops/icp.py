@@ -1,25 +1,38 @@
 """Point-to-point ICP for loop verification (port of `xchu_slam_tpu.ops.icp`).
 
 Brute-force nearest-neighbour correspondences (the CUDA kernel in
-`ops/cuda/nn_kernel.py` on the card), a weighted Procrustes (Umeyama)
-update, PCL's transformation-epsilon convergence test plus the reference's
+`ops/cuda/nn_kernel.py` on the card), a weighted Procrustes (Kabsch) update,
+PCL's transformation-epsilon convergence test plus the reference's
 error-plateau exit. Fitness is PCL's: the mean squared distance of source
 points to their nearest target within `max_corr_dist`.
 
-The reference iterates under `lax.while_loop`; here each iteration's
-correspondence pass and moment sums run on the device and one readback of
-17 floats feeds the 3×3 SVD, the transform update and the convergence test
-on the host (float32, as the reference computes them).
+The reference iterates under `lax.while_loop`. Here `align` picks its route
+by where the tensors live:
+- CUDA tensors: the loop is a CUDA graph, captured once per (N, M, spec) and
+  replayed per verification: `max_iterations` trips of (NN kernel,
+  `csrc/icp_kernel.cu`'s step: moment sums, the Kabsch rotation, the
+  update, the stop tests) and a final fitness pass. The stop tests clear a
+  `live` flag on the card and every kernel of a later trip returns at once,
+  so nothing is read back; the result's fields are tensors on the card.
+- CPU tensors: `align_ref`, the plain version: each iteration's moment sums
+  (17 floats) go to the host, which does the 3×3 SVD, the update and the
+  tests in float32, as the reference computes them. It is the fixed-trip
+  loop masked on `live`, leaving the loop where the mask turns false (the
+  trips after it change nothing).
+Both take an optional `live` (0-d bool tensor): false makes the whole
+verification a no-op that returns init_T, 0 iterations, not converged and
+fitness 0.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from xchu_slam_tpu_torch.ops.cuda import nn_kernel
+from xchu_slam_tpu_torch.ops.cuda import icp_kernel, nn_kernel
 from xchu_slam_tpu_torch.utils import se3
 
 
@@ -38,17 +51,29 @@ def spec_from_config(loop_cfg) -> IcpSpec:
 
 
 class IcpResult(NamedTuple):
-    T: torch.Tensor      # float32[4,4] source→target, on the input device
-    fitness: float       # mean sq corr distance (PCL semantics)
-    iterations: int
-    converged: bool      # ended on the transform-delta epsilon or the error
-    # plateau, not on the iteration cap (a verification still moving at the
-    # cap is rejected by the loop gate)
+    """Tensors on the inputs' device."""
+
+    T: torch.Tensor           # float32[4,4] source→target
+    fitness: torch.Tensor     # float32: mean sq corr distance (PCL semantics)
+    iterations: torch.Tensor  # int32
+    converged: torch.Tensor   # bool: ended on the transform-delta epsilon or
+    # the error plateau, not on the iteration cap (a verification still
+    # moving at the cap is rejected by the loop gate)
+
+
+# ICP iterations the graph route ran, per device (a tensor there, added to
+# after each replay without a readback); `live_trip_count` reads them
+live_trips: dict = {}
+
+
+def live_trip_count() -> int:
+    """The live ICP iterations of every replay so far, on all devices (one
+    readback each)."""
+    return sum(int(t) for t in live_trips.values())
 
 
 def _nearest(src, tgt, tgt_mask):
-    """For each source point: (nearest target point [N,3], sq dist [N]).
-    Every CUDA tensor goes to the kernel, whatever its size."""
+    """For each source point: (nearest target point [N,3], sq dist [N])."""
     idx, d2 = nn_kernel.nearest_neighbor(src, tgt, tgt_mask)
     return tgt[idx], d2
 
@@ -68,22 +93,31 @@ def _moments(cur, src_mask, tgt, tgt_mask, max_d2):
                       torch.sum(d2 * w)[None]])
 
 
-def align(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec) -> IcpResult:
-    """ICP aligning `src` [N,3] onto `tgt` [M,3]; init_T is a [4,4] guess.
-    All tensors on one device."""
+def kabsch_ref(M: torch.Tensor) -> torch.Tensor:
+    """The proper rotation R maximising tr(Rᵀ M) for the 3×3 cross-covariance
+    M: U·diag(1, 1, det(UVᵀ))·Vᵀ from the SVD, as the reference computes it
+    (the plain version of the kernel's quaternion form)."""
+    U, _s, Vt = torch.linalg.svd(M)
+    det = torch.linalg.det(U @ Vt)
+    one = torch.ones((), dtype=M.dtype, device=M.device)
+    S = torch.diag(torch.stack([one, one, det]))
+    return U @ S @ Vt
+
+
+def align_ref(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
+              live: torch.Tensor | None = None) -> IcpResult:
+    """The plain version of `align`: the moments on the inputs' device, the
+    update and the tests on the host, one readback an iteration."""
     dev = src.device
     max_d2 = spec.max_corr_dist ** 2
     T = init_T.detach().to("cpu", torch.float32)
+    run = True if live is None else bool(live)
     it, conv, prev_err = 0, False, torch.tensor(math.inf)
-    while not conv and it < spec.max_iterations:
+    while run and not conv and it < spec.max_iterations:
         cur = se3.transform_points(T.to(dev), src)
         m = _moments(cur, src_mask, tgt, tgt_mask, max_d2).cpu()
         wsum, mu_s, mu_t = m[0], m[1:4], m[4:7]
-        M = m[7:16].reshape(3, 3) / wsum  # 3×3 cross-covariance
-        U, _s, Vt = torch.linalg.svd(M)
-        det = torch.linalg.det(U @ Vt)
-        S = torch.diag(torch.stack([torch.ones(()), torch.ones(()), det]))
-        R = U @ S @ Vt
+        R = kabsch_ref(m[7:16].reshape(3, 3) / wsum)
         t = mu_t - R @ mu_s
         dT = torch.eye(4)
         dT[:3, :3], dT[:3, 3] = R, t
@@ -101,12 +135,101 @@ def align(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec) -> IcpResult:
         settled = bool((trans_delta2 < 1e-4) & (rot_delta2 < 1e-4))
         conv = conv_transform or (conv_plateau and settled)
         prev_err, it = err, it + 1
-    # final fitness at the converged transform
     T_dev = T.to(dev)
-    cur = se3.transform_points(T_dev, src)
-    _nn, d2 = _nearest(cur, tgt, tgt_mask)
-    w = (src_mask & (d2 < max_d2)).to(torch.float32)
-    num_den = torch.stack([torch.sum(d2 * w), torch.sum(w)]).cpu()
-    fitness = num_den[0] / torch.clamp(num_den[1], min=1.0)
-    return IcpResult(T=T_dev, fitness=float(fitness), iterations=it,
-                     converged=conv)
+    fitness = torch.zeros((), dtype=torch.float32)
+    if run:
+        # final fitness at the converged transform
+        cur = se3.transform_points(T_dev, src)
+        _nn, d2 = _nearest(cur, tgt, tgt_mask)
+        w = (src_mask & (d2 < max_d2)).to(torch.float32)
+        num_den = torch.stack([torch.sum(d2 * w), torch.sum(w)]).cpu()
+        fitness = num_den[0] / torch.clamp(num_den[1], min=1.0)
+    return IcpResult(T=T_dev, fitness=fitness.to(dev),
+                     iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+                     converged=torch.tensor(conv, device=dev))
+
+
+class _IcpGraph:
+    """One verification as a CUDA graph over static buffers: the set-up,
+    `max_iterations` trips of (NN kernel, step kernel) and the fitness pass."""
+
+    def __init__(self, n: int, m: int, spec: IcpSpec, dev: torch.device):
+        f32 = torch.float32
+        self.spec = spec
+        self.src = torch.zeros((n, 3), dtype=f32, device=dev)
+        self.src_mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.tgt = torch.zeros((m, 3), dtype=f32, device=dev)
+        self.tgt_mask = torch.zeros(m, dtype=torch.bool, device=dev)
+        self.init_T = torch.eye(4, dtype=f32, device=dev)
+        self.live = torch.zeros((), dtype=torch.bool, device=dev)
+        self.st = torch.zeros(icp_kernel.STATE_FLOATS, dtype=f32, device=dev)
+        self.cur = torch.zeros((n, 3), dtype=f32, device=dev)
+        counts = (nn_kernel.launches, icp_kernel.launches)
+        self._body()       # loads both libraries before the capture
+        warm = (nn_kernel.launches, icp_kernel.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        # entering a capture synchronises the device, once per shape
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self._body()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        # a capture records launches, it makes none: each replay makes them.
+        # The warm-up's trips were no-ops (live false), not counted either
+        self.nn_launches = nn_kernel.launches - warm[0]
+        self.step_launches = icp_kernel.launches - warm[1]
+        nn_kernel.launches, icp_kernel.launches = counts
+
+    def _body(self) -> None:
+        spec = self.spec
+        max_d2 = spec.max_corr_dist ** 2
+        slot = icp_kernel.STATE
+        icp_kernel.init(self.src, self.init_T, self.live, self.st, self.cur)
+        live = self.st[slot["live"]:slot["live"] + 1]
+        for _ in range(spec.max_iterations):
+            idx, d2 = nn_kernel.nearest_neighbor(self.cur, self.tgt, self.tgt_mask, live=live)
+            icp_kernel.step(self.src, self.src_mask, self.tgt, idx, d2, self.cur, self.st,
+                            max_d2, spec.trans_eps, spec.max_iterations)
+        live0 = self.st[slot["live0"]:slot["live0"] + 1]
+        _idx, d2 = nn_kernel.nearest_neighbor(self.cur, self.tgt, self.tgt_mask, live=live0)
+        icp_kernel.fitness(self.src_mask, d2, self.st, max_d2)
+
+    def run(self, src, src_mask, tgt, tgt_mask, init_T, live) -> IcpResult:
+        for dst, s in ((self.src, src), (self.src_mask, src_mask), (self.tgt, tgt),
+                       (self.tgt_mask, tgt_mask), (self.init_T, init_T), (self.live, live)):
+            dst.copy_(s)
+        self.graph.replay()
+        nn_kernel.launches += self.nn_launches
+        icp_kernel.launches += self.step_launches
+        slot = icp_kernel.STATE
+        st = self.st
+        iters = st[slot["iterations"]].to(torch.int32)
+        dev = st.device
+        if dev not in live_trips:
+            live_trips[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+        live_trips[dev] += iters
+        return IcpResult(T=st[slot["T"]].reshape(4, 4).clone(),
+                         fitness=st[slot["fitness"]].clone(), iterations=iters,
+                         converged=st[slot["converged"]] > 0.5)
+
+
+@functools.lru_cache(maxsize=8)
+def _graph(n: int, m: int, spec: IcpSpec, dev: torch.device) -> _IcpGraph:
+    return _IcpGraph(n, m, spec, dev)
+
+
+def align(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
+          live: torch.Tensor | None = None) -> IcpResult:
+    """ICP aligning `src` [N,3] onto `tgt` [M,3]; init_T is a [4,4] guess.
+    All tensors on one device; `live` (0-d bool) false makes it a no-op.
+    CUDA tensors replay the verification's CUDA graph and read nothing
+    back; CPU tensors take `align_ref`."""
+    dev = src.device
+    if dev.type == "cpu":
+        return align_ref(src, src_mask, tgt, tgt_mask, init_T, spec, live)
+    if live is None:
+        live = torch.ones((), dtype=torch.bool, device=dev)
+    g = _graph(src.shape[0], tgt.shape[0], spec, dev)
+    return g.run(src, src_mask, tgt, tgt_mask, init_T.to(torch.float32), live)

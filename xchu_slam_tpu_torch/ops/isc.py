@@ -138,16 +138,31 @@ class IscLoop(NamedTuple):
     found: bool
 
 
-def detect_loop(query, db, db_count: int, positions, travel, spec: IscSpec,
-                cur: int | None = None) -> IscLoop:
+class DeviceIscLoop(NamedTuple):
+    """`IscLoop` as 0-d tensors on the descriptors' device: nothing is read
+    back."""
+
+    idx: torch.Tensor     # int64, -1 if none
+    score: torch.Tensor   # float32, 0 if none
+    yaw: torch.Tensor     # float32
+    found: torch.Tensor   # bool
+
+
+def detect_loop_on_device(query, db, db_count: int, positions, travel, spec: IscSpec,
+                          cur: int | None = None) -> DeviceIscLoop:
     """Best gated two-stage ISC loop for the query keyframe `cur` (default
-    `db_count-1`, the newest) among the keyframes before it.
+    `db_count-1`, the newest) among the keyframes before it, as tensors on
+    the device.
 
     positions: [K_max, 3] keyframe positions; travel: [K_max] cumulative
-    travel. Reads the winner back to the host."""
+    travel."""
     cur = db_count - 1 if cur is None else cur
+    dev = db.device
     if cur <= 0:
-        return IscLoop(idx=-1, score=0.0, yaw=0.0, found=False)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return DeviceIscLoop(idx=torch.full((), -1, dtype=torch.int64, device=dev),
+                             score=zero, yaw=zero.clone(),
+                             found=torch.zeros((), dtype=torch.bool, device=dev))
     db_l = db[:cur]
     d_travel = travel[cur] - travel[:cur]
     pos_dist = torch.linalg.norm(positions[:cur] - positions[cur][None], dim=-1)
@@ -157,13 +172,20 @@ def detect_loop(query, db, db_count: int, positions, travel, spec: IscSpec,
     inten = intensity_scores(query, db_l, shift, spec)
     ok = gate & (geo > spec.geometry_thresh) & (inten > spec.intensity_thresh)
     total = torch.where(ok, geo + inten, -torch.inf)
-    li = torch.argmax(total)
-    # one readback; indices < 2^24 are exact in float32
-    best_total, best_shift, best = torch.stack(
-        [total[li], shift[li].to(torch.float32), li.to(torch.float32)]).cpu()
-    found = bool(torch.isfinite(best_total))
+    li = torch.argmax(total).reshape(1)
+    best_total = total.gather(0, li)[0]
+    found = torch.isfinite(best_total)
+    best_shift = shift.gather(0, li)[0].to(torch.float32)
     yaw = best_shift * (2.0 * math.pi / spec.num_sector)
     yaw = torch.atan2(torch.sin(yaw), torch.cos(yaw))
-    return IscLoop(idx=int(best) if found else -1,
-                   score=float(best_total) if found else 0.0,
-                   yaw=float(yaw), found=found)
+    return DeviceIscLoop(idx=torch.where(found, li[0], -1),
+                         score=torch.where(found, best_total, 0.0), yaw=yaw, found=found)
+
+
+def detect_loop(query, db, db_count: int, positions, travel, spec: IscSpec,
+                cur: int | None = None) -> IscLoop:
+    """`detect_loop_on_device`, read back to the host once."""
+    c = detect_loop_on_device(query, db, db_count, positions, travel, spec, cur)
+    idx, score, yaw, found = torch.stack(
+        [c.idx.to(torch.float32), c.score, c.yaw, c.found.to(torch.float32)]).cpu().tolist()
+    return IscLoop(idx=int(idx), score=score, yaw=yaw, found=found > 0.5)

@@ -107,6 +107,16 @@ class LoopCandidate(NamedTuple):
     found: bool
 
 
+class DeviceCandidate(NamedTuple):
+    """`LoopCandidate` as 0-d tensors on the descriptors' device, as the
+    reference's traced retrieval returns it: nothing is read back."""
+
+    idx: torch.Tensor     # int64, -1 if none
+    dist: torch.Tensor    # float32
+    yaw: torch.Tensor     # float32, wrapped to (-pi, pi]
+    found: torch.Tensor   # bool
+
+
 def ring_key_topk(query_key, db_keys, db_mask, k: int = 3):
     """Ring-key nearest candidates (indices [k], distances [k], nearest
     first): the prefilter of a two-stage search. `detect_loop` below searches
@@ -118,33 +128,49 @@ def ring_key_topk(query_key, db_keys, db_mask, k: int = 3):
     return order, d[order]
 
 
-def _best_candidate(query, db, newest_eligible: int, spec: ScSpec) -> LoopCandidate:
+def shift_yaw(shift: torch.Tensor, num_sector: int) -> torch.Tensor:
+    """The relative yaw of a column shift, wrapped to (-pi, pi]."""
+    yaw = shift.to(torch.float32) * (2.0 * math.pi / num_sector)
+    return torch.atan2(torch.sin(yaw), torch.cos(yaw))
+
+
+def _best_candidate_on_device(query, db, newest_eligible: int, spec: ScSpec) -> DeviceCandidate:
     """The nearest of the first `newest_eligible` entries over all shifts,
-    found if its distance is under the threshold. One readback."""
+    found if its distance is under the threshold; tensors on the device."""
     eligible = torch.arange(db.shape[0], device=db.device) < newest_eligible
     dist, shift = distance_all_rotations(query, db, eligible, spec)
-    best = torch.argmin(dist)
-    # one readback; indices < 2^24 are exact in float32
-    best_dist, best_shift, best_i = torch.stack(
-        [dist[best], shift[best].to(torch.float32), best.to(torch.float32)]).cpu()
-    best_i = int(best_i)
-    found = bool(torch.isfinite(best_dist) & (best_dist < spec.dist_thresh))
-    yaw = best_shift * (2.0 * math.pi / spec.num_sector)
-    yaw = torch.atan2(torch.sin(yaw), torch.cos(yaw))     # wrap to (-pi, pi]
-    return LoopCandidate(idx=best_i if found else -1, dist=float(best_dist),
-                         yaw=float(yaw), found=found)
+    best = torch.argmin(dist).reshape(1)
+    best_dist = dist.gather(0, best)[0]
+    found = torch.isfinite(best_dist) & (best_dist < spec.dist_thresh)
+    return DeviceCandidate(idx=torch.where(found, best[0], -1), dist=best_dist,
+                           yaw=shift_yaw(shift.gather(0, best)[0], spec.num_sector),
+                           found=found)
+
+
+def read_candidate(c: DeviceCandidate) -> LoopCandidate:
+    """The host form of a device candidate: one readback (indices < 2^24
+    are exact in float32)."""
+    idx, dist, yaw, found = torch.stack(
+        [c.idx.to(torch.float32), c.dist, c.yaw, c.found.to(torch.float32)]).cpu().tolist()
+    return LoopCandidate(idx=int(idx), dist=dist, yaw=yaw, found=found > 0.5)
+
+
+def detect_loop_on_device(query, db, db_count: int, spec: ScSpec,
+                          cur: int | None = None) -> DeviceCandidate:
+    """Best loop candidate for `query` among the entries at least
+    `num_exclude_recent` keyframes older than the query keyframe `cur`
+    (default `db_count-1`), as tensors on the device."""
+    cur = db_count - 1 if cur is None else cur
+    return _best_candidate_on_device(query, db, cur + 1 - spec.num_exclude_recent, spec)
 
 
 def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None) -> LoopCandidate:
-    """Best loop candidate for `query` among the entries at least
-    `num_exclude_recent` keyframes older than the query keyframe `cur`
-    (default `db_count-1`). Reads the winner back to the host."""
-    cur = db_count - 1 if cur is None else cur
-    return _best_candidate(query, db, cur + 1 - spec.num_exclude_recent, spec)
+    """`detect_loop_on_device`, read back to the host once."""
+    return read_candidate(detect_loop_on_device(query, db, db_count, spec, cur))
 
 
 def detect_loop_between_sessions(query, db, db_count: int, spec: ScSpec) -> LoopCandidate:
     """Multi-session place recognition: the query comes from a different
     session, so no recency exclusion applies and every stored entry is
-    eligible."""
-    return _best_candidate(query, db, db_count, spec)
+    eligible. One readback."""
+    return read_candidate(_best_candidate_on_device(query, db, db_count, spec))

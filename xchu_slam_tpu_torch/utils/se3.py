@@ -44,7 +44,7 @@ def matrix_to_euler(R: torch.Tensor) -> torch.Tensor:
 def _bottom_row(like: torch.Tensor, lead) -> torch.Tensor:
     # filled on the device: a host-built row would be a copy per call
     row = like.new_zeros((*lead, 1, 4))
-    row[..., 0, 3] = 1.0
+    row[..., 0, 3].fill_(1.0)
     return row
 
 
@@ -172,7 +172,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 def se3_log(T: torch.Tensor) -> torch.Tensor:
     """[..., 4, 4] → twist [..., 6] (v, w)."""
     w = so3_log(T[..., :3, :3])
-    Vinv = torch.linalg.inv(_V_matrix(w))
+    Vinv = torch.linalg.inv_ex(_V_matrix(w)).inverse   # no error check: no host sync
     v = torch.matmul(Vinv, T[..., :3, 3][..., :, None])[..., 0]
     return torch.cat([v, w], -1)
 
