@@ -7,9 +7,11 @@ Phases, each printing one line (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA
               versions; fails if there is no CUDA device or TF32 is on
   2. build    nvcc-compiles the four kernel sources (csrc/nn_kernel.cu,
-              ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, sm_90a), one nvcc
-              each, started together; prints ptxas's registers, shared memory
-              and spills (none allowed but in the NDT kernel)
+              ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, sm_90a) and the
+              PGO and ICP kernels' first versions (pgo_kernel_first.cu,
+              icp_kernel_first.cu), one nvcc each, started together; prints
+              ptxas's registers, shared memory and spills (none allowed but in
+              the NDT kernel)
   3. kernel   the NN kernel against its first version (idx and d² bit-equal)
               and its plain PyTorch version (d² to rtol = atol = 1e-4, valid
               indices, ties at the lowest index) on the card, over shapes and
@@ -60,14 +62,21 @@ Between phases 4 and 5, two more kernel phases:
   4b. pgo_kernel  `pose_graph.solve` on the card against `solve_ref` at the
               circuit's in-loop spec on 2048 slots, 163 live keyframes with 9
               loops and 2048 with 40 (|Δpose| ≤ 1e-4, reruns bit-identical);
-              ms per launch from CUDA-graph replays beside its bound and the
-              latency floor that the source's probe kernels measure (launch,
-              block barrier, a substitution link, a factor link), the plain
-              factor + CG and both whole solves on the host's clock
+              ms per launch from CUDA-graph replays, in turns with the
+              kernel's first version (first, kernel, kernel, first), beside
+              its bound and two latency floors from the source's probe
+              kernels: the first version's (launch, block barriers, n factor
+              links in one thread, 2·n substitution links a preconditioner)
+              and the segmented structure's (n factor links of this kernel's
+              faster form, 2·Lseg + S segment links a sweep, the transfer
+              products); the
+              plain factor + CG and both whole solves on the host's clock
   4c. icp_kernel  the verification's CUDA graph (NN kernel + icp_step)
               against `align_ref` at 4096 × 16384 (T to 1e-5, the same
-              iteration count, reruns bit-identical); icp_step's ms per launch,
-              a verification's, the bound and the floor
+              iteration count, reruns bit-identical); icp_step's ms per launch
+              in turns with its first version, a verification's, a dead
+              trip's (the three kernels of a finished trip), the bound and the
+              floor (launch, barriers and the eigen-solve, timed alone)
 Phases 5-8 also assert that every path with a verification launched
 icp_step and every accepted loop the PGO kernel; phase 8 runs the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
@@ -106,7 +115,9 @@ PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("nn_kernel", "scan"),
                ("ndt_align_kernel", "ndt align"),
                ("pgo_cg_kernel", "pgo"),
+               ("pgo_cg_first_kernel", "pgo first version"),
                ("icp_step_kernel", "icp step"),
+               ("icp_step_first_kernel", "icp step first version"),
                ("icp_init_kernel", "icp init"),
                ("icp_fitness_kernel", "icp fitness"))   # the probe kernels are not listed
 
@@ -135,9 +146,10 @@ def phase_build() -> dict:
 
     from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
 
-    mods = (nn_kernel, ndt_kernel, pgo_kernel, icp_kernel)
-    with ThreadPoolExecutor(len(mods)) as pool:
-        builds = [pool.submit(m.build) for m in mods]
+    builds = (nn_kernel.build, ndt_kernel.build, pgo_kernel.build, pgo_kernel.build_first,
+              icp_kernel.build, icp_kernel.build_first)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        builds = [pool.submit(b) for b in builds]
         builds = [b.result() for b in builds]
     figures = {}
     for lib, secs, log in builds:
@@ -572,10 +584,14 @@ PGO_FLOP_ITER = 2 * 260
 # g, the altitude row, weights and flags; per loop slot the two Jacobians
 PGO_BYTES_KF = 4 * 144 + 24 + 12 + 4 + 4 + 1
 PGO_BYTES_LOOP = 2 * 144 + 16 + 4
-# block barriers of a solve: 16 a CG iteration (3 in the Hessian-vector
-# product, 3 in each dot product, 5 in the preconditioner, 2 updates) and 22
-# outside the loop
+# block barriers of a solve by the first version: 16 a CG iteration (3 in the
+# Hessian-vector product, 3 in each dot product, 5 in the preconditioner, 2
+# updates) and 22 outside the loop
 PGO_BARRIERS_ITER, PGO_BARRIERS_FIXED = 16, 22
+# ... and by the kernel with segmented sweeps: 19 a CG iteration (2 in the
+# Hessian-vector product, 3 in each dot product, 9 in the preconditioner, 2
+# updates) and 26 outside the loop
+PGO_SEG_BARRIERS_ITER, PGO_SEG_BARRIERS_FIXED = 19, 26
 
 
 def _host_ms(fn, reps: int = 5) -> float:
@@ -601,9 +617,10 @@ def _probe_ms(probe, kind: str, reps: int, **kw) -> float:
 def phase_pgo_kernel(smi: str) -> dict:
     """The PGO kernel against its plain version at the circuit's in-loop spec
     on K = 2048 slots: 163 live keyframes with 9 loops (the circuit) and all
-    2048 live with 40 loops; its time per launch from CUDA-graph replays,
-    the whole solve's and the plain solve's on the host's clock, the bound and
-    the latency floor from the source's probe kernels."""
+    2048 live with 40 loops; its time per launch from CUDA-graph replays in
+    turns with its first version, the whole solve's and the plain solve's on
+    the host's clock, the bound and the two latency floors from the source's
+    probe kernels."""
     import pgo_cases
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.models import pose_graph as pg
@@ -619,9 +636,17 @@ def phase_pgo_kernel(smi: str) -> dict:
     barrier_ms = _probe_ms(probe, "barrier", 64)
     sweep_ms = _probe_ms(probe, "sweep_link", 256)
     factor_ms = _probe_ms(probe, "factor_link", 64)
+    factor_col_ms = _probe_ms(probe, "factor_link_columns", 64)
+    factor_lane0_ms = _probe_ms(probe, "factor_link_lane0", 64)
+    link_ms_new = min(factor_col_ms, factor_lane0_ms)
+    seg_link_ms = _probe_ms(probe, "segment_link", 256)
     print(f"floor [{smi}]: pgo: empty launch of 1 x {pgo_kernel.THREADS} {launch_ms:.5f} ms, "
           f"block barrier {barrier_ms:.6f} ms, substitution link {sweep_ms:.6f} ms, "
-          f"factor link {factor_ms:.6f} ms")
+          f"factor link in one thread (the first version's) {factor_ms:.6f} ms, "
+          f"this kernel's factor link with its Cholesky across six lanes "
+          f"{factor_col_ms:.6f} ms, in lane 0 {factor_lane0_ms:.6f} ms, segment link "
+          f"{seg_link_ms:.6f} ms")
+    lib = pgo_kernel._library()
     rows = {}
     for name, n_live, n_loops in PGO_CASES:
         poses, graph = pgo_cases.chain_graph(K=2048, L=256, n_live=n_live, n_loops=n_loops,
@@ -645,7 +670,11 @@ def phase_pgo_kernel(smi: str) -> dict:
                 spec.cg_tol, spec.cg_iterations)
         _x, iters = pgo_kernel.cg(*args)
         it = int(iters)
-        ms = _graph_ms(lambda: pgo_kernel.cg(*args), calls=10, replays=5)
+        # first version, kernel, kernel, first version
+        o1, k1, k2, o2 = (_graph_ms(f, calls=10, replays=5) for f in (
+            lambda: pgo_kernel._cg_first(*args), lambda: pgo_kernel.cg(*args),
+            lambda: pgo_kernel.cg(*args), lambda: pgo_kernel._cg_first(*args)))
+        ms, first_ms = 0.5 * (k1 + k2), 0.5 * (o1 + o2)
         plain_ms = _host_ms(lambda: pg._pcg_ref(s, g_d, spec), reps=3)
         solve_ms = _host_ms(lambda: pg.solve(p_d, g_d, spec))
         solve_ref_ms = _host_ms(lambda: pg.solve_ref(p_d, g_d, spec), reps=3)
@@ -654,26 +683,46 @@ def phase_pgo_kernel(smi: str) -> dict:
         ops_ms = 1e3 * n_live * (PGO_FLOP_FACTOR + it * PGO_FLOP_ITER) / FP32_FLOPS
         floor_ms = (launch_ms + n_live * factor_ms + (it + 1) * 2 * n_live * sweep_ms
                     + (PGO_BARRIERS_ITER * it + PGO_BARRIERS_FIXED) * barrier_ms)
+        lseg = lib.pgo_segment_links(n_live)
+        nseg = -(-n_live // lseg) if lseg else 0
+        depth = 2 * lseg + nseg if lseg else n_live
+        link_ms = seg_link_ms if lseg else sweep_ms
+        seg_floor_ms = (launch_ms + (n_live - 1) * link_ms_new
+                        + 12 * lseg * seg_link_ms + (it + 1) * 2 * depth * link_ms
+                        + (PGO_SEG_BARRIERS_ITER * it + PGO_SEG_BARRIERS_FIXED) * barrier_ms)
         row = {"live": n_live, "loops": n_loops, "cg_iterations": it, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "ms": ms, "first_version_ms": first_ms, "plain_ms": plain_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-               "latency_floor_ms": floor_ms, "solve_ms": solve_ms,
+               "latency_floor_ms": floor_ms, "segmented_floor_ms": seg_floor_ms,
+               "segment_links": lseg, "segments": nseg, "solve_ms": solve_ms,
                "solve_ref_ms": solve_ref_ms, "gn_iterations": spec.gn_iterations}
         rows[name] = row
         print(f"pgo_kernel [{smi}]: {name} ({n_live} live, {n_loops} loops, {it} CG "
-              f"iterations): {ms:.5f} ms per launch on the card (graph replays), bound "
-              f"{row['bound_ms']:.6f} ms by {row['bound_by']}, latency floor {floor_ms:.5f} ms "
-              f"(launch + {n_live} factor links + {it + 1} x 2 x {n_live} substitution "
-              f"links + {PGO_BARRIERS_ITER * it + PGO_BARRIERS_FIXED} barriers: "
-              f"{100 * floor_ms / ms:.1f} % of it reached); plain factor + CG {plain_ms:.3f} ms "
-              f"(host clock, a readback a CG iteration); the in-loop solve "
+              f"iterations): {ms:.5f} ms per launch on the card (graph replays {k1:.5f}/"
+              f"{k2:.5f}), first version {first_ms:.5f} ms ({o1:.5f}/{o2:.5f}), "
+              f"{first_ms / ms:.2f}x; bound {row['bound_ms']:.6f} ms by {row['bound_by']}; "
+              f"the first version's latency floor {floor_ms:.5f} ms (launch + {n_live} "
+              f"one-thread factor links + {it + 1} x 2 x {n_live} substitution links + "
+              f"{PGO_BARRIERS_ITER * it + PGO_BARRIERS_FIXED} barriers: "
+              f"{100 * floor_ms / ms:.1f} % of it reached); the segmented structure's floor "
+              f"{seg_floor_ms:.5f} ms (launch + {n_live - 1} factor links of the faster form + "
+              f"{12 * lseg} transfer links + {it + 1} x 2 x {depth} sweep links ({nseg} "
+              f"segments of {lseg}) + {PGO_SEG_BARRIERS_ITER * it + PGO_SEG_BARRIERS_FIXED} "
+              f"barriers: {100 * seg_floor_ms / ms:.1f} % of it reached); plain factor + CG "
+              f"{plain_ms:.3f} ms (host clock, a readback a CG iteration); the in-loop solve "
               f"({spec.gn_iterations} GN) {solve_ms:.3f} ms, its plain version "
               f"{solve_ref_ms:.3f} ms; |Δpose| {err:.3g}, reruns bit-identical")
     circ = rows["circuit"]
-    return {**{k: circ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_ms": None, "latency_floor_ms": circ["latency_floor_ms"], "cases": rows,
+    return {**{k: circ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "first_version_ms")},
+            "library_ms": None, "latency_floor_ms": circ["latency_floor_ms"],
+            "segmented_floor_ms": circ["segmented_floor_ms"], "cases": rows,
             "floor": {"launch_ms": launch_ms, "barrier_ms": barrier_ms,
-                      "substitution_link_ms": sweep_ms, "factor_link_ms": factor_ms}}
+                      "substitution_link_ms": sweep_ms, "factor_link_ms": factor_ms,
+                      "factor_link_columns_ms": factor_col_ms,
+                      "factor_link_lane0_ms": factor_lane0_ms,
+                      "segment_link_ms": seg_link_ms}}
 
 
 # bytes per source point of one icp_step: the point, its mask, the NN
@@ -681,17 +730,19 @@ def phase_pgo_kernel(smi: str) -> dict:
 # written; FP32 operations per point: the two moment passes and the transform
 ICP_BYTES_PT = 12 + 1 + 4 + 4 + 12 + 12 + 12
 ICP_FLOP_PT = 8 + 18 + 18
-ICP_BARRIERS = 7
+ICP_BARRIERS = 8         # the staged state, two block sums of three, the transform
+ICP_EIGEN_REPS = 64
 
 
 def phase_icp_kernel(smi: str) -> dict:
     """The ICP verification's CUDA graph (NN kernel + icp_step) against
     `align_ref` at the circuit's shape (4096 keyframe points, a 16,384-point
-    submap); icp_step's time per launch, the verification's, the bound and
-    the floor."""
+    submap); icp_step's time per launch in turns with its first version, the
+    verification's, a dead trip's, the bound and the floor."""
     import icp_cases
     from xchu_slam_tpu_torch.ops import icp
     from xchu_slam_tpu_torch.ops.cuda import icp_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.utils import se3
 
     dev = torch.device("cuda")
     spec = icp.IcpSpec()
@@ -710,40 +761,64 @@ def phase_icp_kernel(smi: str) -> dict:
     verify_ms = _host_ms(lambda: icp.align(*args, spec), reps=10)
     verify_dev_ms = _loop_ms(lambda: icp.align(*args, spec), 20)
     plain_verify_ms = _host_ms(lambda: icp.align_ref(*args, spec), reps=5)
-    # one step alone, kept live (a negative epsilon never converges)
+    # one step alone, kept live (a negative epsilon never converges), in
+    # turns with the first version: first, kernel, kernel, first
     src, smask, tgt, tmask, init = args
     st = torch.zeros(icp_kernel.STATE_FLOATS, device=dev)
     cur = torch.empty_like(src)
     icp_kernel.init(src, init, torch.ones((), dtype=torch.bool, device=dev), st, cur)
     idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tmask)
     max_d2 = spec.max_corr_dist ** 2
-    ms = _graph_ms(lambda: icp_kernel.step(src, smask, tgt, idx, d2, cur, st, max_d2,
-                                           -1.0, 1 << 30), calls=50)
+    o1, k1, k2, o2 = (_graph_ms(lambda: f(src, smask, tgt, idx, d2, cur, st, max_d2, -1.0,
+                                          1 << 30), calls=50)
+                      for f in (icp_kernel._step_first, icp_kernel.step, icp_kernel.step,
+                                icp_kernel._step_first))
+    ms, first_ms = 0.5 * (k1 + k2), 0.5 * (o1 + o2)
+    # a dead trip: the NN kernel's two launches and the step, all returning at once
+    dead = torch.zeros(icp_kernel.STATE_FLOATS, device=dev)
+    live = dead[icp_kernel.STATE["live"]:icp_kernel.STATE["live"] + 1]
+    dead_ms = _graph_ms(lambda: (nn_kernel.nearest_neighbor(cur, tgt, tmask, live=live),
+                                 icp_kernel.step(src, smask, tgt, idx, d2, cur, dead, max_d2,
+                                                 spec.trans_eps, spec.max_iterations)),
+                        calls=50)
     n = src.shape[0]
     bytes_ms = 1e3 * (n * ICP_BYTES_PT + 4 * icp_kernel.STATE_FLOATS) / HBM_BYTES_PER_S
     ops_ms = 1e3 * n * ICP_FLOP_PT / FP32_FLOPS
+    # the floor: an empty launch of the step's geometry, its barriers and its
+    # eigen-solve alone, on the cross-covariance of the first iteration
+    m = icp._moments(se3.transform_points(init, src), smask, tgt, tmask, max_d2)
+    M = (m[7:16] / m[0]).reshape(3, 3).contiguous()
+    eig_out = torch.zeros(2, device=dev)
+    eigen = lambda kind, reps: icp_kernel.probe(kind, reps, M, eig_out)  # noqa: E731
+    launch_ms = _graph_ms(lambda: eigen("launch", 0), calls=20)
+    eigen_ms = _probe_ms(eigen, "eigen", ICP_EIGEN_REPS)
+    sweeps = int(eig_out[1])
     out = torch.zeros(1, device=dev)
-    probe = lambda kind, reps: pgo_kernel.probe(kind, reps, out, 1024)  # noqa: E731
-    launch_ms = _graph_ms(lambda: probe("launch", 0), calls=20)
-    barrier_ms = _probe_ms(probe, "barrier", 64)
-    floor_ms = launch_ms + ICP_BARRIERS * barrier_ms
+    barrier_ms = _probe_ms(lambda kind, reps: pgo_kernel.probe(kind, reps, out, 512),
+                           "barrier", 64)
+    floor_ms = launch_ms + ICP_BARRIERS * barrier_ms + eigen_ms
     plain_ms = plain_verify_ms / (it_ref + 1)
-    print(f"icp_step [{smi}]: {ms:.5f} ms per launch on the card (graph replays, every "
-          f"trip live), bound {max(bytes_ms, ops_ms):.6f} ms by "
-          f"{'bytes' if bytes_ms > ops_ms else 'operations'}, floor {floor_ms:.5f} ms "
-          f"(an empty launch of 1 x 1024 {launch_ms:.5f} + {ICP_BARRIERS} barriers of "
-          f"{barrier_ms:.6f}, the one-thread eigen-solve not counted: "
-          f"{100 * floor_ms / ms:.1f} % of it reached); a verification ({it} iterations of "
-          f"{spec.max_iterations} trips, the graph replay) {verify_ms:.3f} ms on the host's "
-          f"clock, {verify_dev_ms:.3f} ms per verification over 20 enqueued; plain "
+    print(f"floor [{smi}]: icp: empty launch of 1 x 512 {launch_ms:.5f} ms, block barrier "
+          f"{barrier_ms:.6f} ms, the eigen-solve alone {eigen_ms:.6f} ms ({sweeps} Jacobi "
+          f"sweeps on the first iteration's cross-covariance)")
+    print(f"icp_step [{smi}]: {ms:.5f} ms per launch on the card (graph replays {k1:.5f}/"
+          f"{k2:.5f}, every trip live), first version {first_ms:.5f} ms ({o1:.5f}/{o2:.5f}), "
+          f"{first_ms / ms:.2f}x; a dead trip (NN kernel's two launches + the step, all "
+          f"returning at once) {dead_ms:.5f} ms; bound {max(bytes_ms, ops_ms):.6f} ms by "
+          f"{'bytes' if bytes_ms > ops_ms else 'operations'}, floor {floor_ms:.5f} ms (launch "
+          f"{launch_ms:.5f} + {ICP_BARRIERS} barriers of {barrier_ms:.6f} + eigen-solve "
+          f"{eigen_ms:.6f}: {100 * floor_ms / ms:.1f} % of it reached); a verification ({it} "
+          f"iterations of {spec.max_iterations} trips, the graph replay) {verify_ms:.3f} ms on "
+          f"the host's clock, {verify_dev_ms:.3f} ms per verification over 20 enqueued; plain "
           f"version {plain_verify_ms:.3f} ms ({plain_ms:.4f} ms an iteration, a readback "
           f"each); |ΔT| {err:.3g}, the same iteration count, reruns bit-identical")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations", "library_ms": None,
-            "latency_floor_ms": floor_ms, "verification_ms": verify_ms,
-            "verification_device_ms": verify_dev_ms, "plain_verification_ms": plain_verify_ms,
-            "iterations": it}
+            "first_version_ms": first_ms, "latency_floor_ms": floor_ms,
+            "eigen_ms": eigen_ms, "jacobi_sweeps": sweeps, "dead_trip_ms": dead_ms,
+            "verification_ms": verify_ms, "verification_device_ms": verify_dev_ms,
+            "plain_verification_ms": plain_verify_ms, "iterations": it}
 
 
 def _count_launches(fn):
@@ -1244,14 +1319,15 @@ def main() -> int:
                             ":459 (lax.scan, two associative_scan, lax.while_loop that the "
                             "reference leaves to XLA)",
                 "launches": launches["pgo"], "launches_by_path": per_path("pgo"),
-                **pgo_rec, "ptxas": {"pgo": ptxas["pgo"]}},
+                **pgo_rec, "ptxas": {k: ptxas[k] for k in ("pgo", "pgo first version")}},
                {"name": "icp_step", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/icp_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/ops/icp.py:114-173 (the body of a "
                             "lax.while_loop that the reference leaves to XLA)",
                 "launches": launches["icp_step"], "launches_by_path": per_path("icp_step"),
                 "live_trips_by_path": per_path("icp_live_trips"), **icp_rec,
-                "ptxas": {k: ptxas[k] for k in ("icp step", "icp init", "icp fitness")}}]
+                "ptxas": {k: ptxas[k] for k in ("icp step", "icp step first version", "icp init",
+                                                 "icp fitness")}}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -229,6 +229,81 @@ def test_block_tridiag_factor_and_solve_match_reference():
     np.testing.assert_allclose(zt, zj, rtol=1e-4, atol=1e-4 * np.abs(zj).max())
 
 
+def _segment_links(n_seq):
+    """csrc/pgo_kernel.cu's cut: the fewest links a segment with 2·L² ≥ n_seq
+    and at most 64 segments."""
+    lseg = 1
+    while 2 * lseg * lseg < n_seq or 64 * lseg < n_seq:
+        lseg += 1
+    return lseg
+
+
+def _segmented_solve(d, chols, A, r, n_seq):
+    """`block_tridiag_solve` as csrc/pgo_kernel.cu's segmented substitutions
+    compute it (a plain float32 emulation for this test): each sweep cuts
+    [0, n_seq) into segments of `_segment_links` links, runs every segment
+    from zero with its 6×6 transfer product, carries the boundaries in
+    order, then runs every segment again from its incoming value."""
+    lseg = _segment_links(n_seq)
+    segs = [(lo, min(lo + lseg, n_seq)) for lo in range(0, n_seq, lseg)]
+    Az = torch.cat([A, torch.zeros_like(A[:1])])   # A[K] = 0 past the last block
+    w = r / d
+
+    def sweep(back):
+        def links(lo, hi):   # (keyframe, link matrix) in the sweep's order
+            ks = range(hi - 1, lo - 1, -1) if back else range(lo, hi)
+            return [(k, -Az[k + 1] if back else -Az[k].T) for k in ks]
+
+        ends, trans = [], []
+        for lo, hi in segs:
+            y, P = torch.zeros(6), torch.eye(6)
+            for k, M in links(lo, hi):
+                y, P = w[k] + M @ y, M @ P
+            ends.append(y)
+            trans.append(P)
+        y, start = torch.zeros(6), [None] * len(segs)
+        for t in (reversed(range(len(segs))) if back else range(len(segs))):
+            start[t] = y
+            y = ends[t] + trans[t] @ y
+        for t, (lo, hi) in enumerate(segs):
+            y = start[t]
+            for k, M in links(lo, hi):
+                y = w[k] + M @ y
+                w[k] = y
+
+    sweep(False)
+    w = torch.cholesky_solve(w[..., None], chols)[..., 0]
+    sweep(True)
+    return w / d
+
+
+# coupled keyframes: a chain with no coupling (the gauge-fixed U[1] = 0), one
+# link, segment counts 4 → 3, segments of 9 and 10 links ending on a boundary
+# and past one, 64 segments of 32 and 63 of 33
+@pytest.mark.parametrize("n", [2, 3, 8, 9, 162, 163, 2047, 2048, 2049])
+@pytest.mark.parametrize("info", [1e3, 1e6])
+def test_segmented_substitution_matches_reference(n, info):
+    """The kernel's segmented substitutions, emulated, against the JAX
+    reference's associative-scan solve, both on the reference's factor of a
+    chain's preconditioner at information 1e3 and 1e6: within 1e-5 of max |z|
+    (measured: 1.5e-6 at 2048 links; the port's plain doubling scans 8.8e-7).
+    The factor is shared because two float32 factors of the 2048-link chain
+    already differ by 6e-4 of max |z|, which would hide the substitution's
+    own rounding."""
+    import pgo_cases
+
+    _, graph = pgo_cases.chain_graph(K=n, L=2, n_live=n, n_loops=0)
+    spec = tpg.GraphSpec(max_keyframes=n, max_loops=2, odom_info_t=info, odom_info_r=info)
+    s = tpg._gn_system(se3_t().pose_to_matrix(torch.zeros(n, 6)), graph, spec)
+    r = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 6)).astype(np.float32))
+    factor = jpg.block_tridiag_factor(jnp.asarray(s.blocks.numpy()), jnp.asarray(s.U.numpy()))
+    zj = np.asarray(jpg.block_tridiag_solve(*factor, jnp.asarray(r.numpy())))
+    d, chols, A = (torch.from_numpy(np.asarray(f)) for f in factor)
+    n_seq = int(tpg.live_prefix(s.U, torch.zeros(n, dtype=torch.bool))[0])
+    zs = _segmented_solve(d, chols, A, r, n_seq).numpy()
+    np.testing.assert_allclose(zs, zj, rtol=0, atol=1e-5 * np.abs(zj).max())
+
+
 def test_pose_graph_helpers_match_reference():
     poses, graph = _graph(K=16, L=4, n_live=16)
     T = np.asarray(jse3.pose_to_matrix(jnp.asarray(poses)))
@@ -296,15 +371,65 @@ def _cross_cov(kind, rng):
     return ((t - t.mean(0)).T @ (s - s.mean(0)) / 200).astype(np.float32)
 
 
+def _horn_jacobi(M):
+    """csrc/icp_kernel.cu's rotation step (horn_quaternion) emulated in
+    float32: Horn's 4×4 N, Jacobi sweeps in parallel order (three rounds of
+    the disjoint pairs (k, k ^ r) a sweep; t = sgn θ·r/(|θ|·r + 1) with
+    r = 1/√(θ² + 1), θ held to ±1e18), each rotated pair set to 0, until
+    off-diagonal² ≤ 1e-14·Frobenius² or 8 sweeps; the unit quaternion of the
+    largest diagonal entry's column of V, then R. The kernel's reciprocals
+    and roots are fast (a few ulp); these are exact."""
+    f32 = np.float32
+    S = np.asarray(M, f32).T
+    (Sxx, Sxy, Sxz), (Syx, Syy, Syz), (Szx, Szy, Szz) = S
+    N = np.array([[Sxx + Syy + Szz, Syz - Szy, Szx - Sxz, Sxy - Syx],
+                  [Syz - Szy, Sxx - Syy - Szz, Sxy + Syx, Szx + Sxz],
+                  [Szx - Sxz, Sxy + Syx, -Sxx + Syy - Szz, Syz + Szy],
+                  [Sxy - Syx, Szx + Sxz, Syz + Szy, -Sxx - Syy + Szz]], f32)
+    V = np.eye(4, dtype=f32)
+    frob2 = np.sum(N * N, dtype=f32)
+    for _ in range(8):
+        if np.sum((N - np.diag(np.diag(N))) ** 2, dtype=f32) <= f32(1e-14) * frob2:
+            break
+        for r in (1, 2, 3):
+            J = np.zeros((4, 4), f32)
+            for k in range(4):
+                p, q = min(k, k ^ r), max(k, k ^ r)
+                c, s = f32(1), f32(0)
+                if N[p, q] != 0:
+                    theta = np.clip(f32(0.5) * (N[q, q] - N[p, p]) / N[p, q], f32(-1e18),
+                                    f32(1e18))
+                    rt = f32(1) / np.sqrt(theta * theta + f32(1))
+                    t = np.copysign(rt / (abs(theta) * rt + f32(1)), theta)
+                    c = f32(1) / np.sqrt(t * t + f32(1))
+                    s = t * c
+                J[k, k] = c
+                J[k ^ r, k] = -s if k == p else s
+            N = (J.T @ N @ J).astype(f32)
+            for k in range(4):
+                N[k, k ^ r] = 0
+            V = (V @ J).astype(f32)
+    best = 0
+    for k in range(1, 4):
+        if N[k, k] > N[best, best]:
+            best = k
+    w, x, y, z = V[:, best] / np.sqrt(np.sum(V[:, best] ** 2))
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]], f32)
+
+
+@pytest.mark.parametrize("route", ["kabsch_ref", "horn_jacobi"])
 @pytest.mark.parametrize("kind", ["random", "planar", "reflection", "near_identity"])
-def test_kabsch_step_matches_reference_svd_route(kind):
-    """The plain Kabsch step (the kernel's plain version) against the
-    reference's SVD route: R to 1e-5, a proper rotation in every case."""
+def test_kabsch_step_matches_reference_svd_route(kind, route):
+    """The plain Kabsch step (the kernel's plain version) and the kernel's
+    eigen-solve, emulated, against the reference's SVD route: R to 1e-5, a
+    proper rotation in every case."""
     rng = np.random.default_rng(["random", "planar", "reflection",
                                  "near_identity"].index(kind))
     for _ in range(8):
         M = _cross_cov(kind, rng)
-        R = ticp.kabsch_ref(_t(M)).numpy()
+        R = ticp.kabsch_ref(_t(M)).numpy() if route == "kabsch_ref" else _horn_jacobi(M)
         np.testing.assert_allclose(R, _kabsch_reference(M), atol=1e-5)
         assert abs(np.linalg.det(R) - 1.0) < 1e-5
 

@@ -11,7 +11,11 @@ go to PyTorch's current stream (the capturing stream under a CUDA graph
 capture). The library is compiled by nvcc from the repository's source at
 first use.
 
-The state is float32[24] on the card (`STATE` names its slots).
+The state is float32[24] on the card (`STATE` names its slots). The step
+kernel's first version (`csrc/icp_kernel_first.cu`, `_step_first`, the same
+state) stays as the yardstick the redesign is timed against; only
+`chip_smoke.py`, the card tests and `tools/torch_loop_phase_probe.py` launch
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from xchu_slam_tpu_torch.ops.cuda import _build
 
 _SRC = _build.CSRC / "icp_kernel.cu"
+_SRC_FIRST = _build.CSRC / "icp_kernel_first.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
 STATE_FLOATS = 24
 STATE = {"T": slice(0, 16), "iterations": 16, "converged": 17, "prev_err": 18,
@@ -42,17 +47,35 @@ def build() -> tuple[Path, float, str]:
     return _build.build(_SRC, NVCC_FLAGS)
 
 
+def build_first() -> tuple[Path, float, str]:
+    """Compile `csrc/icp_kernel_first.cu`, the step kernel's first version."""
+    return _build.build(_SRC_FIRST, NVCC_FLAGS)
+
+
+_STEP_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 \
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=1)
+def _library_first() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_first()[0]))
+    lib.icp_step_first_launch.argtypes = _STEP_ARGTYPES
+    lib.icp_step_first_launch.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icp_init_launch.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr]
     lib.icp_init_launch.restype = i32
-    lib.icp_step_launch.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, f32, f32,
-                                    i32, ptr]
+    lib.icp_step_launch.argtypes = _STEP_ARGTYPES
     lib.icp_step_launch.restype = i32
     lib.icp_fitness_launch.argtypes = [ptr, i32, ptr, ptr, f32, ptr]
     lib.icp_fitness_launch.restype = i32
+    lib.icp_probe_launch.argtypes = [i32, i32, ptr, ptr, ptr]
+    lib.icp_probe_launch.restype = i32
     if lib.icp_state_floats() != STATE_FLOATS:
         raise RuntimeError("icp_kernel.cu and its wrapper disagree on the state")
     return lib
@@ -91,23 +114,36 @@ def init(src, init_T, live, st, cur) -> None:
                                    _build.raw_stream(dev.index)), "init")
 
 
-def step(src, src_mask, tgt, idx, d2, cur, st, max_d2: float, trans_eps: float,
-         max_iterations: int) -> None:
-    """One iteration from the NN kernel's (idx, d2) for `cur` against `tgt`:
-    updates st and cur in place; a no-op on the card where st's live flag
-    is off."""
-    global launches
+def _step(launch, src, src_mask, tgt, idx, d2, cur, st, max_d2, trans_eps,
+          max_iterations) -> None:
     dev = _check(src=src, src_mask=src_mask, tgt=tgt, idx=idx, d2=d2, cur=cur, st=st)
     n = src.shape[0]
     if src_mask.shape != (n,) or idx.shape != (n,) or d2.shape != (n,) \
             or cur.shape != (n, 3) or tgt.ndim != 2 or tgt.shape[1] != 3 \
             or st.shape != (STATE_FLOATS,):
         raise ValueError("bad shapes for icp_kernel.step")
-    _rc(_library().icp_step_launch(src.data_ptr(), src_mask.data_ptr(), n, tgt.data_ptr(),
-                                   idx.data_ptr(), d2.data_ptr(), cur.data_ptr(),
-                                   st.data_ptr(), max_d2, trans_eps, max_iterations,
-                                   _build.raw_stream(dev.index)), "step")
+    _rc(launch(src.data_ptr(), src_mask.data_ptr(), n, tgt.data_ptr(), idx.data_ptr(),
+               d2.data_ptr(), cur.data_ptr(), st.data_ptr(), max_d2, trans_eps,
+               max_iterations, _build.raw_stream(dev.index)), "step")
+
+
+def step(src, src_mask, tgt, idx, d2, cur, st, max_d2: float, trans_eps: float,
+         max_iterations: int) -> None:
+    """One iteration from the NN kernel's (idx, d2) for `cur` against `tgt`:
+    updates st and cur in place; a no-op on the card where st's live flag
+    is off."""
+    global launches
+    _step(_library().icp_step_launch, src, src_mask, tgt, idx, d2, cur, st, max_d2,
+          trans_eps, max_iterations)
     launches += 1
+
+
+def _step_first(src, src_mask, tgt, idx, d2, cur, st, max_d2: float, trans_eps: float,
+                max_iterations: int) -> None:
+    """`step` by the kernel's first version (`csrc/icp_kernel_first.cu`), for
+    comparisons only: not counted in `launches`."""
+    _step(_library_first().icp_step_first_launch, src, src_mask, tgt, idx, d2, cur, st,
+          max_d2, trans_eps, max_iterations)
 
 
 def fitness(src_mask, d2, st, max_d2: float) -> None:
@@ -120,3 +156,19 @@ def fitness(src_mask, d2, st, max_d2: float) -> None:
         raise ValueError("bad shapes for icp_kernel.fitness")
     _rc(_library().icp_fitness_launch(src_mask.data_ptr(), n, d2.data_ptr(), st.data_ptr(),
                                       max_d2, _build.raw_stream(dev.index)), "fitness")
+
+
+PROBES = {"launch": 0, "eigen": 1}
+
+
+def probe(kind: str, reps: int, M: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the source's probe kernel (1 × 512 threads, the step's
+    geometry) on PyTorch's current stream: `launch` returns at once, `eigen`
+    runs `reps` dependent eigen-solves of the step's on the cross-covariance
+    M [3,3] in warp 0 (out[0] keeps the result live, out[1] ← the sweeps of
+    the last). Not counted in `launches`; nothing on a main path calls it."""
+    dev = _check(M=M, out=out)
+    if M.shape != (3, 3) or out.numel() < 2:
+        raise ValueError("bad shapes for icp_kernel.probe")
+    _rc(_library().icp_probe_launch(PROBES[kind], reps, M.data_ptr(), out.data_ptr(),
+                                    _build.raw_stream(dev.index)), f"{kind} probe")
