@@ -6,8 +6,9 @@
 Phases, each printing one line (any failure raises and exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch/CUDA
               versions; fails if there is no CUDA device or TF32 is on
-  2. build    nvcc-compiles the four kernel sources (csrc/nn_kernel.cu,
-              ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, sm_90a) and the
+  2. build    nvcc-compiles the five kernel sources (csrc/nn_kernel.cu,
+              ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, guess_kernel.cu,
+              sm_90a) and the
               PGO and ICP kernels' first versions (pgo_kernel_first.cu,
               icp_kernel_first.cu), one nvcc each, started together; prints
               ptxas's registers, shared memory and spills (none allowed but in
@@ -77,14 +78,40 @@ Between phases 4 and 5, two more kernel phases:
               in turns with its first version, a verification's, a dead
               trip's (the three kernels of a finished trip), the bound and the
               floor (launch, barriers and the eigen-solve, timed alone)
-Phases 5-8 also assert that every path with a verification launched
-icp_step and every accepted loop the PGO kernel; phase 8 runs the whole
+  4d. guess_kernel  the external-guess kernel against its plain chain
+              (`imu.ext_guess_ref`) over the circuit's first 64 IMU + wheel
+              windows from the odometry's own poses (|Δ| ≤ 1e-5, reruns
+              bit-identical, the NDT iteration count from either guess the
+              same on ≥ 9 in 10); µs per launch from CUDA-graph replays, the
+              plain chain's time and kernel count inside a graph, the bound,
+              the floor (an empty 1 × 32 launch + the dependent chain, from
+              the source's probe kernel); ptxas's figures in phase 2
+After phase 8:
+  9. device_session  the device engine as a whole session: the circuit's
+              chunks with IMU + wheel windows under
+              `set_sync_debug_mode("error")` (one readback a chunk, a guess
+              launch a scan) and Part A with windows under the profiler;
+              `run-sim --engine device --loop-method isc --imu --wheel --gps
+              --checkpoint-every 200 --out <tmp>` (NDT and guess launches ≥
+              one a scan after the first, loops ≥ 1, aligned ATE < 1.0 m, its
+              mean Newton iterations beside phase 8's constant-velocity run);
+              the export read back, `eval` within 1e-3 of the run's ATE;
+              `localize --queries 12 --fitness-thresh 1.5` against the device
+              checkpoint (≥ 1 found, median error < 1.5 m); the checkpoint
+              resumed for 2 chunks, rows bit-identical to the uninterrupted
+              run's; `run-sim --continue-session` of it (relocalized within
+              2 m, ≥ 20 new keyframes, loops above the saved count, ATE of
+              the continued keyframes < 1.0 m); `batch_step` at B = 1, 4, 8
+              over 32 scans a member (each member bit-equal to its single
+              run, ms a step)
+Phases 5-9 also assert that every path with a verification launched
+icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
-readback a chunk, and checks `chunk_readbacks` of `run-sim --engine device`.
-Then one JSON line of kernel records (all four kernels, with the launches of
+readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
+Then one JSON line of kernel records (all five kernels, with the launches of
 each path) and, last, the result line. `--kernel-only` stops after phase 3,
-`--kernels-only` after phase 4c, `--device-only` runs phases 1, 2, 5 and 8;
-none of the three prints a result line.
+`--kernels-only` after phase 4d, `--device-only` runs phases 1, 2, 5, 8 and
+9; none of the three prints a result line.
 """
 
 from __future__ import annotations
@@ -119,7 +146,8 @@ PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("icp_step_kernel", "icp step"),
                ("icp_step_first_kernel", "icp step first version"),
                ("icp_init_kernel", "icp init"),
-               ("icp_fitness_kernel", "icp fitness"))   # the probe kernels are not listed
+               ("icp_fitness_kernel", "icp fitness"),
+               ("guess_kernel", "guess"))   # the probe kernels are not listed
 
 
 def phase_device() -> str:
@@ -144,10 +172,11 @@ def phase_build() -> dict:
     spill."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                             pgo_kernel)
 
     builds = (nn_kernel.build, ndt_kernel.build, pgo_kernel.build, pgo_kernel.build_first,
-              icp_kernel.build, icp_kernel.build_first)
+              icp_kernel.build, icp_kernel.build_first, guess_kernel.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         builds = [pool.submit(b) for b in builds]
         builds = [b.result() for b in builds]
@@ -169,7 +198,7 @@ def phase_build() -> dict:
     if set(figures) != {n for _tag, n in PTXAS_NAMES}:
         raise AssertionError("ptxas reported no figures for a kernel")
     if any(f["spill_bytes"] for n, f in figures.items() if n != "ndt align"):
-        raise AssertionError("an NN, PGO or ICP kernel spills registers")
+        raise AssertionError("an NN, PGO, ICP or guess kernel spills registers")
     return figures
 
 
@@ -821,18 +850,135 @@ def phase_icp_kernel(smi: str) -> dict:
             "plain_verification_ms": plain_verify_ms, "iterations": it}
 
 
+GUESS_SCANS = 64           # the circuit's windows the guess kernel is held on
+GUESS_TOL = 1e-5           # m and rad, m/s: the kernel against its plain chain
+GUESS_SAME_ITERS = 0.9     # share of aligns with the same Newton count from either guess
+GUESS_CHAIN_REPS = 64      # chains per launch of the chain probe
+# FP32 operations of one guess (a multiply-add counts 2): per sample and
+# chain, Euler angles to a rotation (~20), the 3×3 product (15), the
+# integration (~15), and six sines / cosines and three atan2 of the wraps
+# plus six sincos of the rotation, counted at ~20 operations each (their
+# accurate library forms): ~50 + 15 × 20 = 350, for 2 chains of 16 samples
+GUESS_OPS = 2 * 16 * 350
+
+
+def phase_guess_kernel(smi: str) -> dict:
+    """The guess kernel against its plain chain (`imu.ext_guess_ref`) on the
+    card over the circuit's first 64 IMU + wheel windows, each from the pose
+    and velocity an engine would hold there (the on-device odometry stepped
+    with the kernel's guess, the velocity reset from its delta); the NDT
+    iteration counts from either guess; reruns bit-identical. Then µs per
+    launch from CUDA-graph replays, the plain chain's time and kernel count
+    inside a graph, the bound and the latency floor (an empty 1 × 32 launch
+    + the dependent chain, from the source's probe kernel)."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import odometry
+    from xchu_slam_tpu_torch.ops import imu, ndt
+    from xchu_slam_tpu_torch.ops.cuda import guess_kernel
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import make_cloud
+    from xchu_slam_tpu_torch.utils import sim
+
+    dev = torch.device("cuda")
+    cfg = cli.sim_config(imu=True, wheel=True)
+    gt_stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    wins, _alts = cli._sim_feeds(cfg, gt, gt_stamps, np.random.default_rng(SEED))
+    lazy = sim.RenderedScans(world, gt, seed=SEED, n_points=24_000)
+    ospec = odometry.spec_from_config(cfg)
+
+    def filtered(i):
+        return filter_scan(make_cloud(*lazy[i], capacity=cfg.filter.max_raw_points,
+                                      device=dev), cfg.filter)
+
+    def window(i):
+        return (imu.ImuWindow(*(torch.from_numpy(a[i]).to(dev) for a in wins["imu"])),
+                imu.OdomWindow(*(torch.from_numpy(a[i]).to(dev) for a in wins["wheel"])))
+
+    f0 = filtered(0)
+    state = odometry.init_state(ospec, torch.zeros(6, device=dev), f0.xyz, f0.mask)
+    vel = torch.zeros(3, device=dev)
+    err, same_iters, mismatched = 0.0, 0, []
+    guess_kernel.launches = 0
+    for i in range(1, GUESS_SCANS + 1):
+        iw, ww = window(i)
+        got = imu.ext_guess(state.pose, iw, ww, vel, True, True)
+        again = imu.ext_guess(state.pose, iw, ww, vel, True, True)
+        want = imu.ext_guess_ref(state.pose, iw, ww, vel, True, True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)) \
+                or bool(got[1]) != bool(want[1]):
+            raise AssertionError(f"guess_kernel: window {i}: a rerun differs or use_ext "
+                                 f"{bool(got[1])} against {bool(want[1])}")
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+        f = filtered(i)
+        new_state, out = odometry.step(state, f.xyz, f.mask, ospec, got[0], got[1],
+                                       on_device=True)
+        plain_guess = odometry._guess(state, torch.where(want[1], want[0], state.diff))
+        res = ndt.align(state.grid_a, f.xyz, f.mask, plain_guess, ospec.gspec, ospec.nspec)
+        if int(out.iterations) == int(res.iterations):
+            same_iters += 1
+        else:
+            mismatched.append((i, int(out.iterations), int(res.iterations)))
+        dt = float(gt_stamps[i] - gt_stamps[i - 1])
+        vel = (out.pose[:3] - state.pose[:3]) / torch.full((), dt, device=dev)
+        state = new_state
+    torch.cuda.synchronize()
+    launches = guess_kernel.launches
+    if launches != 2 * GUESS_SCANS or not err <= GUESS_TOL \
+            or same_iters < GUESS_SAME_ITERS * GUESS_SCANS:
+        raise AssertionError(f"guess_kernel: {launches} launches, max |Δ| {err:.3g} (> "
+                             f"{GUESS_TOL}?), the same Newton count from either guess on "
+                             f"{same_iters} of {GUESS_SCANS}: {mismatched}")
+    iw, ww = window(GUESS_SCANS)
+    pose, v = state.pose.clone(), vel.clone()
+    ms = _graph_ms(lambda: imu.ext_guess(pose, iw, ww, v, True, True))
+    plain_ms = _graph_ms(lambda: imu.ext_guess_ref(pose, iw, ww, v, True, True),
+                         calls=5, replays=5)
+    plain = _profile_window(lambda: imu.ext_guess_ref(pose, iw, ww, v, True, True), 1)
+    host_us = _host_us(lambda: imu.ext_guess(pose, iw, ww, v, True, True))
+    out_t = torch.ones(2, device=dev)
+    m = iw.stamps.shape[0]
+    launch_ms = _graph_ms(lambda: guess_kernel.probe("launch", 0, m, out_t), calls=PROBE_CALLS)
+    chain_n = _graph_ms(lambda: guess_kernel.probe("chain", GUESS_CHAIN_REPS, m, out_t),
+                        calls=PROBE_CALLS)
+    chain_ms = (chain_n - launch_ms) / GUESS_CHAIN_REPS
+    floor_ms = launch_ms + chain_ms
+    nbytes = 24 + 12 + 2 * m * (4 + 12 + 12 + 1) + 24 + 1 + 12
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * GUESS_OPS / FP32_FLOPS
+    bound_ms, bound_by = max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations"
+    print(f"guess_kernel [{smi}]: {GUESS_SCANS} of the circuit's IMU + wheel windows from "
+          f"the odometry's own poses: max |Δ| {err:.3g} against the plain chain (tolerance "
+          f"{GUESS_TOL}), reruns bit-identical, the same Newton count from either guess "
+          f"on {same_iters} of {GUESS_SCANS}; {ms * 1e3:.3f} us a launch (CUDA-graph "
+          f"replays), wrapper host cost {host_us:.2f} us; plain chain {plain_ms:.4f} ms "
+          f"in a graph, {plain['device_kernels_per_scan']:.0f} kernels; bound "
+          f"{bound_ms:.7f} ms by {bound_by}; floor: empty 1 x 32 launch {launch_ms:.5f} ms "
+          f"+ the dependent chain of {m} samples {chain_ms:.5f} ms = {floor_ms:.5f} ms "
+          f"({100 * floor_ms / ms:.1f} % of it reached)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "host_us": host_us,
+            "plain_kernels": plain["device_kernels_per_scan"],
+            "same_iterations": same_iters, "windows": GUESS_SCANS,
+            "latency_floor_ms": floor_ms, "floor": {"launch_ms": launch_ms,
+                                                     "chain_ms": chain_ms}}
+
+
 def _count_launches(fn):
-    """(fn's result, {"nn", "ndt", "pgo", "icp_step", "icp_live_trips"}: the
-    launches of each kernel it made, and the ICP iterations that were live):
-    the counts are set to 0 just before and read just after."""
+    """(fn's result, {"nn", "ndt", "pgo", "icp_step", "guess", "icp_live_trips"}:
+    the launches of each kernel it made, and the ICP iterations that were
+    live): the counts are set to 0 just before and read just after."""
     from xchu_slam_tpu_torch.ops import icp
-    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                             pgo_kernel)
 
     ndt_kernel.launches = nn_kernel.launches = pgo_kernel.launches = icp_kernel.launches = 0
+    guess_kernel.launches = 0
     trips = icp.live_trip_count()
     out = fn()
     return out, {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches,
                  "pgo": pgo_kernel.launches, "icp_step": icp_kernel.launches,
+                 "guess": guess_kernel.launches,
                  "icp_live_trips": icp.live_trip_count() - trips}
 
 
@@ -1174,7 +1320,7 @@ def phase_device_engine(host_summary: dict) -> dict:
         lambda: [pipe._run_part_a(one, stamp) for _ in range(DEV_CHUNK)], DEV_CHUNK)
     print("device: 4 warm chunks (Part A + readback + Part B) " + json.dumps(prof))
     print("device: Part A alone, 16 replays " + json.dumps(prof_a))
-    del pipe, chunks
+    del pipe
     torch.cuda.empty_cache()
 
     # the circuit through run-sim --engine device, with its export
@@ -1257,7 +1403,256 @@ def phase_device_engine(host_summary: dict) -> dict:
                              f"{np.abs(runs[0] - runs[1]).max()})")
     print(f"device: {DEV_RERUN_SCANS} scans twice, poses bit-identical")
     return {"paths": {"device": dev_counts, "device_radius_gps": radius_counts},
-            "profile": prof, "profile_part_a": prof_a, "summary": summary}
+            "profile": prof, "profile_part_a": prof_a, "summary": summary,
+            "chunks": chunks}
+
+
+BATCH_SIZES = (1, 4, 8)
+BATCH_SCANS = 32           # scans a member: two staged chunks
+RESUME_CHUNKS = 2
+MIN_NEW_KEYFRAMES = 20
+RELOC_TOL_M = 2.0
+
+
+def _cross_session_loops(pipe, k0: int) -> int:
+    n = pipe.loop_count
+    li = pipe.graph.loop_i[:n].cpu().numpy()
+    lj = pipe.graph.loop_j[:n].cpu().numpy()
+    return int(((li < k0) & (lj >= k0)).sum())
+
+
+def phase_device_session(smi: str, dev_rec: dict) -> dict:
+    """The device engine as a whole session through the CLI's functions at
+    full width: `run-sim --engine device --loop-method isc --imu --wheel
+    --gps --checkpoint-every 200 --out <tmp>` (the guess kernel on every
+    scan but the first); the same circuit fed chunk by chunk with its
+    windows under `set_sync_debug_mode("error")`, then Part A with windows
+    alone under the profiler; the export read back and `eval`; `localize`
+    against the device checkpoint; the checkpoint resumed for 2 chunks, bit
+    for bit; `run-sim --continue-session` of it; `batch_step` at B = 1, 4, 8.
+    Returns the launches of every kernel by path."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+    from xchu_slam_tpu_torch.types import Cloud
+    from xchu_slam_tpu_torch.utils import checkpoint, sim
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    chunks = dev_rec["chunks"]
+    n_chunks = len(chunks)
+    cfg = cli.sim_config(loop_method="isc", imu=True, wheel=True, gps=True)
+    gt_stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    wins, alts = cli._sim_feeds(cfg, gt, gt_stamps, np.random.default_rng(SEED))
+
+    def feed_args(c):
+        """process_chunk's arguments for staged chunk c, as run-sim makes them."""
+        clouds, _stamps, n_real = chunks[c]
+        idx = np.minimum(c * DEV_CHUNK + np.arange(DEV_CHUNK), SCANS - 1)
+        return clouds, gt_stamps[idx], n_real, alts[idx], cli._slice_windows(wins, idx)
+
+    # the circuit chunk by chunk with its windows, Part B included, under sync
+    # debug mode "error"; then Part A with windows alone under the profiler
+    pipe = DeviceSlamPipeline(cfg, log_capacity=8192, device="cuda", check_sync=True)
+
+    def checked():
+        for c in range(n_chunks):
+            pipe.process_chunk(*feed_args(c))
+        pipe.finalize()
+
+    _, checked_counts = _count_launches(checked)
+    if pipe.chunk_readbacks != n_chunks or pipe.scan_count != SCANS \
+            or checked_counts["guess"] != SCANS - 1:
+        raise AssertionError(f"device session (checked): {pipe.chunk_readbacks} readbacks "
+                             f"over {n_chunks} chunks, {pipe.scan_count} scans, "
+                             f"{checked_counts['guess']} guess launches")
+    checked_odo = pipe.odometry_trajectory()
+    clouds, _stamps, _n = chunks[-1]
+    one = Cloud(*(t[0] for t in clouds))
+    stamp = torch.full((), float(gt_stamps[-1]) + 0.1, device="cuda")
+    win = cli._slice_windows(wins, np.array([SCANS - 1]))
+    win = type(win)(*(type(w)(*(torch.from_numpy(a[0]).cuda() for a in w)) for w in win))
+    prof_a = _profile_window(
+        lambda: [pipe._run_part_a(one, stamp, win) for _ in range(DEV_CHUNK)], DEV_CHUNK)
+    print(f"device_session: the circuit's {n_chunks} chunks with IMU + wheel windows, "
+          f"Part B included, under set_sync_debug_mode('error') without raising: "
+          f"{pipe.chunk_readbacks} readbacks (one a chunk), {pipe.kf_count} keyframes, "
+          f"{pipe.loop_count} loops; launches " + json.dumps(checked_counts))
+    print("device_session: Part A with windows alone, 16 replays " + json.dumps(prof_a))
+    del pipe
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="xchu_device_session_") as tmp:
+        timers = StageTimers("cuda")
+        (pipe, summary), counts = _count_launches(lambda: cli.run_sim(
+            SCANS, RADIUS, SEED, "cuda", loop_method="isc", imu=True, wheel=True, gps=True,
+            out=tmp, checkpoint_every=CHECKPOINT_EVERY, timers=timers, engine="device",
+            chunk=DEV_CHUNK))
+        paths = summary.pop("artifacts")
+        _check_loop_kernels("device session", counts, pipe.icp_verifications,
+                            summary["loops"], _inloop_gn(pipe))
+        odo = pipe.odometry_trajectory()
+        summary.update(icp_verifications=pipe.icp_verifications, nn_launches=counts["nn"],
+                       ndt_launches=counts["ndt"], pgo_launches=counts["pgo"],
+                       icp_step_launches=counts["icp_step"], guess_launches=counts["guess"],
+                       gps_factors=int(pipe.graph.gps_mask.sum()),
+                       chunk_readbacks=pipe.chunk_readbacks,
+                       mean_newton_iterations=round(float(np.mean(
+                           [r["iterations"] for r in pipe.odom_log[1:]])), 3),
+                       constant_velocity_mean_newton_iterations=dev_rec["summary"][
+                           "mean_newton_iterations"],
+                       checked_run_max_abs_dpose=float(np.abs(checked_odo - odo).max()))
+        print("device_session: " + json.dumps(summary))
+        print(timers.report(), file=sys.stderr)
+        if odo.shape != (SCANS, 6) or not np.isfinite(odo).all():
+            raise AssertionError("device session: trajectory has the wrong shape or "
+                                 "non-finite poses")
+        if counts["ndt"] < SCANS - 1 or counts["guess"] < SCANS - 1:
+            raise AssertionError(f"device session: {counts['ndt']} NDT and "
+                                 f"{counts['guess']} guess launches over {SCANS} scans")
+        if summary["loops"] < 1 or not summary["ate_rmse_m"] < 1.0:
+            raise AssertionError(f"device session: {summary['loops']} loops, aligned ATE "
+                                 f"{summary['ate_rmse_m']} m")
+        if pipe.chunk_readbacks != summary["chunk_attribution"]["chunks"]:
+            raise AssertionError("device session: not one readback a chunk")
+
+        # the export read back, and eval of it against the ground truth
+        stamps, est = kitti.read_tum(paths["odom_tum"])
+        with open(paths["odom_log"]) as f:
+            log_rows = sum(1 for _ in f)
+        if len(stamps) != summary["keyframes"] or not np.isfinite(est).all() \
+                or log_rows != SCANS:
+            raise AssertionError("device session: --out does not hold the run")
+        cam_T = sim.camera_frame_transform()
+        gt_path = os.path.join(tmp, "gt_tum.txt")
+        gt_rel = cli._gt_in_map_frame(gt)
+        kitti.write_tum(gt_path, gt_stamps, cam_T @ gt_rel @ np.linalg.inv(cam_T))
+        ev = cli.evaluate(paths["odom_tum"], gt_path)
+        print("device_session: eval " + json.dumps(ev))
+        if ev["pairs"] != summary["keyframes"] \
+                or abs(ev["ape_rmse_m"] - summary["ate_rmse_m"]) > 1e-3:
+            raise AssertionError("device session: eval disagrees with the run's ATE")
+
+        # localize fresh scans against the device checkpoint, read from disk
+        ckpt = os.path.join(tmp, "checkpoint.npz")
+        with np.load(ckpt) as f:
+            saved_scans = int(f["state.scan_count"])
+            saved_loops = int(f["state.loop_count"])
+            saved_kf = int(f["state.db.count"])
+        loc, loc_counts = _count_launches(lambda: cli.localize_sim(
+            ckpt, QUERIES, SCANS, RADIUS, SEED, fitness_thresh=FITNESS_THRESH, device="cuda"))
+        rows = loc.pop("results")
+        loc.update(pos_err_m=[r.get("pos_err_m") for r in rows], launches=loc_counts)
+        print("device_session: localize " + json.dumps(loc))
+        if loc["localized"] < 1 or loc_counts["nn"] < 1 or not loc["median_err_m"] < 1.5:
+            raise AssertionError(f"device session: localize {loc}")
+
+        # the checkpoint resumed for 2 chunks, against the uninterrupted rows
+        first = saved_scans // DEV_CHUNK
+
+        def resume():
+            again = checkpoint.load_checkpoint(ckpt)
+            if not isinstance(again, DeviceSlamPipeline) or again._scans_fed != saved_scans:
+                raise AssertionError("device session: the checkpoint is not a device "
+                                     f"engine's at scan {saved_scans}")
+            for c in range(first, first + RESUME_CHUNKS):
+                again.process_chunk(*feed_args(c))
+            again.finalize()
+            return again.odometry_trajectory()
+
+        got, resume_counts = _count_launches(resume)
+        lo, hi = saved_scans, saved_scans + RESUME_CHUNKS * DEV_CHUNK
+        if got.shape[0] != hi or not np.array_equal(got[lo:hi], odo[lo:hi]):
+            raise AssertionError(f"device session: the resumed rows {lo}-{hi - 1} differ "
+                                 f"by {np.abs(got[lo:hi] - odo[lo:hi]).max()}")
+        print(f"device_session: checkpoint of scan {saved_scans} resumed for "
+              f"{RESUME_CHUNKS} chunks, rows {lo}-{hi - 1} bit-identical to the "
+              f"uninterrupted run; launches " + json.dumps(resume_counts))
+        del pipe
+        torch.cuda.empty_cache()
+
+        # a second session continues the saved one
+        (cpipe, csum), cont_counts = _count_launches(lambda: cli.run_sim(
+            SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK,
+            continue_from=ckpt))
+        csum.pop("artifacts", None)
+        reloc_err = float(np.linalg.norm(cpipe.continuation["reloc_pose"][:3]
+                                         - gt_rel[0, :3, 3]))
+        cross = _cross_session_loops(cpipe, saved_kf)
+        csum.update(reloc_err_m=round(reloc_err, 4), saved_loops=saved_loops,
+                    cross_session_loops=cross, launches=cont_counts)
+        print("device_session: continued " + json.dumps(csum))
+        cont = csum["continuation"]
+        if not reloc_err < RELOC_TOL_M or cont["new_keyframes"] < MIN_NEW_KEYFRAMES \
+                or not csum["loops"] > saved_loops or not csum["ate_rmse_m"] < 1.0 \
+                or cont_counts["guess"] < SCANS - 1:
+            raise AssertionError(f"device session: the continuation is not right: {csum}")
+        del cpipe
+        torch.cuda.empty_cache()
+
+    batch = _phase_batch(chunks)
+    return {"paths": {"device_session": counts, "device_session_checked": checked_counts,
+                      "device_localize": loc_counts, "device_resume": resume_counts,
+                      "device_continue": cont_counts, "batch": batch["counts"]},
+            "summary": summary, "profile_part_a": prof_a, "batch": batch}
+
+
+def _phase_batch(chunks) -> dict:
+    """`batch_step` at B = 1, 4, 8 at full width: member b steps through 32
+    consecutive scans of the circuit from scan 48·b (staged chunks 3b and
+    3b + 1, filtered once), each member bit-equal to its single on-device
+    run; ms a step over 31 steps between one pair of CUDA events."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import batch_odometry, odometry
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import Cloud
+
+    cfg = cli.sim_config()
+    ospec = odometry.spec_from_config(cfg)
+    nb = max(BATCH_SIZES)
+    def scan(b, k):
+        clouds = chunks[3 * b + k // DEV_CHUNK][0]
+        return filter_scan(Cloud(*(t[k % DEV_CHUNK] for t in clouds)), cfg.filter)
+
+    filt = [[scan(b, k) for k in range(BATCH_SCANS)] for b in range(nb)]
+    zero = torch.zeros(6, device="cuda")
+    single = []
+    for b in range(nb):
+        st = odometry.init_state(ospec, zero, filt[b][0].xyz, filt[b][0].mask)
+        poses = []
+        for k in range(1, BATCH_SCANS):
+            st, out = odometry.step(st, filt[b][k].xyz, filt[b][k].mask, ospec, on_device=True)
+            poses.append(out.pose)
+        single.append(torch.stack(poses))
+    rows, counts = [], None
+    for B in BATCH_SIZES:
+        xyz = [torch.stack([filt[b][k].xyz for b in range(B)]) for k in range(BATCH_SCANS)]
+        mask = [torch.stack([filt[b][k].mask for b in range(B)]) for k in range(BATCH_SCANS)]
+
+        def run():
+            states = batch_odometry.batch_init(ospec, torch.zeros(B, 6, device="cuda"),
+                                               xyz[0], mask[0])
+            torch.cuda.synchronize()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            poses = []
+            for k in range(1, BATCH_SCANS):
+                states, out = batch_odometry.batch_step(states, xyz[k], mask[k], ospec)
+                poses.append(out.pose)
+            z.record()
+            z.synchronize()
+            return torch.stack(poses, dim=1), a.elapsed_time(z) / (BATCH_SCANS - 1)
+
+        (poses, ms), c = _count_launches(run)
+        if B == max(BATCH_SIZES):
+            counts = c
+        same = all(torch.equal(poses[b], single[b]) for b in range(B))
+        rows.append({"B": B, "ms_per_step": ms, "scans_per_sec": 1e3 * B / ms,
+                     "members_bit_equal": same, "ndt_launches": c["ndt"]})
+        if not same or c["ndt"] != B * (BATCH_SCANS - 1):
+            raise AssertionError(f"batch_step at B = {B}: members bit-equal {same}, "
+                                 f"{c['ndt']} NDT launches")
+    print("batch: " + json.dumps(rows))
+    return {"rows": rows, "counts": counts}
 
 
 def phase_determinism() -> None:
@@ -1287,16 +1682,20 @@ def main() -> int:
     ndt_rec = None if only_device else phase_ndt_kernel(smi)
     pgo_rec = None if only_device else phase_pgo_kernel(smi)
     icp_rec = None if only_device else phase_icp_kernel(smi)
+    guess_rec = None if only_device else phase_guess_kernel(smi)
     if "--kernels-only" in sys.argv[1:]:
         return 0
     launches, host_summary = phase_main()
     if "--device-only" in sys.argv[1:]:
-        phase_device_engine(host_summary)
+        phase_device_session(smi, phase_device_engine(host_summary))
         return 0
     by_path = {"main": launches, **phase_session()}
     phase_determinism()
     dev = phase_device_engine(host_summary)
     by_path.update(dev["paths"])
+    sess = phase_device_session(smi, dev)
+    by_path.update(sess["paths"])
+    del dev
 
     def per_path(key):
         return {k: v[key] for k, v in by_path.items()}
@@ -1327,7 +1726,14 @@ def main() -> int:
                 "launches": launches["icp_step"], "launches_by_path": per_path("icp_step"),
                 "live_trips_by_path": per_path("icp_live_trips"), **icp_rec,
                 "ptxas": {k: ptxas[k] for k in ("icp step", "icp step first version", "icp init",
-                                                 "icp fitness")}}]
+                                                 "icp fitness")}},
+               {"name": "guess_kernel", "route": "cuda",
+                "source": "xchu_slam_tpu_torch/csrc/guess_kernel.cu",
+                "replaces": "none: xchu_slam_tpu/models/device_pipeline.py:341-369 (_ext_guess: "
+                            "the two lax.scan of ops/imu.py that the reference leaves to XLA)",
+                "launches": by_path["device_session"]["guess"],
+                "launches_by_path": per_path("guess"), **guess_rec,
+                "ptxas": {"guess": ptxas["guess"]}}]
     print(f"total: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

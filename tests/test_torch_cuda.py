@@ -7,7 +7,10 @@ card) against the same functions on the CPU; the device engine's Part A
 (CUDA-graph replay against eager, no synchronisation, staging through the
 pinned ring); the loop back end: the PGO kernel's solve and the ICP graph
 route (NN kernel with its `live` flag + `icp_step`) against their plain
-versions, and Part B decided on the card against the CPU. Marked `cuda`;
+versions, and Part B decided on the card against the CPU; the guess
+kernel against its plain version, Part A with sensor windows under
+`set_sync_debug_mode("error")`, a device-engine checkpoint resumed on the
+card and batched odometry against single steps. Marked `cuda`;
 without a card the tests skip (the check runs inside the fixture, never at
 import). On the card:
 
@@ -25,12 +28,14 @@ from xchu_slam_tpu_torch import config as tconfig
 from xchu_slam_tpu_torch.models import pipeline as tpipe
 from xchu_slam_tpu_torch.io import prefetch as tprefetch
 from xchu_slam_tpu_torch.models import device_pipeline as tdp, odometry as todom
-from xchu_slam_tpu_torch.ops import icp, isc, ndt, ndt_deriv, voxel_map as tvm
+from xchu_slam_tpu_torch.models import batch_odometry as tbatch
+from xchu_slam_tpu_torch.ops import icp, imu as timu, isc, ndt, ndt_deriv, voxel_map as tvm
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import make_cloud
 from xchu_slam_tpu_torch.utils import checkpoint as tckpt, sim
 from xchu_slam_tpu_torch.models import pose_graph as tpg
-from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                         pgo_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -625,3 +630,128 @@ def test_device_engine_part_b_on_the_card_matches_the_cpu(cuda):
         assert [r[key] for r in card.odom_log] == [r[key] for r in cpu.odom_log]
     np.testing.assert_allclose(card.keyframe_trajectory()[2], cpu.keyframe_trajectory()[2],
                                atol=1e-3)
+
+
+def _sensor_windows(n, seed=2):
+    """IMU and wheel windows of the simulator along `_small_scans`' path."""
+    gt = sim.loop_trajectory(n, radius=15.0, speed=1.0)
+    stamps = 0.1 * np.arange(n)
+    rng = np.random.default_rng(seed)
+    imu = sim.imu_windows(gt, stamps, samples=16, rng=rng, gyro_noise=0.002, accel_noise=0.05)
+    whl = sim.wheel_windows(gt, stamps, samples=16, rng=rng, vel_noise=0.03, gyro_noise=0.002)
+    return gt, imu, whl
+
+
+@pytest.mark.parametrize("use_imu,use_odom", [(True, False), (False, True), (True, True)])
+def test_guess_kernel_matches_plain_version(cuda, use_imu, use_odom):
+    """The guess kernel against `ext_guess_ref` on the same CUDA tensors,
+    over 40 windows (the first fully masked): delta and velocity within
+    1e-5, `use_ext` equal; reruns bit-identical; one launch a call."""
+    gt, imu, whl = _sensor_windows(40)
+    for i in range(len(gt)):
+        pose0 = torch.from_numpy(gt[max(i - 1, 0)].astype(np.float32)).to(cuda)
+        vel = torch.tensor([3.0, -1.0, 0.1], device=cuda)
+        iw = timu.ImuWindow(*(torch.from_numpy(a[i]).to(cuda) for a in imu))
+        ww = timu.OdomWindow(*(torch.from_numpy(a[i]).to(cuda) for a in whl))
+        before = guess_kernel.launches
+        got = timu.ext_guess(pose0, iw, ww, vel, use_imu, use_odom)
+        again = timu.ext_guess(pose0, iw, ww, vel, use_imu, use_odom)
+        assert guess_kernel.launches - before == 2
+        want = timu.ext_guess_ref(pose0, iw, ww, vel, use_imu, use_odom)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-5)
+        assert bool(got[1]) == bool(want[1]) == (i > 0)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_guess_kernel_takes_only_what_it_checks(cuda):
+    _, imu, _ = _sensor_windows(4)
+    iw = timu.ImuWindow(*(torch.from_numpy(a[2]).to(cuda) for a in imu))
+    with pytest.raises(ValueError, match="CUDA"):
+        guess_kernel.ext_guess(torch.zeros(6), iw, None, torch.zeros(3), True, False)
+    with pytest.raises(ValueError, match="window is None"):
+        guess_kernel.ext_guess(torch.zeros(6, device=cuda), iw, None,
+                               torch.zeros(3, device=cuda), True, True)
+    with pytest.raises(ValueError, match="imu window"):
+        bad = iw._replace(gyro=iw.gyro[:, :2].contiguous())
+        guess_kernel.ext_guess(torch.zeros(6, device=cuda), bad, None,
+                               torch.zeros(3, device=cuda), True, False)
+
+
+def test_part_a_with_windows_replays_without_synchronising(cuda):
+    """Part A with IMU + wheel windows as CUDA-graph replays, under
+    `set_sync_debug_mode("error")` (`check_sync`), gives the poses of Part A
+    run eagerly, bit for bit; the guess kernel launches once a scan after
+    the seed; the CPU run agrees to 1e-3."""
+    over = {**_SMALL, "odom.use_imu": True, "odom.use_odom": True}
+    cfg = tconfig.default_config().override(over)
+    scans = _small_scans(24)
+    _, imu, whl = _sensor_windows(24)
+    runs = []
+    for dev, use_graph in ((cuda, True), (cuda, False), ("cpu", False)):
+        pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=dev,
+                                      use_graph=use_graph, check_sync=True)
+        stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=dev)
+        before = guess_kernel.launches
+        for c in range(3):
+            clouds, n_real = stager.stage(scans[8 * c:8 * c + 8])
+            idx = 8 * c + np.arange(8)
+            wins = tdp.GuessWindows(timu.ImuWindow(*(a[idx] for a in imu)),
+                                    timu.OdomWindow(*(a[idx] for a in whl)))
+            pipe.process_chunk(clouds, 0.1 * idx, n_real, wins=wins)
+        assert guess_kernel.launches - before == (23 if dev == cuda else 0)
+        assert pipe.chunk_readbacks == 3
+        pipe.finalize()
+        runs.append((pipe.odometry_trajectory(), pipe.state.imu_vel.cpu()))
+    assert np.array_equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    np.testing.assert_allclose(runs[0][0], runs[2][0], atol=1e-3)
+
+
+def test_device_checkpoint_resumes_on_the_card(cuda, tmp_path):
+    """A device-engine checkpoint written at a chunk boundary and loaded
+    onto the card continues to the uninterrupted run's poses, bit for bit
+    (the loaded pipeline runs its first scan eagerly, then replays)."""
+    cfg = tconfig.default_config().override(_SMALL)
+    scans = _small_scans(24)
+    stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=cuda)
+    chunks = [stager.stage(scans[lo:lo + 8]) for lo in (0, 8, 16)]
+    pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=cuda)
+    path = str(tmp_path / "dev.npz")
+    for c, (clouds, n_real) in enumerate(chunks):
+        pipe.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+        if c == 0:
+            tckpt.save_checkpoint(pipe, path)
+    pipe.finalize()
+    again = tckpt.load_checkpoint(path, device=cuda)
+    for c, (clouds, n_real) in enumerate(chunks[1:], start=1):
+        again.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+    again.finalize()
+    assert np.array_equal(again.odometry_trajectory(), pipe.odometry_trajectory())
+    assert again.kf_count == pipe.kf_count
+
+
+def test_batch_step_members_equal_single_steps(cuda):
+    """`batch_step` of B = 3 sequences (one stream, one NDT launch a member)
+    equals each member's single-sequence on-device step, bit for bit."""
+    cfg = tconfig.default_config().override(_SMALL)
+    ospec = todom.spec_from_config(cfg)
+    scans = _small_scans(24)
+    starts = (0, 6, 12)
+
+    def filt(i):
+        return filter_scan(make_cloud(*scans[i], capacity=8192, device=cuda), cfg.filter)
+
+    first = [filt(s) for s in starts]
+    states = tbatch.batch_init(ospec, torch.zeros(3, 6, device=cuda),
+                               torch.stack([f.xyz for f in first]),
+                               torch.stack([f.mask for f in first]))
+    singles = [todom.init_state(ospec, torch.zeros(6, device=cuda), f.xyz, f.mask)
+               for f in first]
+    for k in range(1, 6):
+        fs = [filt(s + k) for s in starts]
+        states, out = tbatch.batch_step(states, torch.stack([f.xyz for f in fs]),
+                                        torch.stack([f.mask for f in fs]), ospec)
+        for b, f in enumerate(fs):
+            singles[b], one = todom.step(singles[b], f.xyz, f.mask, ospec, on_device=True)
+            assert torch.equal(out.pose[b], one.pose)
+            assert int(out.iterations[b]) == int(one.iterations)

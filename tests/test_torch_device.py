@@ -307,9 +307,15 @@ def test_chunk_larger_than_log_is_refused(scans):
 
 
 @pytest.mark.parametrize("key", ["odom.use_imu", "odom.use_odom"])
-def test_constructor_refuses_the_sensor_guesses_by_name(key):
-    with pytest.raises(ValueError, match=key.split(".")[1]):
-        tdp.DeviceSlamPipeline(_cfg(tconfig, **{key: True}), device="cpu")
+def test_constructor_refuses_the_sensor_guesses_by_name(key, scans):
+    """The constructor takes a guess mode (the guess runs on the card since
+    the sensor windows were ported); a feed without that mode's windows is
+    refused by the mode's name, since the windows are inputs of Part A."""
+    dev = tdp.DeviceSlamPipeline(_cfg(tconfig, **{key: True}), device="cpu")
+    assert getattr(dev.spec, key.split(".")[1])
+    dev.process_scan(*scans[0], stamp=0.0)
+    with pytest.raises(ValueError, match=key.replace(".", r"\.")):
+        dev.process_scan(*scans[1], stamp=0.1)
 
 
 # ------------------------------------------- planted state, both packages -- #
@@ -464,9 +470,14 @@ def test_cli_device_engine_end_to_end(tmp_path, capsys):
     assert len((tmp_path / "odom_tum.txt").read_text().splitlines()) == summary["keyframes"]
 
 
-@pytest.mark.parametrize("flags", [["--imu"], ["--wheel"], ["--checkpoint-every", "5"],
-                                   ["--continue-session", "x.npz"], ["--mesh", "2"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--render-procs", "2"],
+                                   ["--sync-every", "4"], ["--realism"],
+                                   ["--trajectory", "gt.txt"]])
 def test_cli_rejects_unported_flags_of_the_device_engine(flags, capsys):
+    """The reference's run-sim flags the port has not taken are refused by
+    name (`--imu`, `--wheel`, `--checkpoint-every` and `--continue-session`
+    are taken since the device engine's session was ported:
+    tests/test_torch_device_sensors.py)."""
     with pytest.raises(SystemExit) as err:
         cli.main(["run-sim", "--scans", "4", "--device", "cpu", "--engine", "device",
                   *flags])

@@ -203,10 +203,11 @@ def test_inflate_and_invert_cov_matches_reference(case):
 PORT_MODULES = [
     "cli", "config", "convert", "types",
     "io.export", "io.kitti", "io.prefetch",
-    "models.device_pipeline", "models.odometry", "models.pipeline", "models.pose_graph", "models.relocalize",
+    "models.batch_odometry", "models.continue_session", "models.device_pipeline",
+    "models.odometry", "models.pipeline", "models.pose_graph", "models.relocalize",
     "ops.filter", "ops.icp", "ops.imu", "ops.isc", "ops.ndt", "ops.ndt_deriv",
-    "ops.scancontext", "ops.voxel_map", "ops.cuda._build", "ops.cuda.icp_kernel",
-    "ops.cuda.ndt_kernel", "ops.cuda.nn_kernel", "ops.cuda.pgo_kernel",
+    "ops.scancontext", "ops.voxel_map", "ops.cuda._build", "ops.cuda.guess_kernel",
+    "ops.cuda.icp_kernel", "ops.cuda.ndt_kernel", "ops.cuda.nn_kernel", "ops.cuda.pgo_kernel",
     "utils.checkpoint", "utils.linalg", "utils.metrics", "utils.profiling",
     "utils.scatter", "utils.se3", "utils.sim",
 ]

@@ -212,12 +212,13 @@ def _rewrite(src, dst, edit):
 
 
 def test_unloadable_checkpoints_say_why(session, tmp_path):
-    """A device-engine file is refused with a clear error, not read as a
-    host file; a file that lacks an array names the array."""
+    """A host file labelled as the device engine's is refused with a clear
+    error naming the device state it lacks, not read as a host file; a file
+    that lacks an array names the array."""
     paths = session[4]
     dev = str(tmp_path / "device.npz")
     _rewrite(paths["t"], dev, lambda d, m: m.update(engine="device"))
-    with pytest.raises(ValueError, match="device engine.*not ported"):
+    with pytest.raises(ValueError, match=r"missing 'state\."):
         tckpt.load_checkpoint(dev, device="cpu")
     cut = str(tmp_path / "cut.npz")
     _rewrite(paths["t"], cut, lambda d, m: d.pop("db.travel"))
@@ -368,7 +369,7 @@ def test_cli_help(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run-sim", "--engine", "device", "--imu"], ["run-sim", "--mesh", "4"],
+    ["run-sim", "--engine", "device", "--mesh", "2"], ["run-sim", "--mesh", "4"],
     ["run-sim", "--continue-session", "x.npz"], ["run-sim", "--realism"],
     ["run-sim", "--trajectory", "gt.txt"], ["run-sim", "--render-procs", "2"],
     ["run-sim", "--sync-every", "4"], ["run-sim", "--loop-method", "kdtree"],
@@ -376,7 +377,8 @@ def test_cli_help(argv, capsys):
 ])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """A flag of the reference CLI that is not ported is an argparse error,
-    not accepted and ignored."""
+    not accepted and ignored; so is `--continue-session` with the host
+    engine, as in the reference."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"] if argv[0] != "run-kitti" else argv)
     assert e.value.code == 2

@@ -6,6 +6,10 @@
   python -m xchu_slam_tpu_torch.cli eval     --est out/sim/odom_tum.txt --gt gt_tum.txt
   python -m xchu_slam_tpu_torch.cli localize --session out/sim/checkpoint.npz \\
                                              --scans 430 --radius 55
+  python -m xchu_slam_tpu_torch.cli run-sim  --engine device --imu --wheel --gps \\
+                                             --checkpoint-every 200 --out out/dev
+  python -m xchu_slam_tpu_torch.cli run-sim  --engine device \\
+                                             --continue-session out/dev/checkpoint.npz
   python -m xchu_slam_tpu_torch.cli info
 
 `run-sim` runs the synthetic squircle circuit with the config overrides and
@@ -20,15 +24,19 @@ DeviceSlamPipeline`, fed chunks of `--chunk` scans that the staging threads
 of `io/prefetch.DeviceChunkPrefetcher` render lazily (each scan from a
 generator of its own, as the reference's device path does) and copy to the
 card; its summary adds the streaming rate and the per-chunk wait / dispatch
-attribution.
+attribution. Its sensor windows are sliced per chunk from the same draws as
+the host engine's, it writes `checkpoint.npz` at chunk boundaries, and
+`--continue-session` continues a saved device-engine session: the
+checkpoint's config governs the run, scan 0 seeds the continuation, and the
+summary covers the continued keyframes.
 `eval` compares two trajectory files, `localize` places fresh scans in a
 saved session's map, `info` prints versions, devices and the default config.
 
 Every subcommand that computes takes `--device` (default `cuda`, an error
 without a card; `cpu` runs the kernels' plain versions). Not ported, and so
-not accepted: `run-kitti`, and `run-sim`'s `--mesh`, `--continue-session`,
-`--realism`, `--trajectory`, `--render-procs` and `--sync-every`; with
-`--engine device` also `--imu`, `--wheel` and `--checkpoint-every`.
+not accepted: `run-kitti`, and `run-sim`'s `--mesh`, `--realism`,
+`--trajectory`, `--render-procs` and `--sync-every`; `--continue-session`
+needs `--engine device`, as in the reference.
 """
 
 from __future__ import annotations
@@ -120,6 +128,19 @@ def _sim_sensor_windows(cfg, gt, gt_stamps, rng) -> dict:
     return out
 
 
+def _sim_feeds(cfg, gt, gt_stamps, rng):
+    """(sensor windows, GPS altitudes or None) of a run, drawn from `rng` in
+    the CLI's order: IMU windows, wheel windows, then a synthetic altimeter
+    along the trajectory (noisy, with 20 % dropouts as NaN)."""
+    sensor_windows = _sim_sensor_windows(cfg, gt, gt_stamps, rng)
+    gps_alts = None
+    if cfg.pgo.use_gps:
+        n = len(gt)
+        gps_alts = gt[:, 2] + rng.normal(0.0, 0.5, n)
+        gps_alts[rng.random(n) < 0.2] = np.nan
+    return sensor_windows, gps_alts
+
+
 def _scan_windows(sensor_windows: dict, i: int):
     """(ImuWindow, OdomWindow) for scan i (None when the mode is off)."""
     from xchu_slam_tpu_torch.ops.imu import ImuWindow, OdomWindow
@@ -130,6 +151,37 @@ def _scan_windows(sensor_windows: dict, i: int):
     if "wheel" in sensor_windows:
         wheel_w = OdomWindow(*(torch.from_numpy(a[i]) for a in sensor_windows["wheel"]))
     return imu_w, wheel_w
+
+
+def _slice_windows(sensor_windows: dict, idx: np.ndarray):
+    """GuessWindows (numpy arrays, a leading axis over `idx`) of a chunk's
+    slots, `idx` the slots' scans clamped at the last one; None when no
+    guess mode is on."""
+    from xchu_slam_tpu_torch.models.device_pipeline import GuessWindows
+    from xchu_slam_tpu_torch.ops.imu import ImuWindow, OdomWindow
+
+    if not sensor_windows:
+        return None
+    imu_w = wheel_w = None
+    if "imu" in sensor_windows:
+        imu_w = ImuWindow(*(a[idx] for a in sensor_windows["imu"]))
+    if "wheel" in sensor_windows:
+        wheel_w = OdomWindow(*(a[idx] for a in sensor_windows["wheel"]))
+    return GuessWindows(imu=imu_w, wheel=wheel_w)
+
+
+class _TailView:
+    """scans[start:] as an indexable sequence (a continuation's scan 0 went
+    into its seed)."""
+
+    def __init__(self, scans, start: int):
+        self.scans, self.start = scans, start
+
+    def __len__(self) -> int:
+        return len(self.scans) - self.start
+
+    def __getitem__(self, k: int):
+        return self.scans[k + self.start]
 
 
 def _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
@@ -162,17 +214,23 @@ def _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
 
 def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
                        prefetch_depth: int, prefetch_threads: int, device: str,
-                       timers, verbose: bool) -> dict:
-    """Stream `scans` through the device engine in chunks. Returns the
-    per-chunk times: host wait on the prefetcher (render + stage + copy
-    behind) and time inside `process_chunk` (Part A's enqueue, the chunk's
-    readback, Part B), with each chunk's scan span."""
+                       timers, verbose: bool, sensor_windows: dict | None = None,
+                       checkpoint_every: int = 0, out: str | None = None,
+                       start: int = 0) -> dict:
+    """Stream `scans[start:]` through the device engine in chunks, with the
+    sensor windows of each chunk's slots; `checkpoint.npz` is written at the
+    chunk boundaries of the reference's cadence. Returns the per-chunk
+    times: host wait on the prefetcher (render + stage + copy behind) and
+    time inside `process_chunk` (Part A's enqueue, the chunk's readback,
+    Part B), with each chunk's scan span."""
     from xchu_slam_tpu_torch.io.prefetch import DeviceChunkPrefetcher
+    from xchu_slam_tpu_torch.utils.checkpoint import save_checkpoint
 
     n_scans = len(scans)
     wait_s, dispatch_s, span, ts = [], [], [], [time.perf_counter()]
-    base = 0
-    with DeviceChunkPrefetcher(scans, capacity=cfg.filter.max_raw_points,
+    base = start
+    feed = scans if start == 0 else _TailView(scans, start)
+    with DeviceChunkPrefetcher(feed, capacity=cfg.filter.max_raw_points,
                                chunk=chunk, depth=prefetch_depth,
                                threads=prefetch_threads, device=device) as pf, \
             timers.time("slam"):
@@ -187,11 +245,16 @@ def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
             idx = np.minimum(base + np.arange(clouds.xyz.shape[0]), n_scans - 1)
             td = time.perf_counter()
             pipe.process_chunk(clouds, gt_stamps[idx], n_real,
-                               gps_alts=None if gps_alts is None else gps_alts[idx])
+                               gps_alts=None if gps_alts is None else gps_alts[idx],
+                               wins=_slice_windows(sensor_windows, idx))
             dispatch_s.append(time.perf_counter() - td)
             span.append((base, base + n_real))
             base += n_real
             ts.append(time.perf_counter())
+            if checkpoint_every and base and \
+                    (base // 16) % max(checkpoint_every // 16, 1) == 0:
+                with timers.time("checkpoint"):
+                    save_checkpoint(pipe, os.path.join(out, "checkpoint.npz"))
             if verbose:
                 print(f"scan {base}: kf={pipe.state.db.count} "
                       f"loops={int(pipe.state.loop_count)}", file=sys.stderr)
@@ -233,7 +296,7 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             gps: bool = False, out: str | None = None,
             checkpoint_every: int = 0, verbose: bool = False, timers=None,
             engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
-            prefetch_threads: int = 2):
+            prefetch_threads: int = 2, continue_from: str | None = None):
     """Run the circuit through the host or the device engine. Returns
     (pipeline, summary dict). With `out`, the run's artifacts are written
     there. `timers` (a `StageTimers` for `device`) collects the stage times.
@@ -241,8 +304,13 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     Host engine: `on_scan(i, result, scan)` is called after each scan with
     the keyword arguments `process_scan` was given; `checkpoint.npz` is
     written every `checkpoint_every` scans. Device engine: the scans are
-    rendered lazily inside the staging threads and fed in chunks of `chunk`;
-    the sensor guesses, `on_scan` and checkpoints are not ported to it."""
+    rendered lazily inside the staging threads and fed in chunks of `chunk`
+    with their sensor windows; `checkpoint.npz` is written at the chunk
+    boundaries where `(scans fed // 16) % max(checkpoint_every // 16, 1) ==
+    0`; `on_scan` is not ported to it. `continue_from` (device engine only)
+    continues the device-engine session saved in that checkpoint: its config
+    governs the run (the config arguments are then ignored), scan 0 seeds
+    the continuation, and the summary covers the continued keyframes."""
     from xchu_slam_tpu_torch.io.export import save_run
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.utils import metrics, se3, sim
@@ -251,36 +319,51 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     _check_device(device)
     if engine not in ("host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "device" and (imu or wheel or checkpoint_every or on_scan):
-        raise ValueError("the device engine takes no IMU / wheel guess, "
-                         "checkpoints or per-scan callback yet")
+    if engine == "device" and on_scan:
+        raise ValueError("the device engine takes no per-scan callback")
+    if continue_from and engine != "device":
+        raise ValueError("continue_from requires the device engine")
     cfg = sim_config(overrides, loop_method, imu, wheel, gps)
     gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
     n_scans = len(gt)
     rng = np.random.default_rng(seed)
-    sensor_windows = _sim_sensor_windows(cfg, gt, gt_stamps, rng)
-    gps_alts = None
-    if cfg.pgo.use_gps:
-        # synthetic altimeter along the trajectory: noisy, with 20 % dropouts
-        gps_alts = gt[:, 2] + rng.normal(0.0, 0.5, n_scans)
-        gps_alts[rng.random(n_scans) < 0.2] = np.nan
+    timers = timers if timers is not None else StageTimers(device)
+    cont = None
+    if continue_from:
+        # loaded first: the checkpoint's config governs the run, and the
+        # sensor feeds below must be drawn for that config
+        from xchu_slam_tpu_torch.models.continue_session import continue_session
+
+        xyz0, inten0 = sim.RenderedScans(world, gt, seed=seed, n_points=24_000)[0]
+        with timers.time("continue"):
+            cont = continue_session(continue_from, xyz0, inten0, stamp=float(gt_stamps[0]),
+                                    log_capacity=max(n_scans, 8192), device=device)
+        if overrides or imu or wheel or gps or loop_method != "sc":
+            print("warning: --continue-session runs under the checkpoint's config; "
+                  "the CLI's config flags (--set/--imu/--wheel/--gps/--loop-method) "
+                  "are ignored", file=sys.stderr)
+        cfg = cont.cfg
+        print(f"continued session: relocalized to kf {cont.continuation['matched_kf']} "
+              f"(icp_fitness={cont.continuation['icp_fitness']:.3f}, "
+              f"{cont.continuation['old_keyframes']} saved keyframes)", file=sys.stderr)
+    sensor_windows, gps_alts = _sim_feeds(cfg, gt, gt_stamps, rng)
     if out:
         os.makedirs(out, exist_ok=True)
     elif checkpoint_every:
         raise ValueError("checkpoint_every needs an output directory")
 
-    timers = timers if timers is not None else StageTimers(device)
     chunks = None
     if engine == "device":
         from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
 
-        pipe = DeviceSlamPipeline(cfg, kf_points=4096,
-                                  log_capacity=max(n_scans, 8192), device=device)
+        pipe = cont if cont is not None else DeviceSlamPipeline(
+            cfg, kf_points=4096, log_capacity=max(n_scans, 8192), device=device)
         lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000)
         t0 = time.perf_counter()
         chunks = _run_device_engine(pipe, lazy, gt_stamps, gps_alts, cfg, chunk,
                                     prefetch_depth, prefetch_threads, device,
-                                    timers, verbose)
+                                    timers, verbose, sensor_windows, checkpoint_every,
+                                    out, start=0 if cont is None else 1)
     else:
         pipe = SlamPipeline(cfg, kf_points=4096, device=device)
         t0 = time.perf_counter()
@@ -299,6 +382,11 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
 
     gt_rel = _gt_in_map_frame(gt)
     stamps, _kf_odo, kf_opt = pipe.keyframe_trajectory()
+    kf_base = 0 if cont is None else cont.continuation["old_keyframes"]
+    # a continuation is evaluated on its own keyframes only: the saved
+    # session's stamps belong to its own run
+    stamps, kf_opt = stamps[kf_base:], kf_opt[kf_base:]
+    n_streamed = n_scans - (0 if cont is None else 1)   # scan 0 went into the seed
     ei, idx = metrics.associate(stamps, gt_stamps, max_diff=0.05)
     kf_opt = kf_opt[ei]
     estT = se3.pose_to_matrix(torch.from_numpy(kf_opt)).numpy()
@@ -317,11 +405,15 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
         "end_drift_m": round(drift, 3),
         "length_m": round(length, 1),
         "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
-        "scans_per_sec": round(n_scans / wall, 2),
+        "scans_per_sec": round(n_streamed / wall, 2),
     }
+    if cont is not None:
+        summary["continuation"] = {
+            **{k: v for k, v in cont.continuation.items() if k != "reloc_pose"},
+            "new_keyframes": pipe.kf_count - kf_base}
     if chunks is not None:
         summary["engine"] = "device"
-        summary.update(_chunk_attribution(chunks, pipe, n_scans))
+        summary.update(_chunk_attribution(chunks, pipe, n_streamed))
     if paths is not None:
         summary["artifacts"] = paths
     return pipe, summary
@@ -338,7 +430,8 @@ def cmd_run_sim(args):
                             verbose=args.verbose, timers=timers,
                             engine=args.engine, chunk=args.chunk,
                             prefetch_depth=args.prefetch_depth,
-                            prefetch_threads=args.prefetch_threads)
+                            prefetch_threads=args.prefetch_threads,
+                            continue_from=args.continue_session)
     print(json.dumps(summary, indent=2))
     print(timers.report(), file=sys.stderr)
 
@@ -466,7 +559,11 @@ def main(argv=None):
     ps.add_argument("--wheel", action="store_true",
                     help="wheel-odometry NDT guess from simulated twist")
     ps.add_argument("--checkpoint-every", type=int, default=0,
-                    help="write <out>/checkpoint.npz every N scans")
+                    help="write <out>/checkpoint.npz every N scans (the device "
+                    "engine: at chunk boundaries, every max(N // 16, 1) × 16 scans)")
+    ps.add_argument("--continue-session", default=None, metavar="CHECKPOINT",
+                    help="continue a saved device-engine session (needs --engine "
+                    "device; the checkpoint's config governs the run)")
     ps.add_argument("--verbose", action="store_true")
     ps.add_argument("--engine", default="host", choices=["host", "device"],
                     help="host: per-scan host-orchestrated engine; device: the "
@@ -479,10 +576,11 @@ def main(argv=None):
     ps.add_argument("--prefetch-threads", type=int, default=2,
                     help="staging threads; they also render the scans "
                     "(--engine device)")
-    # flags of the reference's device engine that are named, so that they are
+    # flags of the reference's run-sim that are named, so that they are
     # refused by name
-    ps.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
-    ps.add_argument("--continue-session", default=None, help=argparse.SUPPRESS)
+    for flag in ("--mesh", "--trajectory", "--render-procs", "--sync-every"):
+        ps.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ps.add_argument("--realism", action="store_true", help=argparse.SUPPRESS)
     _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -526,15 +624,14 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     if args.cmd == "run-sim":
-        for flag, on in (("--mesh", args.mesh),
-                         ("--continue-session", args.continue_session)):
-            if on is not None:
-                p.error(f"{flag} is not ported yet")
-    if args.cmd == "run-sim" and args.engine == "device":
-        for flag, on in (("--imu", args.imu), ("--wheel", args.wheel),
-                         ("--checkpoint-every", args.checkpoint_every)):
+        for flag, on in (("--mesh", args.mesh), ("--trajectory", args.trajectory),
+                         ("--render-procs", args.render_procs),
+                         ("--sync-every", args.sync_every), ("--realism", args.realism)):
             if on:
-                p.error(f"{flag} with --engine device is not ported yet")
+                p.error(f"{flag} is not ported yet")
+        if args.continue_session and args.engine != "device":
+            p.error("--continue-session requires --engine device")
+    if args.cmd == "run-sim" and args.engine == "device":
         if args.chunk < 1 or args.prefetch_depth < 1 or args.prefetch_threads < 1:
             p.error("--chunk, --prefetch-depth and --prefetch-threads must be >= 1")
     args.fn(args)

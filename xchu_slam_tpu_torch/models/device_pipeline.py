@@ -5,7 +5,11 @@ with its control under `lax.cond` / `lax.while_loop`, fed staged chunks of
 scans. PyTorch has no such program, so the port splits the step in two and
 keeps the reference's results in scan order:
 
-- Part A, every scan, no host synchronisation: filter → NDT odometry (the
+- Part A, every scan, no host synchronisation: filter → with `odom.use_imu`
+  / `odom.use_odom` the scan's IMU / wheel windows integrated into the NDT
+  guess on the card (`ops/imu.py::ext_guess`, the CUDA kernel
+  `csrc/guess_kernel.cu`; the IMU velocity reset from the SLAM delta after
+  the step) → NDT odometry (the
   align's trip counts decided by the CUDA kernel `csrc/ndt_kernel.cu`; map
   insertion, swap and recentring under device flags) → travel, the keyframe
   gate `is_kf = (kf_accum ≥ keyframe_gap) & (keyframes < capacity)`, the
@@ -32,9 +36,9 @@ one. With `check_sync` the whole of a chunk but its one readback runs under
 `torch.cuda.set_sync_debug_mode("error")` (the first scan's seed, once a
 run, is outside it).
 
-Not ported here, and refused by the constructor: `odom.use_imu` /
-`odom.use_odom` (the guess providers integrated on the card); also `mesh`,
-`sync_every` and device-engine checkpoints.
+`utils/checkpoint.py` saves and restores this engine's state in the
+reference's layout at a chunk boundary; `models/continue_session.py` seeds
+it from a saved session. Not ported here: `mesh` and `sync_every`.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ from xchu_slam_tpu_torch.models import odometry, pose_graph as pg
 from xchu_slam_tpu_torch.models.pipeline import (KfDb, LoopRecord, SlamPipeline,
                                                  _add_keyframe, build_submap,
                                                  empty_db, subsample_cloud)
-from xchu_slam_tpu_torch.ops import icp, isc as isc_ops, scancontext as sc
-from xchu_slam_tpu_torch.ops.cuda import ndt_kernel, nn_kernel
+from xchu_slam_tpu_torch.ops import icp, imu as imu_ops, isc as isc_ops, scancontext as sc
+from xchu_slam_tpu_torch.ops.cuda import guess_kernel, ndt_kernel, nn_kernel
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import Cloud, make_cloud
 from xchu_slam_tpu_torch.utils import se3
@@ -82,6 +86,10 @@ class DevSpec(NamedTuple):
     use_gps: bool
     use_sc_yaw: bool = True
     log_capacity: int = 8192
+    # the IMU / wheel-odometry NDT guess: per-scan windows integrated on the
+    # card (the reference's use_imu / use_odom launch modes)
+    use_imu: bool = False
+    use_odom: bool = False
 
 
 def spec_from_config(cfg: SlamConfig, kf_points: int = 4096,
@@ -107,7 +115,18 @@ def spec_from_config(cfg: SlamConfig, kf_points: int = 4096,
         use_gps=cfg.pgo.use_gps,
         use_sc_yaw=cfg.loop.use_sc_yaw,
         log_capacity=log_capacity,
+        use_imu=cfg.odom.use_imu,
+        use_odom=cfg.odom.use_odom,
     )
+
+
+class GuessWindows(NamedTuple):
+    """The sensor windows of the external guess: `imu` an ops.imu.ImuWindow,
+    `wheel` an ops.imu.OdomWindow, each None where its mode is off. For
+    `process_chunk` every leaf has a leading [chunk] axis."""
+
+    imu: object
+    wheel: object
 
 
 class DevState(NamedTuple):
@@ -125,7 +144,8 @@ class DevState(NamedTuple):
     loop_count: torch.Tensor    # i64 on the device (Part B's)
     scan_count: torch.Tensor    # i64 on the device: indexes the log ring
     kf_count: torch.Tensor      # i64 on the device: the gate's keyframe counter
-    imu_vel: torch.Tensor       # f32[3] (carried for the reference's layout)
+    imu_vel: torch.Tensor       # f32[3]: the IMU velocity estimate (world
+    #                             frame), reset from the SLAM delta every scan
     last_stamp: torch.Tensor    # f32: the previous scan's stamp
     log: torch.Tensor           # f32[LOG,16]: pose6, iters, fitness, mfrac,
     #                             is_kf, stamp, + loop diagnostics: cand idx,
@@ -348,6 +368,13 @@ def _sync_debug_mode(mode: str):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def _map_windows(wins: GuessWindows | None, fn) -> GuessWindows | None:
+    """`fn` applied to every tensor of the windows (None stays None)."""
+    if wins is None:
+        return None
+    return GuessWindows(*(None if w is None else type(w)(*map(fn, w)) for w in wins))
+
+
 def _assign(dst, src) -> None:
     """Copy the tensors of `src` into those of `dst` in place (both nested
     tuples of tensors). A source that is itself one of the destinations is
@@ -355,13 +382,14 @@ def _assign(dst, src) -> None:
     pairs = []
 
     def walk(d, s):
-        if isinstance(d, torch.Tensor):
+        if d is None or isinstance(d, torch.Tensor):
             pairs.append((d, s))
         else:
             for dd, ss in zip(d, s):
                 walk(dd, ss)
 
     walk(dst, src)
+    pairs = [(d, s) for d, s in pairs if d is not None]
     held = {d.data_ptr() for d, _ in pairs}
     pairs = [(d, s.clone() if s.data_ptr() in held and s is not d else s)
              for d, s in pairs]
@@ -386,9 +414,6 @@ class DeviceSlamPipeline:
         one made through `ctypes`)."""
         if cfg.loop.method not in ("sc", "isc", "radius", "none"):
             raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
-        if cfg.odom.use_imu or cfg.odom.use_odom:
-            raise ValueError("odom.use_imu / odom.use_odom are not ported to the "
-                             "device engine yet")
         if cfg.loop.async_detect:
             raise ValueError("loop.async_detect is not ported")
         if cfg.filter.detect_ground:
@@ -441,15 +466,29 @@ class DeviceSlamPipeline:
         self.loops: list = []
 
     # ------------------------------------------------------------ Part A -- #
-    def _part_a(self, cloud: Cloud, stamp: torch.Tensor):
+    def _part_a(self, cloud: Cloud, stamp: torch.Tensor, win: GuessWindows | None = None):
         """One scan's every-scan half, with no host synchronisation: updates
         Part A's state in place and returns (filtered cloud, row [17]: the log
-        row's 16 columns and the travel)."""
+        row's 16 columns and the travel). `win` holds the scan's windows where
+        a guess mode is on."""
         st, spec = self.state, self.spec
         filt = filter_scan(cloud, spec.fcfg)
+        ext_delta = use_ext = None
+        imu_vel = st.imu_vel
+        if spec.use_imu or spec.use_odom:
+            ext_delta, use_ext, imu_vel = imu_ops.ext_guess(
+                st.odom.pose, win.imu, win.wheel, st.imu_vel, spec.use_imu, spec.use_odom)
         new_odom, out = odometry.step(st.odom, filt.xyz, filt.mask, spec.ospec,
-                                      on_device=True)
+                                      ext_delta, use_ext, on_device=True)
         pose = out.pose
+        if spec.use_imu:
+            # reset the IMU velocity from the SLAM delta every scan: pure
+            # double integration is a velocity random walk. The divisor is a
+            # 0-d tensor: CUDA division by a Python scalar multiplies by its
+            # reciprocal
+            dt = stamp - st.last_stamp
+            vel_slam = (pose[:3] - st.odom.pose[:3]) / torch.clamp(dt, min=1e-6)
+            imu_vel = torch.where(dt > 1e-6, vel_slam, imu_vel)
         step_d = torch.linalg.norm(pose[:2] - st.odom.pose[:2])
         kf_accum = st.kf_accum + step_d
         travel = st.travel + step_d
@@ -462,18 +501,21 @@ class DeviceSlamPipeline:
             self._diag_reset_dev, travel[None]])
         slot = (st.scan_count % spec.log_capacity).reshape(1)
         st.log.index_copy_(0, slot, row[None, :LOG_COLS])
-        _assign((st.odom, st.kf_accum, st.travel, st.last_kf_odom, st.last_stamp),
+        _assign((st.odom, st.kf_accum, st.travel, st.last_kf_odom, st.last_stamp,
+                 st.imu_vel if spec.use_imu else None),
                 (new_odom, torch.where(is_kf, torch.zeros_like(kf_accum), kf_accum),
-                 travel, torch.where(is_kf, pose, st.last_kf_odom), stamp))
+                 travel, torch.where(is_kf, pose, st.last_kf_odom), stamp, imu_vel))
         st.kf_count.add_(is_kf.to(torch.int64))
         st.scan_count.add_(1)
         return filt, row
 
-    def _capture(self, like: Cloud) -> None:
-        """Capture Part A of one scan as a CUDA graph over static inputs."""
+    def _capture(self, like: Cloud, win: GuessWindows | None) -> None:
+        """Capture Part A of one scan as a CUDA graph over static inputs (the
+        windows among them where a guess mode is on)."""
         self._in = (Cloud(*(torch.zeros_like(t) for t in like)),
-                    torch.zeros((), device=self.device))
-        counts = {"ndt": ndt_kernel.launches, "nn": nn_kernel.launches}
+                    torch.zeros((), device=self.device), _map_windows(win, torch.zeros_like))
+        counts = {"ndt": ndt_kernel.launches, "nn": nn_kernel.launches,
+                  "guess": guess_kernel.launches}
         graph = torch.cuda.CUDAGraph()
         # entering a capture synchronises the device, once: not Part A's doing
         mode = torch.cuda.get_sync_debug_mode()
@@ -486,25 +528,28 @@ class DeviceSlamPipeline:
             torch.cuda.set_sync_debug_mode(mode)
         # a capture records launches, it makes none: a replay makes them
         self._replay_launches = {"ndt": ndt_kernel.launches - counts["ndt"],
-                                 "nn": nn_kernel.launches - counts["nn"]}
+                                 "nn": nn_kernel.launches - counts["nn"],
+                                 "guess": guess_kernel.launches - counts["guess"]}
         ndt_kernel.launches, nn_kernel.launches = counts["ndt"], counts["nn"]
+        guess_kernel.launches = counts["guess"]
         self._graph = graph
 
-    def _run_part_a(self, cloud: Cloud, stamp: torch.Tensor):
+    def _run_part_a(self, cloud: Cloud, stamp: torch.Tensor, win: GuessWindows | None = None):
         """Part A of one scan, eagerly or as a graph replay; returns tensors
         of its own (a replay's outputs are copied out of the graph's)."""
         if not self.use_graph:
-            return self._part_a(cloud, stamp)
+            return self._part_a(cloud, stamp, win)
         if self._graph is None:
             if self._eager_scans < 1:     # the first scan warms every lazy start
                 self._eager_scans += 1
-                return self._part_a(cloud, stamp)
-            self._capture(cloud)
-        _assign(self._in, (cloud, stamp))
+                return self._part_a(cloud, stamp, win)
+            self._capture(cloud, win)
+        _assign(self._in, (cloud, stamp, win))
         self._graph.replay()
         self.part_a_replays += 1
         ndt_kernel.launches += self._replay_launches["ndt"]
         nn_kernel.launches += self._replay_launches["nn"]
+        guess_kernel.launches += self._replay_launches["guess"]
         filt, row = self._out
         return Cloud(*(t.clone() for t in filt)), row.clone()
 
@@ -512,22 +557,27 @@ class DeviceSlamPipeline:
     def process_scan(self, cloud, intensity=None, stamp: float = 0.0,
                      gps_alt: float | None = None, imu=None, wheel=None) -> None:
         """Feed one scan: a staged Cloud (io/prefetch.py) or raw points
-        [n,3]. A chunk of one."""
-        if imu is not None or wheel is not None:
-            raise ValueError("the device engine takes no IMU / wheel windows yet")
+        [n,3]. A chunk of one. `imu` / `wheel` (ops.imu.ImuWindow /
+        OdomWindow) carry the sensor samples since the previous scan; with
+        `odom.use_imu` / `odom.use_odom` they are integrated on the card into
+        the NDT guess."""
         if not isinstance(cloud, Cloud):
             cloud = make_cloud(cloud, intensity, capacity=self.cfg.filter.max_raw_points,
                                device=self.device)
         clouds = Cloud(*(t[None] for t in cloud))
         alts = None if gps_alt is None else [gps_alt]
-        self.process_chunk(clouds, [stamp], 1, gps_alts=alts)
+        wins = _map_windows(GuessWindows(imu, wheel), lambda t: torch.as_tensor(t)[None])
+        self.process_chunk(clouds, [stamp], 1, gps_alts=alts, wins=wins)
 
-    def process_chunk(self, clouds: Cloud, stamps, n_real: int, gps_alts=None) -> None:
+    def process_chunk(self, clouds: Cloud, stamps, n_real: int, gps_alts=None,
+                      wins: GuessWindows | None = None) -> None:
         """Feed a staged chunk (a Cloud batch [chunk,...] from
         io/prefetch.DeviceChunkPrefetcher). `stamps` is per slot [chunk];
         `n_real` ≤ chunk says how many slots hold real scans (a short final
         chunk); the others are skipped. `gps_alts` [chunk] holds NaN where a
-        scan has no altitude."""
+        scan has no altitude. `wins` holds the windows of every slot (numpy
+        arrays or CPU tensors with a leading [chunk] axis) for each guess
+        mode that is on; they go to the card in one copy each."""
         chunk = clouds.xyz.shape[0]
         stamps = np.asarray(stamps, np.float32)
         if gps_alts is None:
@@ -550,10 +600,36 @@ class DeviceSlamPipeline:
         if n_real <= first:
             return
         stamps_h = torch.from_numpy(stamps)
+        wins_h = self._host_windows(wins, chunk)
         if self.device.type == "cuda":
             stamps_h = stamps_h.pin_memory()
+            wins_h = _map_windows(wins_h, lambda t: t.pin_memory())
         with self._sync_check():
-            self._chunk(clouds, stamps_h, alts, first, n_real)
+            self._chunk(clouds, stamps_h, alts, first, n_real, wins_h)
+
+    def _host_windows(self, wins: GuessWindows | None, chunk: int) -> GuessWindows | None:
+        """The windows of the modes that are on, as contiguous CPU tensors
+        [chunk, ...]; None where no mode is on. A mode that is on needs its
+        windows: they are inputs of Part A's graph."""
+        spec = self.spec
+        if not (spec.use_imu or spec.use_odom):
+            return None
+        out = []
+        for on, name, key, cls in ((spec.use_imu, "imu", "odom.use_imu", imu_ops.ImuWindow),
+                                   (spec.use_odom, "wheel", "odom.use_odom",
+                                    imu_ops.OdomWindow)):
+            w = None if wins is None else getattr(wins, name)
+            if not on:
+                out.append(None)
+                continue
+            if w is None:
+                raise ValueError(f"{key} is on: the feed needs the {name} windows")
+            w = cls(*(torch.as_tensor(t).contiguous() for t in w))
+            if any(t.shape[0] != chunk for t in w):
+                raise ValueError(f"the {name} windows hold {w.stamps.shape[0]} slots, "
+                                 f"the chunk {chunk}")
+            out.append(w)
+        return GuessWindows(*out)
 
     def _sync_check(self, mode: str = "error"):
         """Sync debug mode `mode` inside the block where `check_sync` is on."""
@@ -561,13 +637,16 @@ class DeviceSlamPipeline:
             return contextlib.nullcontext()
         return _sync_debug_mode(mode)
 
-    def _chunk(self, clouds: Cloud, stamps_h, alts, first: int, n_real: int) -> None:
+    def _chunk(self, clouds: Cloud, stamps_h, alts, first: int, n_real: int,
+               wins_h: GuessWindows | None = None) -> None:
         """Part A of the real slots, the chunk's one readback, then Part B of
         the flagged slots, in scan order, on the card."""
         # Part A for every real slot, nothing read back
         stamps_d = stamps_h.to(self.device, non_blocking=True)
+        wins_d = _map_windows(wins_h, lambda t: t.to(self.device, non_blocking=True))
         t0 = time.perf_counter()
-        slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s])
+        slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s],
+                                  _map_windows(wins_d, lambda t: t[s]))
                  for s in range(first, n_real)]
         rows_d = torch.stack([row for _filt, row in slots])
         # the one readback of the chunk
@@ -597,6 +676,16 @@ class DeviceSlamPipeline:
         for key, dt in (("part_a_enqueue", t1 - t0), ("readback_wait", t2 - t1),
                         ("part_b", time.perf_counter() - t2)):
             self.stage_seconds[key] += dt
+
+    def restore(self, state: DevState, scan_count: int) -> None:
+        """Take `state` (a checkpoint's or a continuation's, on this
+        pipeline's device) at a chunk boundary after `scan_count` scans: the
+        host's count of scans fed follows it, and the ring's rows older than
+        its capacity are not in it. The next chunk seeds nothing."""
+        self.state = state
+        self._scans_fed = scan_count
+        self._archived = max(0, scan_count - self.spec.log_capacity)
+        self._log_archive = []
 
     def _reserve_log(self, n_new: int) -> None:
         """Archive device log rows to the host before a feed of `n_new` scans

@@ -133,10 +133,14 @@ def _near_edge(pose, origin, spec: OdomSpec):
     return off > margin_xy
 
 
-def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec):
-    """`step` with its three branches decided on the card."""
+def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
+                    use_ext=None):
+    """`step` with its three branches decided on the card. With `ext_delta`
+    the guess's delta is `where(use_ext, ext_delta, diff)`, `use_ext` a 0-d
+    bool tensor on the state's device (the reference's `_guess`)."""
     g = spec.gspec
-    res = ndt.align(state.grid_a, xyz, mask, _guess(state), g, spec.nspec)
+    delta = None if ext_delta is None else torch.where(use_ext, ext_delta, state.diff)
+    res = ndt.align(state.grid_a, xyz, mask, _guess(state, delta), g, spec.nspec)
     pose = res.pose
     diff = pose - state.pose
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
@@ -174,12 +178,10 @@ def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
     """One odometry scan step. Returns (new_state, OdomOutput). With
     `use_ext`, `ext_delta` (float32[6] on the state's device) replaces the
     constant-velocity delta in the NDT guess. With `on_device` the step reads
-    nothing back and every output is a tensor (the external guess is not
-    ported to that form)."""
+    nothing back and every output is a tensor; there `use_ext` is a 0-d bool
+    tensor on the state's device, decided on the card."""
     if on_device:
-        if use_ext:
-            raise ValueError("the on-device step takes no external guess yet")
-        return _step_on_device(state, xyz, mask, spec)
+        return _step_on_device(state, xyz, mask, spec, ext_delta, use_ext)
     guess = _guess(state, ext_delta if use_ext else None)
     res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec)
     pose = res.pose

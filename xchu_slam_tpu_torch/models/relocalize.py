@@ -26,7 +26,7 @@ from xchu_slam_tpu_torch.config import SlamConfig
 from xchu_slam_tpu_torch.models.pipeline import KfDb, build_submap, subsample_cloud
 from xchu_slam_tpu_torch.ops import icp, scancontext as sc
 from xchu_slam_tpu_torch.ops.filter import filter_scan
-from xchu_slam_tpu_torch.types import make_cloud
+from xchu_slam_tpu_torch.types import Cloud, make_cloud
 from xchu_slam_tpu_torch.utils import se3
 
 
@@ -57,9 +57,14 @@ class SessionLocalizer:
 
     def localize(self, xyz, intensity=None, max_points: int | None = None
                  ) -> LocalizeResult:
+        """Place one scan (raw points [n,3] with their intensities, or a
+        Cloud on the store's device) in the saved map."""
         cfg = self.cfg
-        cloud = make_cloud(xyz, intensity, capacity=cfg.filter.max_raw_points,
-                           device=self.device)
+        if isinstance(xyz, Cloud):
+            cloud = xyz
+        else:
+            cloud = make_cloud(xyz, intensity, capacity=cfg.filter.max_raw_points,
+                               device=self.device)
         filt = filter_scan(cloud, cfg.filter)
         desc = sc.make_descriptor(filt.xyz, filt.mask, self.scspec)
         cand = sc.detect_loop_between_sessions(
@@ -92,8 +97,10 @@ class SessionLocalizer:
 
 def localizer_from_checkpoint(path: str, device: torch.device | str = "cuda"
                               ) -> SessionLocalizer:
-    """Build a SessionLocalizer on `device` from a saved checkpoint."""
+    """Build a SessionLocalizer on `device` from a saved checkpoint of
+    either engine."""
     from xchu_slam_tpu_torch.utils.checkpoint import load_checkpoint
 
     pipe = load_checkpoint(path, device=device)
-    return SessionLocalizer(pipe.db, pipe.cfg)
+    db = pipe.state.db if getattr(pipe, "state", None) is not None else pipe.db
+    return SessionLocalizer(db, pipe.cfg)

@@ -7,12 +7,15 @@ integrates a wheel-odometry twist; `combine_imu_odom` takes IMU rotation with
 wheel translation. The odometry step consumes the resulting delta through
 its `ext_delta` input in place of the constant-velocity prediction.
 
-These are chains of 16 dependent 3-vector updates per scan. The reference
-runs them as `lax.scan`s inside its device program; here they run on the
-host, on CPU float32 tensors in the reference's order of operations, from
-the host copy of the pose the pipeline already holds, and only the 6-vector
-delta goes to the device. As device ops they would be ~150 launches of a
-few bytes each per scan.
+These are chains of 16 dependent 3-vector updates per scan, in the
+reference's order of operations, on the device of the pose they are given.
+The host engine runs them on CPU float32 tensors from the host copy of the
+pose it already holds, and only the 6-vector delta goes to the device.
+`ext_guess` is the device engine's whole guess (the reference's
+`device_pipeline._ext_guess`): on CUDA tensors it launches the hand-written
+kernel `csrc/guess_kernel.cu` (one warp, a lane a chain), on CPU tensors it
+runs `ext_guess_ref`, the plain chain. As PyTorch ops on the card the plain
+chain is some 300 launches of a few bytes each.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ GRAVITY = 9.80665
 
 
 class ImuWindow(NamedTuple):
-    """Fixed-capacity IMU samples between two scans (CPU tensors).
+    """Fixed-capacity IMU samples between two scans.
 
     stamps: float32[M]; gyro: float32[M,3] (rad/s, body); accel: float32[M,3]
     (m/s², body, gravity included); mask: bool[M]."""
@@ -41,7 +44,7 @@ class ImuWindow(NamedTuple):
 class ImuState(NamedTuple):
     """Velocity estimate carried between scans."""
 
-    velocity: torch.Tensor  # float32[3], world frame, on the CPU
+    velocity: torch.Tensor  # float32[3], world frame
 
 
 class OdomWindow(NamedTuple):
@@ -53,16 +56,20 @@ class OdomWindow(NamedTuple):
     mask: torch.Tensor
 
 
-def _f32(a) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=torch.float32, device="cpu")
+def _f32(a, device="cpu") -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
-def _sample_dt(stamps, mask) -> torch.Tensor:
+def _device(pose0) -> torch.device:
+    return pose0.device if isinstance(pose0, torch.Tensor) else torch.device("cpu")
+
+
+def _sample_dt(stamps, mask, device="cpu") -> torch.Tensor:
     """Per-sample integration interval [M]: 0 for sample 0, for masked
     samples and for stamps that run backwards."""
-    stamps = _f32(stamps)
+    stamps = _f32(stamps, device)
     dt = torch.diff(stamps, prepend=stamps[:1])
-    mask = torch.as_tensor(mask, dtype=torch.bool, device="cpu")
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=device)
     return torch.where(mask, torch.clamp(dt, min=0.0), 0.0)
 
 
@@ -80,16 +87,19 @@ def integrate_imu(window: ImuWindow, pose0, state: ImuState
                   ) -> tuple[torch.Tensor, ImuState]:
     """Integrate one inter-scan IMU window from world pose `pose0`.
 
-    Returns (delta6 in the world frame, updated ImuState). Per-sample euler
-    sum for attitude; accelerations rotated to world by the attitude before
-    the sample, gravity removed, doubly integrated."""
-    pose0 = _f32(pose0)
-    dt = _sample_dt(window.stamps, window.mask)
-    rpys, rpy = _attitude_chain(pose0[3:6], _f32(window.gyro), dt)
+    Returns (delta6 in the world frame, updated ImuState), on pose0's device.
+    Per-sample euler sum for attitude; accelerations rotated to world by the
+    attitude before the sample, gravity removed, doubly integrated."""
+    dev = _device(pose0)
+    pose0 = _f32(pose0, dev)
+    dt = _sample_dt(window.stamps, window.mask, dev)
+    rpys, rpy = _attitude_chain(pose0[3:6], _f32(window.gyro, dev), dt)
     R = se3.euler_to_matrix(rpys)                                  # [M,3,3]
-    gravity = torch.tensor([0.0, 0.0, GRAVITY])
-    a_world = torch.matmul(R, _f32(window.accel)[:, :, None])[:, :, 0] - gravity
-    pos, vel = pose0[:3], _f32(state.velocity)
+    # filled on the device: a host-built constant would be a copy per call
+    gravity = torch.zeros(3, device=dev)
+    gravity[2].fill_(GRAVITY)
+    a_world = torch.matmul(R, _f32(window.accel, dev)[:, :, None])[:, :, 0] - gravity
+    pos, vel = pose0[:3], _f32(state.velocity, dev)
     for k in range(dt.shape[0]):
         pos = pos + vel * dt[k] + 0.5 * a_world[k] * dt[k] * dt[k]
         vel = vel + a_world[k] * dt[k]
@@ -98,12 +108,14 @@ def integrate_imu(window: ImuWindow, pose0, state: ImuState
 
 
 def integrate_wheel_odom(window: OdomWindow, pose0) -> torch.Tensor:
-    """Integrate a wheel-odometry twist into a world-frame delta6."""
-    pose0 = _f32(pose0)
-    dt = _sample_dt(window.stamps, window.mask)
-    rpys, rpy = _attitude_chain(pose0[3:6], _f32(window.angular), dt)
+    """Integrate a wheel-odometry twist into a world-frame delta6, on pose0's
+    device."""
+    dev = _device(pose0)
+    pose0 = _f32(pose0, dev)
+    dt = _sample_dt(window.stamps, window.mask, dev)
+    rpys, rpy = _attitude_chain(pose0[3:6], _f32(window.angular, dev), dt)
     R = se3.euler_to_matrix(rpys)
-    v_world = torch.matmul(R, _f32(window.linear)[:, :, None])[:, :, 0]
+    v_world = torch.matmul(R, _f32(window.linear, dev)[:, :, None])[:, :, 0]
     pos = pose0[:3]
     for k in range(dt.shape[0]):
         pos = pos + v_world[k] * dt[k]
@@ -113,3 +125,44 @@ def integrate_wheel_odom(window: OdomWindow, pose0) -> torch.Tensor:
 def combine_imu_odom(imu_delta: torch.Tensor, odom_delta: torch.Tensor) -> torch.Tensor:
     """Wheel translation + IMU rotation."""
     return torch.cat([odom_delta[:3], imu_delta[3:6]])
+
+
+def ext_guess_ref(pose0: torch.Tensor, imu: ImuWindow | None, wheel: OdomWindow | None,
+                  imu_vel: torch.Tensor, use_imu: bool, use_odom: bool):
+    """The device engine's external guess by the plain chain, on pose0's
+    device (the reference's `device_pipeline._ext_guess`). Returns (delta
+    float32[6], use_ext 0-d bool, imu_vel float32[3]), with nothing read
+    back: `use_ext` is true only where every window in use holds a sample
+    (the first scan's window is fully masked), and `imu_vel` is the IMU
+    chain's velocity (the input where the IMU is off)."""
+    dev = pose0.device
+    d_imu = d_wheel = None
+    have = torch.ones((), dtype=torch.bool, device=dev)
+    if use_imu:
+        d_imu, st = integrate_imu(imu, pose0, ImuState(velocity=imu_vel))
+        imu_vel = st.velocity
+        have = have & torch.any(torch.as_tensor(imu.mask, device=dev))
+    if use_odom:
+        d_wheel = integrate_wheel_odom(wheel, pose0)
+        have = have & torch.any(torch.as_tensor(wheel.mask, device=dev))
+    if d_imu is not None and d_wheel is not None:
+        delta = combine_imu_odom(d_imu, d_wheel)
+    elif d_imu is not None:
+        delta = d_imu
+    elif d_wheel is not None:
+        delta = d_wheel
+    else:
+        return torch.zeros(6, device=dev), torch.zeros((), dtype=torch.bool, device=dev), imu_vel
+    return delta, have, imu_vel
+
+
+def ext_guess(pose0: torch.Tensor, imu: ImuWindow | None, wheel: OdomWindow | None,
+              imu_vel: torch.Tensor, use_imu: bool, use_odom: bool):
+    """`ext_guess_ref`'s function, routed by pose0's device: CUDA tensors
+    launch `csrc/guess_kernel.cu` (or raise), CPU tensors take the plain
+    chain."""
+    if pose0.device.type == "cpu":
+        return ext_guess_ref(pose0, imu, wheel, imu_vel, use_imu, use_odom)
+    from xchu_slam_tpu_torch.ops.cuda import guess_kernel
+
+    return guess_kernel.ext_guess(pose0, imu, wheel, imu_vel, use_imu, use_odom)

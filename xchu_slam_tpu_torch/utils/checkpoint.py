@@ -1,4 +1,4 @@
-"""Mid-run checkpoint / resume of the host engine (port of
+"""Mid-run checkpoint / resume of either engine (port of
 `xchu_slam_tpu.utils.checkpoint`), in the reference's `.npz` layout: each
 package loads the other's files.
 
@@ -14,6 +14,14 @@ IMU guess state, which the reference's host-engine files lack (its loader
 reads the keys it knows by name and ignores others). A file without them
 loads as the reference resumes: zero velocity, and no velocity reset on the
 first scan after the resume.
+
+A device-engine file (`DeviceSlamPipeline`, saved at a chunk boundary) holds
+the engine's `DevState` under `state.*` in the reference's field order, each
+grid's `fin` in its base form, the counters as int32 (`state.loop_count`,
+`state.scan_count`, `state.db.count`, `state.graph.loop_i/j`), and
+`__meta__` with `engine: "device"`, `kf_points`, `log_capacity` and the
+config. The port's own device keyframe counter is not written: it is the
+store's count.
 """
 
 from __future__ import annotations
@@ -24,8 +32,14 @@ import numpy as np
 import torch
 
 # dtypes of the arrays whose type in the port differs from the file's
-_FILE_DTYPES = {"db.count": np.int32, "graph.loop_i": np.int32,
-                "graph.loop_j": np.int32}
+_FILE_DTYPES = {key: np.int32 for key in (
+    "db.count", "graph.loop_i", "graph.loop_j", "state.db.count", "state.graph.loop_i",
+    "state.graph.loop_j", "state.loop_count", "state.scan_count")}
+# the types the port holds where they are not the file's
+_CASTS = {"db.count": int, "graph.loop_i": torch.int64, "graph.loop_j": torch.int64,
+          "state.db.count": int, "state.graph.loop_i": torch.int64,
+          "state.graph.loop_j": torch.int64, "state.loop_count": torch.int64,
+          "state.scan_count": torch.int64}
 
 
 def _flatten(prefix: str, tree) -> dict:
@@ -44,7 +58,11 @@ def _flatten(prefix: str, tree) -> dict:
 
 
 def save_checkpoint(pipe, path: str) -> None:
-    """Checkpoint a `SlamPipeline` to `path` (.npz)."""
+    """Checkpoint a `SlamPipeline` or, at a chunk boundary, a
+    `DeviceSlamPipeline` to `path` (.npz)."""
+    if hasattr(pipe, "state"):
+        _save_device_checkpoint(pipe, path)
+        return
     arrays = {}
     arrays.update(_flatten("db", pipe.db))
     arrays.update(_flatten("graph", pipe.graph))
@@ -70,12 +88,29 @@ def save_checkpoint(pipe, path: str) -> None:
     np.savez_compressed(path, **arrays)
 
 
+def _save_device_checkpoint(pipe, path: str) -> None:
+    if pipe.state is None:
+        raise ValueError("device pipeline has no state yet (no scans fed)")
+    arrays = _flatten("state", pipe.state)
+    del arrays["state.kf_count"]      # the store's count; the reference has none
+    meta = {
+        "engine": "device",
+        "kf_points": pipe.kf_points,
+        "log_capacity": pipe.spec.log_capacity,
+        "config": pipe.cfg.to_json(),
+    }
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+
+
 def _migrate_legacy(data: dict) -> None:
-    """In-place migration of the older checkpoint layout that kept a voxel
-    grid's finalized tables apart (`mean`, `icov`, `valid`) into the one
-    `fin[V,10]` table. Exactly reconstructible, so old sessions stay
-    loadable; unknown missing keys still fail, with an error that names the
-    checkpoint."""
+    """In-place migration of older checkpoint layouts: a voxel grid's
+    finalized tables kept apart (`mean`, `icov`, `valid`) become the one
+    `fin[V,10]` table, and a device-engine file without `state.last_stamp`
+    gets the newest stamp of its log ring (not 0, which would make the first
+    resumed scan's velocity-reset interval the absolute stamp). Both are
+    exactly reconstructible, so old sessions stay loadable; unknown missing
+    keys still fail, with an error that names the checkpoint."""
     for key in [k for k in data if k.endswith(".mean")]:
         p = key[: -len(".mean")]
         if f"{p}.fin" in data or f"{p}.icov" not in data \
@@ -85,54 +120,87 @@ def _migrate_legacy(data: dict) -> None:
             [np.asarray(data[f"{p}.mean"], np.float32),
              np.asarray(data[f"{p}.icov"], np.float32),
              np.asarray(data[f"{p}.valid"], np.float32)[:, None]], axis=-1)
+    if "state.scan_count" in data and "state.last_stamp" not in data:
+        last = np.float32(0.0)
+        if "state.log" in data:
+            log = np.asarray(data["state.log"])
+            n = int(np.asarray(data["state.scan_count"]))
+            if log.ndim == 2 and log.shape[1] >= 11 and n > 0:
+                last = np.float32(log[:min(n, log.shape[0]), 10].max())
+        data["state.last_stamp"] = last
+
+
+def _unflatten(data: dict, path: str, prefix: str, cls, device, extra=None):
+    """The NamedTuple `cls` from the file's `prefix.*` arrays, as tensors on
+    `device` in the port's types; `extra` gives fields the file does not
+    hold."""
+    from xchu_slam_tpu_torch.models import odometry
+    from xchu_slam_tpu_torch.models.device_pipeline import DevState
+    from xchu_slam_tpu_torch.models.pipeline import KfDb
+    from xchu_slam_tpu_torch.models.pose_graph import GraphData
+    from xchu_slam_tpu_torch.types import VoxelGrid
+
+    nested = {"odom": odometry.OdomState, "db": KfDb, "graph": GraphData,
+              "grid_a": VoxelGrid, "grid_b": VoxelGrid}
+    nested_in = (DevState, odometry.OdomState)
+    vals = []
+    for name in cls._fields:
+        key = f"{prefix}.{name}"
+        if extra and name in extra:
+            vals.append(extra[name])
+        elif key in data:
+            cast = _CASTS.get(key)
+            if cast is int:
+                vals.append(int(data[key]))
+            else:
+                vals.append(torch.from_numpy(np.array(data[key])).to(device, cast))
+        elif cls in nested_in and name in nested:
+            vals.append(_unflatten(data, path, key, nested[name], device))
+        else:
+            raise ValueError(f"checkpoint {path!r} is missing {key!r}: saved by an "
+                             "incompatible version of this package")
+    return cls(*vals)
+
+
+def _load_device(data: dict, meta: dict, cfg, path: str, device):
+    from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline, DevState
+
+    for key in ("state.db.count", "state.scan_count"):
+        if key not in data:
+            raise ValueError(f"checkpoint {path!r} is missing {key!r}: saved by an "
+                             "incompatible version of this package")
+    pipe = DeviceSlamPipeline(cfg, kf_points=meta["kf_points"],
+                              log_capacity=meta["log_capacity"], device=device)
+    count = int(data["state.db.count"])
+    kf_count = torch.full((), count, dtype=torch.int64, device=pipe.device)
+    state = _unflatten(data, path, "state", DevState, pipe.device,
+                       extra={"kf_count": kf_count})
+    pipe.restore(state, int(data["state.scan_count"]))
+    return pipe
 
 
 def load_checkpoint(path: str, device: torch.device | str = "cuda"):
-    """Restore a `SlamPipeline` on `device` from a checkpoint file that this
-    package or the reference's host engine wrote."""
+    """Restore a pipeline on `device` from a checkpoint file that this
+    package or the reference wrote: a `SlamPipeline` from a host-engine file,
+    a `DeviceSlamPipeline` from a device-engine one (ready for its next
+    chunk)."""
     from xchu_slam_tpu_torch.config import SlamConfig
     from xchu_slam_tpu_torch.models import odometry
     from xchu_slam_tpu_torch.models.pipeline import KfDb, LoopRecord, SlamPipeline
     from xchu_slam_tpu_torch.models.pose_graph import GraphData
     from xchu_slam_tpu_torch.ops import imu as imu_ops
-    from xchu_slam_tpu_torch.types import VoxelGrid
 
     with np.load(path) as npz:
         data = dict(npz.items())
     _migrate_legacy(data)
     meta = json.loads(bytes(data["__meta__"]).decode())
-    if meta.get("engine") == "device":
-        raise ValueError(
-            f"checkpoint {path!r} was saved by the device engine "
-            "(DeviceSlamPipeline), which is not ported: only host-engine "
-            "checkpoints load")
     cfg = SlamConfig.from_json(meta["config"])
+    if meta.get("engine") == "device":
+        return _load_device(data, meta, cfg, path, device)
     pipe = SlamPipeline(cfg, kf_points=meta["kf_points"], device=device)
 
-    nested = {("OdomState", "grid_a"): VoxelGrid,
-              ("OdomState", "grid_b"): VoxelGrid}
-    # the types the port holds where they are not the file's
-    casts = {"db.count": int, "graph.loop_i": torch.int64,
-             "graph.loop_j": torch.int64}
-
     def unflatten(prefix, cls):
-        vals = []
-        for name in cls._fields:
-            key = f"{prefix}.{name}"
-            if key in data:
-                cast = casts.get(key)
-                if cast is int:
-                    vals.append(int(data[key]))
-                else:
-                    vals.append(torch.from_numpy(np.array(data[key]))
-                                .to(pipe.device, cast))
-            elif (cls.__name__, name) in nested:
-                vals.append(unflatten(key, nested[(cls.__name__, name)]))
-            else:
-                raise ValueError(
-                    f"checkpoint {path!r} is missing {key!r}: saved by an "
-                    "incompatible version of this package")
-        return cls(*vals)
+        return _unflatten(data, path, prefix, cls, pipe.device)
 
     pipe.db = unflatten("db", KfDb)
     pipe.graph = unflatten("graph", GraphData)
