@@ -12,7 +12,7 @@ Phases, each printing one line (any failure raises and exits non-zero):
               PGO and ICP kernels' first versions (pgo_kernel_first.cu,
               icp_kernel_first.cu), one nvcc each, started together; prints
               ptxas's registers, shared memory and spills (none allowed but in
-              the NDT kernel)
+              the NDT kernel's instantiations of SPILL_EXEMPT)
   3. kernel   the NN kernel against its first version (idx and d² bit-equal)
               and its plain PyTorch version (d² to rtol = atol = 1e-4, valid
               indices, ties at the lowest index) on the card, over shapes and
@@ -104,14 +104,32 @@ After phase 8:
               the continued keyframes < 1.0 m); `batch_step` at B = 1, 4, 8
               over 32 scans a member (each member bit-equal to its single
               run, ms a step)
-Phases 5-9 also assert that every path with a verification launched
+After phase 9:
+ 10. modes   the modes other than the default, each an instantiation of its
+              kernel: (a) each NDT mode (backtrack + direct1 / direct26 /
+              kdtree, mt_exact and ref_clamped + direct7) against `align_ref`
+              in that mode on the circuit's first 64 aligns at full width
+              (the same iteration and trial counts on ≥ 60, |Δpose| ≤ 2e-5
+              on those, or no more than the plain version's own spread
+              from the CPU to the card on that align, reruns
+              bit-identical), ms an align from CUDA-graph
+              replays, the bound by bytes (rows gathered × M), the latency
+              floor, ptxas's figures; (b) the jacobi PGO kernel against
+              `solve_ref` with jacobi at 163 and 2048 live (|Δpose| ≤ 1e-4),
+              CG trips, ms a launch; (c) `run-sim --engine device --chunk 16`
+              on the circuit with each `--set` of MODE_SETTINGS, twice:
+              keyframes, loops, aligned ATE, Newton iterations and trials a
+              scan, scans/s, NDT and PGO launches (≥ 1 loop, ATE < 1.0 m, the
+              rerun bit-identical)
+Phases 5-10 also assert that every path with a verification launched
 icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
 readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
 Then one JSON line of kernel records (all five kernels, with the launches of
-each path) and, last, the result line. `--kernel-only` stops after phase 3,
-`--kernels-only` after phase 4d, `--device-only` runs phases 1, 2, 5, 8 and
-9; none of the three prints a result line.
+each path; the NDT and PGO entries with their modes' records) and, last, the
+result line. `--kernel-only` stops after phase 3, `--kernels-only` after
+phase 4d, `--modes-only` runs phases 1-4d and 10, `--device-only` runs
+phases 1, 2, 5, 8 and 9; none of the four prints a result line.
 """
 
 from __future__ import annotations
@@ -136,18 +154,29 @@ TOL = 1e-4
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
-# mangled-name fragments of csrc/nn_kernel.cu's kernels, and what they are
+# the NDT kernel's instantiations (voxels a point, line search) and their names
+NDT_LS = ("backtrack", "mt_exact", "ref_clamped")
+NDT_INSTANCES = {(m, ls): "ndt align" if (m, ls) == (7, 0) else f"ndt align {m} {NDT_LS[ls]}"
+                 for m in (1, 7, 27) for ls in range(3)}
+# mangled-name fragments of the kernels, and what they are
 PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("nn_merge_kernel", "merge"),
                ("nn_kernel", "scan"),
-               ("ndt_align_kernel", "ndt align"),
-               ("pgo_cg_kernel", "pgo"),
+               *((f"ndt_align_kernelILi{m}ELi{ls}E", name)
+                 for (m, ls), name in NDT_INSTANCES.items()),
+               ("pgo_cg_kernelILb0E", "pgo"),
+               ("pgo_cg_kernelILb1E", "pgo jacobi"),
                ("pgo_cg_first_kernel", "pgo first version"),
                ("icp_step_kernel", "icp step"),
                ("icp_step_first_kernel", "icp step first version"),
                ("icp_init_kernel", "icp init"),
                ("icp_fitness_kernel", "icp fitness"),
                ("guess_kernel", "guess"))   # the probe kernels are not listed
+# the instantiations that spill registers (ptxas for sm_90a with CUDA 12.8):
+# the backtracking ones and DIRECT7 with More-Thuente, 8-20 bytes; no other
+# kernel may spill
+SPILL_EXEMPT = ("ndt align", "ndt align 1 backtrack", "ndt align 27 backtrack",
+                "ndt align 7 mt_exact")
 
 
 def phase_device() -> str:
@@ -197,8 +226,9 @@ def phase_build() -> dict:
     print("ptxas: " + json.dumps(figures))
     if set(figures) != {n for _tag, n in PTXAS_NAMES}:
         raise AssertionError("ptxas reported no figures for a kernel")
-    if any(f["spill_bytes"] for n, f in figures.items() if n != "ndt align"):
-        raise AssertionError("an NN, PGO, ICP or guess kernel spills registers")
+    spills = [n for n, f in figures.items() if f["spill_bytes"] and n not in SPILL_EXEMPT]
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
     return figures
 
 
@@ -363,28 +393,32 @@ def phase_kernel() -> dict:
             "simple_ms": simple_ms, "loop_ms": loop_ms, "host_us": host_us}
 
 
-# FP32 operations of the NDT kernel's passes, per source point with 7 valid
+# FP32 operations of the NDT kernel's passes, per source point with m valid
 # neighbours (a multiply-add counts 2): the Hessian pass forms Bδ, δᵀBδ, the
 # exponential, a6 and the 21 + 9 running sums per pair (~75 multiply-adds each)
 # and J-terms once per point (~150); the gradient pass ~30 per pair and ~40
 # per point; the fitness pass ~6 per pair.
-NDT_FLOP_HESS = 2 * (7 * 75 + 150)
-NDT_FLOP_GRAD = 2 * (7 * 30 + 40)
-NDT_FLOP_FIT = 2 * (7 * 6 + 10)
+def ndt_flop(m: int) -> tuple[int, int, int]:
+    """(Hessian pass, gradient pass, fitness pass) FP32 operations a point."""
+    return 2 * (m * 75 + 150), 2 * (m * 30 + 40), 2 * (m * 6 + 10)
+
+
 NDT_ALIGNS = 64
 NDT_POSE_TOL = 1e-4      # m and rad, per align from the host engine's own state
 NDT_PASS_TOL = 1e-5      # of the largest |entry| of (L, g, H): the sums' order differs
 
 
-def ndt_bound_ms(n: int, iterations: float, trials: float) -> tuple[float, str, float, float]:
+def ndt_bound_ms(n: int, iterations: float, trials: float,
+                 m: int = 7) -> tuple[float, str, float, float]:
     """The least time the card could take for one align with this run's trip
-    counts: bytes (source points, mask and the 7 gathered rows of each point
+    counts: bytes (source points, mask and the m gathered rows of each point
     read once, the record written once) at 3.35 TB/s against the passes' FP32
     operations at 67 TFLOP/s. Returns (bound, what bounds it, bytes ms,
     operations ms). Neither reaches a microsecond: what the kernel really
     waits for is latency, which `ndt_latency_floor` measures."""
-    bytes_ms = 1e3 * (n * 12 + n + n * 7 * 40 + 64 * 4) / HBM_BYTES_PER_S
-    flop = n * (iterations * NDT_FLOP_HESS + trials * NDT_FLOP_GRAD + NDT_FLOP_FIT)
+    hess, grad, fit = ndt_flop(m)
+    bytes_ms = 1e3 * (n * 12 + n + n * m * 40 + 64 * 4) / HBM_BYTES_PER_S
+    flop = n * (iterations * hess + trials * grad + fit)
     ops_ms = 1e3 * flop / FP32_FLOPS
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms > ops_ms else "operations",
             bytes_ms, ops_ms)
@@ -1655,6 +1689,283 @@ def _phase_batch(chunks) -> dict:
     return {"rows": rows, "counts": counts}
 
 
+# the NDT modes other than the default (backtrack + direct7), as (ls_mode,
+# neighbor_mode), and the `run-sim --set` of each circuit of the modes phase
+NDT_MODES = (("backtrack", "direct1"), ("backtrack", "direct26"), ("backtrack", "kdtree"),
+             ("mt_exact", "direct7"), ("ref_clamped", "direct7"))
+MODE_SETTINGS = ("ndt.ls_mode=mt_exact", "ndt.ls_mode=ref_clamped", "ndt.neighbor_mode=direct1",
+                 "ndt.neighbor_mode=direct26", "ndt.neighbor_mode=kdtree", "pgo.precond=jacobi")
+MODE_SAME_COUNTS = 60     # of the 64 aligns: the plain version's iteration and trial counts
+# m and rad, on the aligns whose counts are equal. Where the plain version
+# is not reproducible to it on another device (ref_clamped's fixed trans_eps/2
+# step along a direction taken from a gradient near 0 is rounding-chaotic:
+# the plain version on the CPU and on the card differ by up to 4.4e-4 on the
+# circuit), the kernel must be no farther from the plain version on the card
+# than the plain version on the CPU is
+MODE_POSE_TOL = 2e-5
+# block barriers of the jacobi PGO kernel: 11 a CG iteration (2 in the
+# Hessian-vector product, 3 in each dot product, 1 in the preconditioner, 2
+# updates) and 14 outside the loop; FP32 operations a live keyframe: the
+# block's Cholesky (~70 multiply-adds) once, ~188 a CG iteration (PGO_FLOP_ITER
+# less the two substitution links)
+PGO_JAC_BARRIERS_ITER, PGO_JAC_BARRIERS_FIXED = 11, 14
+PGO_JAC_FLOP_FACTOR = 2 * 70
+PGO_JAC_FLOP_ITER = 2 * 188
+
+
+def phase_ndt_modes(smi: str, ptxas: dict, floor: dict) -> dict:
+    """(a) Each non-default NDT mode's kernel instantiation against
+    `align_ref` in that mode on 64 of the circuit's aligns at full width, the
+    state carried by the host engine's step in that mode: the same iteration
+    and trial counts on ≥ 60, |Δpose| ≤ 2e-5 where they are equal (or, on
+    an align where the plain version on the CPU is farther than that from
+    itself on the card, no farther than it), reruns bit-identical; ms an align from CUDA-graph replays, the bound by bytes
+    (rows gathered × M), the latency floor (launch + passes × (barrier at the
+    mode's geometry + L2 round trip) + iterations × control, the round trip
+    and the control step from phase 4), ptxas's figures."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import odometry
+    from xchu_slam_tpu_torch.ops import ndt
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import make_cloud
+    from xchu_slam_tpu_torch.utils import sim
+
+    dev = torch.device("cuda")
+    cfg = cli.sim_config()
+    _stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    rng = np.random.default_rng(SEED)
+    slot = ndt_kernel.RECORD
+    scans = []
+    for i in range(NDT_ALIGNS + 1):
+        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
+        scans.append(filter_scan(make_cloud(xyz, inten, capacity=cfg.filter.max_raw_points,
+                                            device=dev), cfg.filter))
+    out = {}
+    for ls, nb in NDT_MODES:
+        name = f"{ls}+{nb}"
+        ospec = odometry.spec_from_config(cfg.override({"ndt.ls_mode": ls,
+                                                        "ndt.neighbor_mode": nb}))
+        g, nspec = ospec.gspec, ospec.nspec
+        d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+        state = odometry.init_state(ospec, torch.zeros(6, device=dev), scans[0].xyz,
+                                    scans[0].mask)
+        same, max_dpose, rows, spread = 0, 0.0, [], []
+        for i in range(1, NDT_ALIGNS + 1):
+            filt = scans[i]
+            guess = odometry._guess(state)
+            grid = state.grid_a
+            args = (grid.fin, grid.origin, filt.xyz, filt.mask, guess, g, nspec, d1, d2)
+            rec = ndt_kernel.align_record(*args)
+            again = ndt_kernel.align_record(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(rec, again):
+                raise AssertionError(f"ndt {name} align {i}: a rerun is not bit-identical")
+            stats = {}
+            want = ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec, stats=stats)
+            rec_h = rec.cpu().numpy()
+            if not np.isfinite(rec_h[:12]).all():
+                raise AssertionError(f"ndt {name} align {i}: record {rec_h[:12]}")
+            it, tr = int(rec_h[slot["iterations"]]), int(rec_h[slot["trials"]])
+            rows.append((it, tr, int(rec_h[slot["passes"]])))
+            if it == int(want.iterations) and tr == stats["trials"]:
+                same += 1
+                want_h = want.pose.cpu().numpy()
+                dpose = float(np.abs(rec_h[slot["pose"]] - want_h).max())
+                if dpose > MODE_POSE_TOL:
+                    # the plain version's own spread on this align: on the CPU
+                    cpu = ndt.align_ref(type(grid)(*(t.cpu() for t in grid)), filt.xyz.cpu(),
+                                        filt.mask.cpu(), guess.cpu(), g, nspec)
+                    own = float(np.abs(cpu.pose.numpy() - want_h).max())
+                    spread.append((i, it, dpose, own))
+                    if not dpose <= own:
+                        raise AssertionError(
+                            f"ndt {name} align {i}: |Δpose| {dpose:.3g} against the plain "
+                            f"version on the card, > {MODE_POSE_TOL} and > the plain "
+                            f"version's own spread to the CPU, {own:.3g}")
+                else:
+                    max_dpose = max(max_dpose, dpose)
+            state, _out = odometry.step(state, filt.xyz, filt.mask, ospec)
+        if same < MODE_SAME_COUNTS:
+            raise AssertionError(f"ndt {name}: the plain version's counts on {same} of "
+                                 f"{NDT_ALIGNS} (< {MODE_SAME_COUNTS})")
+        ms = _graph_ms(lambda: ndt_kernel.align_record(*args), calls=20)
+        pass_ms = _graph_ms(lambda: ndt_kernel.hessian_pass(*args), calls=20)
+        plain_ms = _host_ms(lambda: ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec),
+                            reps=3)
+        n = int(filt.xyz.shape[0])
+        m = ndt_kernel.NEIGHBOURS[nb]
+        last = rows[-1]
+        bound_ms, bound_by, bytes_ms, ops_ms = ndt_bound_ms(n, last[0], last[1], m)
+        blocks, trips = ndt_kernel.plan(n, ndt_kernel.max_blocks(0, nb, ls),
+                                        ndt_kernel.LANES[nb])
+        launch_ms, barrier_ms = _grid_barrier(blocks, ndt_kernel.THREADS)
+        floor_ms = (launch_ms + last[2] * (barrier_ms + floor["l2_hop_ms"])
+                    + last[0] * floor["control_ms"])
+        figures = ptxas[NDT_INSTANCES[(m, ndt_kernel.LINE_SEARCHES[ls])]]
+        rec_m = {"aligns": NDT_ALIGNS, "same_counts": same,
+                 "max_abs_err": max([max_dpose] + [d for _i, _it, d, _o in spread]),
+                 "max_abs_err_within_tol": max_dpose,
+                 "beyond_tol_within_plain_spread": [
+                     {"align": i, "iterations": it, "abs_err": d, "plain_cpu_vs_card": o}
+                     for i, it, d, o in spread],
+                 "mean_iterations": float(np.mean([r[0] for r in rows])),
+                 "mean_trials": float(np.mean([r[1] for r in rows])),
+                 "ms": ms, "pass_ms": pass_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by,
+                 "latency_floor_ms": floor_ms, "passes": last[2],
+                 "geometry": f"{blocks}x{ndt_kernel.THREADS}x{trips}", "ptxas": figures}
+        out[name] = rec_m
+        beyond = "; ".join(f"align {i} ({it} iterations) {d:.3g} against the plain "
+                           f"version's own {o:.3g} CPU to card" for i, it, d, o in spread)
+        print(f"ndt_modes [{smi}]: {name}: {same} of {NDT_ALIGNS} aligns with the plain "
+              f"version's iteration and trial counts, max |Δpose| {max_dpose:.3g} on "
+              f"{same - len(spread)} of them{'; beyond ' + str(MODE_POSE_TOL) + ': ' + beyond if spread else ''}, "
+              f"reruns bit-identical; mean {rec_m['mean_iterations']:.3f} iterations, "
+              f"{rec_m['mean_trials']:.3f} trials; {ms:.5f} ms an align ({last[0]} "
+              f"iterations, {last[1]} trials, {last[2]} passes; {blocks} blocks x "
+              f"{ndt_kernel.THREADS} threads, {trips} trips), {pass_ms:.5f} ms a launch of "
+              f"one Hessian pass (it gathers; the trials read shared memory); bound "
+              f"{bound_ms:.5f} ms by "
+              f"{bound_by} (bytes {bytes_ms:.5f}, operations {ops_ms:.5f}); latency floor "
+              f"{floor_ms:.5f} ms (launch {launch_ms:.5f} + {last[2]} x (barrier "
+              f"{barrier_ms:.5f} + L2 {floor['l2_hop_ms']:.6f}) + {last[0]} x control "
+              f"{floor['control_ms']:.5f}: {100 * floor_ms / ms:.1f} % of it reached); "
+              f"plain version {plain_ms:.3f} ms (host clock, median of 3); "
+              f"ptxas {json.dumps(figures)}")
+    return out
+
+
+def _grid_barrier(blocks: int, threads: int) -> tuple[float, float]:
+    """(empty cooperative launch ms, ms a grid.sync()) of blocks × threads,
+    from the NDT source's grid probe in CUDA-graph replays."""
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+
+    t0, t1, t5 = (_graph_ms(lambda r=r: ndt_kernel.probe("grid", r, blocks=blocks,
+                                                         threads=threads), calls=PROBE_CALLS)
+                  for r in (0, 1, 5))
+    return t0, (t5 - t1) / 4
+
+
+def phase_pgo_jacobi(smi: str, pgo_floor: dict) -> dict:
+    """(b) The jacobi PGO kernel against `solve_ref` with jacobi at the
+    circuit's in-loop spec on 2048 slots, 163 and 2048 live keyframes:
+    |Δpose| ≤ 1e-4, reruns bit-identical, CG trips, ms a launch from CUDA-graph
+    replays, bound and floor (launch + barriers, from phase 4b's probes)."""
+    import pgo_cases
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import pose_graph as pg
+    from xchu_slam_tpu_torch.ops.cuda import pgo_kernel
+    from xchu_slam_tpu_torch.utils import se3
+
+    dev = torch.device("cuda")
+    spec = pg.inloop_spec(pg.spec_from_config(
+        cli.sim_config(("pgo.precond=jacobi",)).pgo))
+    rows = {}
+    for name, n_live, n_loops in PGO_CASES:
+        poses, graph = pgo_cases.chain_graph(K=2048, L=256, n_live=n_live, n_loops=n_loops,
+                                             gps=True)
+        p_d, g_d = torch.from_numpy(poses).to(dev), pgo_cases.to_device(graph, dev)
+        got = pg.solve(p_d, g_d, spec)
+        again = pg.solve(p_d, g_d, spec)
+        want = pg.solve_ref(p_d, g_d, spec)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        moved = float((want - p_d).abs().max())
+        if not torch.equal(got, again) or not err <= PGO_TOL or not moved > 1e-3:
+            raise AssertionError(f"pgo jacobi {name}: |Δpose| {err:.3g} (> {PGO_TOL}), "
+                                 f"moved {moved:.3g}, rerun equal {torch.equal(got, again)}")
+        s = pg._gn_system(se3.pose_to_matrix(p_d), g_d, spec)
+        args = (s.blocks.contiguous(), s.U.contiguous(), s.g.contiguous(), s.Ji.contiguous(),
+                s.Jj.contiguous(), s.odom_info, s.wp, s.Jli.contiguous(), s.Jlj.contiguous(),
+                g_d.loop_i, g_d.loop_j, s.wl.contiguous(), s.A.contiguous(),
+                s.gz.contiguous(), g_d.kf_mask, torch.ones((), dtype=torch.bool, device=dev),
+                spec.cg_tol, spec.cg_iterations)
+        _x, iters = pgo_kernel.cg(*args, precond="jacobi")
+        it = int(iters)
+        k1, k2 = (_graph_ms(lambda: pgo_kernel.cg(*args, precond="jacobi"), calls=10,
+                            replays=5) for _ in range(2))
+        ms = 0.5 * (k1 + k2)
+        plain_ms = _host_ms(lambda: pg._pcg_ref(s, g_d, spec), reps=3)
+        bytes_ms = 1e3 * (n_live * (PGO_BYTES_KF - 144) + n_loops * PGO_BYTES_LOOP
+                          + 2048 * 24) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * n_live * (PGO_JAC_FLOP_FACTOR + it * PGO_JAC_FLOP_ITER) / FP32_FLOPS
+        floor_ms = pgo_floor["launch_ms"] + (PGO_JAC_BARRIERS_ITER * it
+                                             + PGO_JAC_BARRIERS_FIXED) * pgo_floor["barrier_ms"]
+        rows[name] = {"live": n_live, "loops": n_loops, "cg_iterations": it,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                      "latency_floor_ms": floor_ms}
+        print(f"pgo_jacobi [{smi}]: {name} ({n_live} live, {n_loops} loops, {it} CG "
+              f"iterations of at most {spec.cg_iterations}): {ms:.5f} ms per launch "
+              f"({k1:.5f}/{k2:.5f}); bound {max(bytes_ms, ops_ms):.6f} ms; floor "
+              f"{floor_ms:.5f} ms (launch + {PGO_JAC_BARRIERS_ITER * it + PGO_JAC_BARRIERS_FIXED}"
+              f" barriers: {100 * floor_ms / ms:.1f} % of it reached); plain factor + CG "
+              f"{plain_ms:.3f} ms (host clock); |Δpose| {err:.3g}, reruns bit-identical")
+    circ = rows["circuit"]
+    return {**{k: circ[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "latency_floor_ms", "cg_iterations")}, "cases": rows}
+
+
+def phase_mode_circuits() -> dict:
+    """(c) The circuit through `run-sim --engine device --chunk 16` once in each
+    mode (MODE_SETTINGS), then again: keyframes, loops, aligned ATE, Newton
+    iterations and line-search trials a scan (the kernel records' trial slots
+    summed on the card, inside Part A's graph), scans/s, the NDT and PGO
+    launches; ≥ 1 loop, ATE < 1.0 m, NDT launches ≥ one a scan, PGO launches
+    for every accepted loop, the rerun bit-identical."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+
+    align_record = ndt_kernel.align_record
+    trials = torch.zeros((), device="cuda")
+
+    def counting(*args, **kw):
+        rec = align_record(*args, **kw)
+        trials.add_(rec[ndt_kernel.RECORD["trials"]])   # captured with the align
+        return rec
+
+    out = {}
+    ndt_kernel.align_record = counting
+    try:
+        for setting in MODE_SETTINGS:
+            trials.zero_()
+            (pipe, summary), counts = _count_launches(lambda: cli.run_sim(
+                SCANS, RADIUS, SEED, "cuda", overrides=(setting,), engine="device",
+                chunk=DEV_CHUNK))
+            trials_per_scan = float(trials) / (SCANS - 1)
+            traj = pipe.odometry_trajectory()
+            kf = pipe.keyframe_trajectory()[2]
+            iters = float(np.mean([r["iterations"] for r in pipe.odom_log[1:]]))
+            _check_loop_kernels(f"device {setting}", counts, pipe.icp_verifications,
+                                summary["loops"], _inloop_gn(pipe))
+            del pipe
+            torch.cuda.empty_cache()
+            again, _summary = cli.run_sim(SCANS, RADIUS, SEED, "cuda", overrides=(setting,),
+                                          engine="device", chunk=DEV_CHUNK)
+            same = (np.array_equal(again.odometry_trajectory(), traj)
+                    and np.array_equal(again.keyframe_trajectory()[2], kf))
+            del again
+            torch.cuda.empty_cache()
+            row = {"setting": setting, "keyframes": summary["keyframes"],
+                   "loops": summary["loops"], "ate_rmse_m": summary["ate_rmse_m"],
+                   "mean_newton_iterations": round(iters, 3),
+                   "trials_per_scan": round(trials_per_scan, 3),
+                   "scans_per_sec": summary["scans_per_sec"], "ndt_launches": counts["ndt"],
+                   "pgo_launches": counts["pgo"], "rerun_bit_identical": same,
+                   "launches": counts}
+            out[setting] = row
+            print("mode_circuit: " + json.dumps({k: v for k, v in row.items()
+                                                  if k != "launches"}))
+            if summary["loops"] < 1 or not summary["ate_rmse_m"] < 1.0 or not same \
+                    or counts["ndt"] < SCANS - 1:
+                raise AssertionError(f"the circuit with {setting}: {row}")
+    finally:
+        ndt_kernel.align_record = align_record
+    return out
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -1685,6 +1996,11 @@ def main() -> int:
     guess_rec = None if only_device else phase_guess_kernel(smi)
     if "--kernels-only" in sys.argv[1:]:
         return 0
+    if "--modes-only" in sys.argv[1:]:
+        phase_ndt_modes(smi, ptxas, ndt_rec["floor"])
+        phase_pgo_jacobi(smi, pgo_rec["floor"])
+        phase_mode_circuits()
+        return 0
     launches, host_summary = phase_main()
     if "--device-only" in sys.argv[1:]:
         phase_device_session(smi, phase_device_engine(host_summary))
@@ -1696,6 +2012,17 @@ def main() -> int:
     sess = phase_device_session(smi, dev)
     by_path.update(sess["paths"])
     del dev
+    # the modes: their kernels against their plain versions, then the circuit
+    ndt_modes = phase_ndt_modes(smi, ptxas, ndt_rec["floor"])
+    pgo_jacobi = phase_pgo_jacobi(smi, pgo_rec["floor"])
+    circuits = phase_mode_circuits()
+    for setting, row in circuits.items():
+        by_path[f"device {setting}"] = row.pop("launches")
+    for name, rec_m in ndt_modes.items():
+        ls, nb = name.split("+")
+        setting = f"ndt.ls_mode={ls}" if ls != "backtrack" else f"ndt.neighbor_mode={nb}"
+        rec_m["circuit"] = circuits[setting]
+    pgo_jacobi["circuit"] = circuits["pgo.precond=jacobi"]
 
     def per_path(key):
         return {k: v[key] for k, v in by_path.items()}
@@ -1711,14 +2038,16 @@ def main() -> int:
                 "replaces": "none: xchu_slam_tpu/ops/ndt.py:477 and :539 (two "
                             "lax.while_loop that the reference leaves to XLA)",
                 "launches": launches["ndt"], "launches_by_path": per_path("ndt"),
-                **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}},
+                **ndt_rec, "ptxas": {"ndt align": ptxas["ndt align"]}, "modes": ndt_modes},
                {"name": "pgo_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/pgo_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/models/pose_graph.py:221, :251, :257 and "
                             ":459 (lax.scan, two associative_scan, lax.while_loop that the "
                             "reference leaves to XLA)",
                 "launches": launches["pgo"], "launches_by_path": per_path("pgo"),
-                **pgo_rec, "ptxas": {k: ptxas[k] for k in ("pgo", "pgo first version")}},
+                **pgo_rec, "ptxas": {k: ptxas[k] for k in ("pgo", "pgo first version",
+                                                          "pgo jacobi")},
+                "jacobi": pgo_jacobi},
                {"name": "icp_step", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/icp_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/ops/icp.py:114-173 (the body of a "

@@ -10,7 +10,10 @@ route (NN kernel with its `live` flag + `icp_step`) against their plain
 versions, and Part B decided on the card against the CPU; the guess
 kernel against its plain version, Part A with sensor windows under
 `set_sync_debug_mode("error")`, a device-engine checkpoint resumed on the
-card and batched odometry against single steps. Marked `cuda`;
+card and batched odometry against single steps; the NDT kernel in each
+mode (ls_mode × neighbor_mode) against `align_ref` in that mode, the
+block-Jacobi PGO kernel against `solve_ref`, and the device engine in a
+non-default mode under `set_sync_debug_mode("error")`. Marked `cuda`;
 without a card the tests skip (the check runs inside the fixture, never at
 import). On the card:
 
@@ -220,6 +223,31 @@ def test_pgo_kernel_solve_matches_plain_version(cuda, n_live, L, n_loops):
     assert float((want - p_d).abs().max()) > 1e-3
 
 
+@pytest.mark.parametrize("n_live,L,n_loops", [(163, 256, 9), (2048, 256, 40), (40, 8, 0)])
+def test_pgo_kernel_jacobi_solve_matches_plain_version(cuda, n_live, L, n_loops):
+    """`solve` with the block-Jacobi preconditioner on the card (its kernel
+    instantiation, no synchronisation) against `solve_ref` with it on the
+    same card tensors: poses to 1e-4, a rerun bit-identical."""
+    poses, graph = pgo_cases.chain_graph(K=2048, L=L, n_live=n_live, n_loops=n_loops,
+                                         gps=True)
+    spec = tpg.GraphSpec(gn_iterations=2, odom_info_t=1e3, odom_info_r=1e3,
+                         precond="jacobi")
+    p_d, g_d = torch.from_numpy(poses).to(cuda), pgo_cases.to_device(graph, cuda)
+    want = tpg.solve_ref(p_d, g_d, spec)
+    before = pgo_kernel.launches
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpg.solve(p_d, g_d, spec)
+        again = tpg.solve(p_d, g_d, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert pgo_kernel.launches - before == 2 * spec.gn_iterations
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert torch.equal(got, again)
+    assert float((want - p_d).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("n_live,L,n_loops", [(40, 8, 0), (163, 256, 9)])
 def test_pgo_kernel_sweeps_against_its_first_version(cuda, n_live, L, n_loops):
     """The kernel with its substitutions forced sequential is bit for bit its
@@ -397,6 +425,45 @@ def test_ndt_kernel_align_matches_plain_route(cuda, n, masked):
     assert float(res.pose[:3].norm()) < float(guess[:3].norm())
 
 
+# the five modes other than the default, and two together
+NDT_MODES = [("backtrack", "direct1"), ("backtrack", "direct26"), ("backtrack", "kdtree"),
+             ("mt_exact", "direct7"), ("ref_clamped", "direct7"), ("mt_exact", "kdtree")]
+
+
+@pytest.mark.parametrize("n", [8192, 1000, 20_000])
+@pytest.mark.parametrize("ls_mode,neighbor_mode", NDT_MODES)
+def test_ndt_kernel_modes_match_plain_route(cuda, ls_mode, neighbor_mode, n):
+    """Each mode's kernel instantiation against `align_ref` in the same mode
+    from the same state and guess: pose within 1e-4, the same iteration and
+    trial counts, a bit-identical rerun, no value read back. At 20,000
+    points the 27-cube's lanes outrun the trips whose rows the kernel keeps,
+    so its passes gather again."""
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(n + 7), n, cuda, "some")
+    nspec = ndt.NdtSpec(ls_mode=ls_mode, neighbor_mode=neighbor_mode)
+    before = ndt_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = ndt.align(grid, src, mask, guess, spec, nspec)
+        again = ndt.align(grid, src, mask, guess, spec, nspec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ndt_kernel.launches == before + 2
+    rec = ndt_kernel.align_record(grid.fin, grid.origin, src, mask, guess, spec, nspec,
+                                  *ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution))
+    stats = {}
+    want = ndt.align_ref(grid, src, mask, guess, spec, nspec, stats=stats)
+    assert torch.equal(res.pose, again.pose) and torch.equal(res.score, again.score)
+    torch.testing.assert_close(res.pose, want.pose, rtol=0, atol=1e-4)
+    assert int(res.iterations) == int(want.iterations) >= 1
+    assert int(rec[ndt_kernel.RECORD["trials"]]) == stats["trials"]
+    assert int(rec[ndt_kernel.RECORD["passes"]]) == stats["passes"]
+    assert bool(res.converged) == bool(want.converged)
+    assert float(res.score) == pytest.approx(float(want.score), rel=1e-4)
+    torch.testing.assert_close(res.matched_frac, want.matched_frac.float(), rtol=0, atol=1e-6)
+    torch.testing.assert_close(res.fitness, want.fitness, rtol=1e-3, atol=1e-6)
+    assert float(res.pose[:3].norm()) < float(guess[:3].norm())
+
+
 def test_ndt_kernel_all_masked_scan_is_a_no_op(cuda):
     spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(3), 2048, cuda, "all")
     res = ndt.align(grid, src, mask, guess, spec, ndt.NdtSpec())
@@ -418,9 +485,13 @@ def test_ndt_kernel_takes_only_what_it_checks(cuda):
     with pytest.raises(TypeError):
         ndt_kernel.align_record(grid.fin, grid.origin, src.double(), mask, guess, spec,
                                 nspec, -1.0, 1.0)
-    with pytest.raises(ValueError, match="ported"):
-        ndt_kernel.align_record(grid.fin, grid.origin, src, mask, guess, spec,
-                                nspec._replace(ls_mode="mt_exact"), -1.0, 1.0)
+    # the modes that stay refused, by name
+    for bad, what in ((dict(regather_dist=0.3), "regather_dist"),
+                      (dict(neighbor_mode="direct7_rows"), "direct7_rows"),
+                      (dict(ls_mode="golden"), "golden")):
+        with pytest.raises(ValueError, match=what):
+            ndt_kernel.align_record(grid.fin, grid.origin, src, mask, guess, spec,
+                                    nspec._replace(**bad), -1.0, 1.0)
 
 
 def _edge_case(name, cuda):
@@ -582,6 +653,32 @@ def test_part_a_graph_replay_equals_eager_and_does_not_synchronise(cuda):
                      [r["keyframe"] for r in pipe.odom_log]))
     assert np.array_equal(runs[0][0], runs[1][0])
     assert runs[0][1:] == runs[1][1:] and runs[0][1] > 3
+
+
+def test_part_a_in_other_modes_replays_without_synchronising(cuda):
+    """The device engine in mt_exact + kdtree with the jacobi solve: chunks
+    under `set_sync_debug_mode("error")` (`check_sync`), Part A's graph
+    capturing that instantiation (replays equal to eager, bit for bit), the
+    NDT launch counter counting each scan."""
+    cfg = tconfig.default_config().override({**_SMALL, "ndt.ls_mode": "mt_exact",
+                                             "ndt.neighbor_mode": "kdtree",
+                                             "pgo.precond": "jacobi"})
+    scans = _small_scans(24)
+    stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=cuda)
+    chunks = [stager.stage(scans[lo:lo + 8]) for lo in (0, 8, 16)]
+    runs = []
+    for use_graph in (True, False):
+        pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=cuda,
+                                      use_graph=use_graph, check_sync=True)
+        before = ndt_kernel.launches
+        for c, (clouds, n_real) in enumerate(chunks):
+            pipe.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+        assert ndt_kernel.launches - before == 23
+        assert pipe.part_a_replays == (22 if use_graph else 0)
+        pipe.finalize()
+        runs.append((pipe.odometry_trajectory(), pipe.kf_count))
+    assert np.array_equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] > 3
 
 
 def test_chunk_prefetcher_on_the_card_matches_the_cpu(cuda):

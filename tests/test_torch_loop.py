@@ -197,13 +197,23 @@ def _graph(K=48, L=6, n_live=40, seed=0, gps=False):
     return poses, graph
 
 
-@pytest.mark.parametrize("gps", [False, True])
-def test_pose_graph_solve_matches_reference(gps):
+# the chain's preconditioner keeps its ids ([False], [True])
+@pytest.mark.parametrize("gps,precond", [(False, "tridiag"), (True, "tridiag"),
+                                         (False, "jacobi"), (True, "jacobi")],
+                         ids=["False", "True", "False-jacobi", "True-jacobi"])
+def test_pose_graph_solve_matches_reference(gps, precond):
     """Chain + loops (+ altitude factors), dead keyframes past the live
-    prefix: optimized poses within 1e-4 of the reference."""
+    prefix, with either preconditioner: optimized poses within 1e-4 of the
+    reference. The block-Jacobi CG needs some 200-400 iterations on this
+    chain where the chain's needs 3-4: cut at 60 or 200 it is an unconverged
+    Krylov iterate, whose float32 value depends on the rounding order (the
+    reference's differs from a float64 run of the same iterations by more
+    than this tolerance), so jacobi is held at a budget in which both
+    converge."""
     poses, graph = _graph(gps=gps)
     spec = jpg.GraphSpec(max_keyframes=48, max_loops=6, gn_iterations=4,
-                         cg_iterations=60, odom_info_t=1e3, odom_info_r=1e3)
+                         cg_iterations=60 if precond == "tridiag" else 400,
+                         odom_info_t=1e3, odom_info_r=1e3, precond=precond)
     oj = np.asarray(jpg.solve(jnp.asarray(poses), jpg.GraphData(*map(jnp.asarray, graph)),
                               spec))
     ot = tpg.solve(_t(poses), convert.graph_from_ref(graph), tpg.GraphSpec(*spec)).numpy()

@@ -133,31 +133,36 @@ def test_align_on_cpu_is_the_plain_version_and_never_launches(graft, monkeypatch
     assert got.score.dtype == torch.float32 and int(got.iterations) >= 1
 
 
-@pytest.mark.parametrize("sms", [1, 16, 132])
-@pytest.mark.parametrize("n", [1, 127, 128, 8192, 8193, 32768])
-def test_ndt_kernel_plan_covers_every_point_once(n, sms):
+def _check_plan(n, sms, lanes):
     """`plan` gives every (point, neighbour) lane of every point to exactly
     one thread of one trip, with no more blocks than the card holds, the
     fewest trips, and the fewest blocks for those trips."""
-    blocks, trips = ndt_kernel.plan(n, sms)
-    per_block = ndt_kernel.THREADS // ndt_kernel.LANES
-    assert ndt_kernel.THREADS % 32 == 0 and 32 % ndt_kernel.LANES == 0
+    blocks, trips = ndt_kernel.plan(n, sms, lanes)
+    per_block = ndt_kernel.THREADS // lanes
+    assert ndt_kernel.THREADS % 32 == 0 and 32 % lanes == 0
     assert 1 <= blocks <= sms and trips >= 1
     assert blocks * trips * per_block >= n
     assert (trips - 1) * sms * per_block < n           # no fewer trips would do
     assert (blocks - 1) * trips * per_block < n        # nor fewer blocks
     # the kernel's grid-stride loop, a warp at a time: warp bases below the
     # item count, a stride of blocks × threads
-    items = n * ndt_kernel.LANES
+    items = n * lanes
     stride = blocks * ndt_kernel.THREADS
     bases = np.arange(0, stride, 32)
     walked = (bases[:, None] + stride * np.arange(trips)[None, :]).ravel()
     walked = walked[walked < items]
-    lanes = (walked[:, None] + np.arange(32)[None, :]).ravel()
-    points = lanes[lanes < items] // ndt_kernel.LANES
-    assert np.array_equal(np.bincount(points, minlength=n),
-                          np.full(n, ndt_kernel.LANES))
+    lanes_ = (walked[:, None] + np.arange(32)[None, :]).ravel()
+    points = lanes_[lanes_ < items] // lanes
+    assert np.array_equal(np.bincount(points, minlength=n), np.full(n, lanes))
     assert -(-items // stride) == trips
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("n", [1, 127, 128, 8192, 8193, 32768])
+def test_ndt_kernel_plan_covers_every_point_once(n, sms):
+    """`plan` at the default mode's lanes (DIRECT7: 8 a point); see
+    `_check_plan`."""
+    _check_plan(n, sms, ndt_kernel.LANES["direct7"])
 
 
 def test_ndt_kernel_plan_rejects_empty_input():

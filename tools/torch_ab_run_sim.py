@@ -14,7 +14,9 @@ two engines in `--engine` and no `--parent`: this tree's two engines, in the
 order first, second, second, first. Each turn is a fresh process that runs
 the circuit twice (the first run holds the cold start: CUDA context, lazy
 kernel loading, the nvcc build; the second is warm). Prints one JSON line per
-process and, last, one with the rates per side. Every side must agree with
+process, one with the rates per side and, last, whether the two sides'
+results are bit-identical (a hash of the odometry and optimised keyframe
+poses beside keyframes, loops and ATE). Every side must agree with
 itself in all its turns (keyframes, loops, ATE): two trees may align with
 another arithmetic, and the two engines see scans with different noise (the
 device engine renders each from a generator of its own). The card's name and
@@ -30,13 +32,17 @@ import subprocess
 import sys
 
 CODE = """
-import json, sys
+import hashlib, json, sys
 from xchu_slam_tpu_torch.cli import run_sim
 out = []
 for _ in range(2):
-    _pipe, s = run_sim({scans}, 55.0, 0, "cuda"{engine})
-    out.append({{k: s[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
-                                   "stage_seconds") if k in s}})
+    pipe, s = run_sim({scans}, 55.0, 0, "cuda"{engine})
+    row = {{k: s[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
+                              "stage_seconds") if k in s}}
+    # the poses themselves: the odometry and the optimised keyframes, bit for bit
+    row["poses_sha256"] = hashlib.sha256(pipe.odometry_trajectory().tobytes()
+                                         + pipe.keyframe_trajectory()[2].tobytes()).hexdigest()[:16]
+    out.append(row)
 print("AB " + json.dumps(out))
 """
 
@@ -77,7 +83,8 @@ def main() -> int:
         print(json.dumps({"side": name, "cold": cold, "warm": warm}))
 
     def results(names):
-        return {json.dumps({k: r[k] for k in ("keyframes", "loops", "ate_rmse_m")})
+        return {json.dumps({k: r[k] for k in ("keyframes", "loops", "ate_rmse_m",
+                                              "poses_sha256")})
                 for name in names for both in runs[name] for r in both}
 
     for names in ([name] for name in sides):
@@ -87,6 +94,7 @@ def main() -> int:
         "cold_scans_per_sec": [c["scans_per_sec"] for c, _ in pairs],
         "warm_scans_per_sec": [w["scans_per_sec"] for _, w in pairs]}
         for name, pairs in runs.items()}))
+    print(json.dumps({"poses_bit_identical_across_sides": len(results(list(sides))) == 1}))
     return 0
 
 

@@ -1,6 +1,6 @@
 // NDT scan-to-map alignment in one persistent kernel: the Newton loop, its
-// backtracking line search and every score / gradient / Hessian pass over the
-// point × voxel pairs, with both trip counts decided on the card.
+// line search and every score / gradient / Hessian pass over the point ×
+// voxel pairs, with both trip counts decided on the card.
 //
 // The reference has no TPU kernel for this work: it leaves
 // xchu_slam_tpu/ops/ndt.py::newton_align (two `lax.while_loop`s) around
@@ -85,6 +85,22 @@
 //   Hessian pass's (L, g, H) and the number of passes run. `mode` 1 stops
 //   after one Hessian pass at the initial pose (the smoke run compares that
 //   pass with the plain one).
+// - Modes. The kernel is a template on the neighbourhood's size kM and the
+//   line search kLs (`ls_mode`), one instantiation each; the wrapper picks it
+//   from the spec, and DIRECT7 with backtracking is the code described above.
+//   kM = 1 (DIRECT1): a lane a point. kM = 27 (DIRECT26, and KDTREE, which
+//   also drops, by a launch flag, the voxels whose mean lies `res` or more
+//   from the point at the iteration's pose, as the reference's radius search
+//   does): 32 lanes a point, lanes 27-31 idle; 8192 points are then 4 trips
+//   of the grid-stride loop on 128 blocks, and the rows of all 4 stay in the
+//   dynamic shared memory (80 KB a block; past 4 trips every pass gathers
+//   again), so that the line-search trials gather nothing. kLs: the
+//   reference's More-Thuente search with its loop live (the first trial at
+//   clip(α0, trans_eps/2, step_size), then up to ls_max more while the
+//   interval has not converged and the trial fails the Wolfe test; psi drives
+//   the open interval), or its executed step (that first trial alone, one
+//   pass an iteration). Both return the last trial evaluated, so the
+//   fitness sums of the last trial pass are the align's.
 // - The probe kernels at the end time what the align waits for, each alone:
 //   an empty launch, grid and cluster barriers, a chain of dependent L2
 //   loads, the control step.
@@ -99,12 +115,33 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLanes = 8;  // lanes that own one source point: 7 voxels + 1 idle
 constexpr int kAcc = 28;   // L, g[6], H upper triangle [21]
 constexpr int kRow = 32;   // floats of one partial: kAcc padded to a warp
 constexpr int kFit = 28;   // fitness sums in the padding: matched count, Σ min d², mask count
 constexpr int kOut = 64;   // floats of the result record
 constexpr unsigned kFull = 0xffffffffu;
+
+// The neighbourhood of kM voxels a point: 1 (DIRECT1), 7 (DIRECT7: centre,
+// ±x, ±y, ±z) or 27 (DIRECT26 and KDTREE: the 3×3×3 cube in the reference's
+// `meshgrid(..., indexing="ij")` order). A point owns kLanes lanes, a power
+// of two that holds its kM pairs (the lanes past kM idle), and the row cache
+// spans at most kCacheTrips trips of the grid-stride loop.
+template <int kM>
+struct Neighbours {
+  static_assert(kM == 1 || kM == 7 || kM == 27, "DIRECT1, DIRECT7 or the 27-cube");
+  static constexpr int kLanes = kM == 1 ? 1 : (kM == 7 ? 8 : 32);
+  static constexpr int kCacheTrips = kM == 27 ? 4 : 1;
+  static constexpr int kPointsPerTrip = kThreads / kLanes;
+  static constexpr int kPoints = kPointsPerTrip * kCacheTrips;
+  // rows of more than one trip (80 KB at 4) need dynamic shared memory
+  static constexpr bool kDynamicRows = kCacheTrips > 1;
+  static constexpr int kRowSlots = kDynamicRows ? 1 : kThreads;
+  static constexpr int kRowStride = kThreads * kCacheTrips;
+  static constexpr int kDynamicBytes = kDynamicRows ? 10 * kRowStride * 4 : 0;
+};
+
+// the line searches (`ls_mode`)
+enum LineSearch { kBacktrack = 0, kMoreThuente = 1, kRefClamped = 2 };
 
 // slots of the result record
 constexpr int kOutIters = 6, kOutConverged = 7, kOutPhi = 8, kOutFrac = 9,
@@ -122,6 +159,8 @@ struct NdtParams {
   int n, gx, gy, gz;
   float res, d1, s, two_s, four_s2, step_size, trans_eps;
   int max_iter, ls_max, mode;
+  int kdtree;                  // 27-cube: keep voxels whose mean is within res
+  float res2;                  // res² (KDTREE)
 };
 
 // The ten matrices Z·Y·X a pass needs: R, dR/d(r,p,y), d²R/d(rr,rp,ry,pp,py,yy),
@@ -174,20 +213,24 @@ __device__ long long g_ticks[32];
 #define TICK(slot)
 #endif
 
+template <int kM>
 struct Shared {
+  using Nb = Neighbours<kM>;
   float4 rot[11][3];    // products at the trial pose: 9 floats each, padded to 12;
   //                       the eleventh is R at the pose the iteration started at
   float eval[6];        // the pose of this pass
   float ctx[6];         // the pose the neighbourhood belongs to
   float warp_part[kWarps][kRow];
   float tot[kRow];
-  // where the launch gives every thread one pair for good (one trip of the
-  // grid-stride loop): the point of each 8 lanes, and the voxel row the last
-  // Hessian pass gathered for the thread, kept for the passes that share its
-  // neighbourhood (the line-search trials and the fitness pass)
-  float4 point[kThreads / kLanes];     // x, y, z, mask
+  // where the launch gives every thread its pairs for good (at most
+  // kCacheTrips trips of the grid-stride loop): the point of each kLanes
+  // lanes, and the voxel row the last Hessian pass gathered for each of the
+  // thread's pairs, kept for the passes that share its neighbourhood (the
+  // line-search trials and the fitness pass); rows of more than one trip
+  // live in the dynamic shared memory instead
+  float4 point[Nb::kPoints];           // x, y, z, mask
   float origin[3];                     // the grid's origin
-  float row[10][kThreads];             // voxel mean in the map frame 3, icov upper 6, valid
+  float row[10][Nb::kRowSlots];        // voxel mean in the map frame 3, icov upper 6, valid
   // loop decisions of the first thread, read by the block; one variable per
   // decision, so that the next decision is never written while a warp still
   // reads this one
@@ -231,7 +274,9 @@ __device__ __forceinline__ float warp_transpose_sum(float (&v)[kRow], int lane) 
 // sine and cosine each, lanes 0-9 build one product each at the trial pose,
 // lane 10 R at the neighbourhood's pose. The block reads them after the
 // barrier that follows every control step.
-__device__ __forceinline__ void publish(Shared& sh, const float eval[6], const float ctx[6]) {
+template <int kM>
+__device__ __forceinline__ void publish(Shared<kM>& sh, const float eval[6],
+                                        const float ctx[6]) {
   const int lane = threadIdx.x & 31;
   float angle = 0.0f;
 #pragma unroll
@@ -254,12 +299,27 @@ __device__ __forceinline__ void publish(Shared& sh, const float eval[6], const f
   }
 }
 
+// The row cache of the launch: static shared memory for one trip, the
+// dynamic shared memory for more; float `a` of a row of trip `trip` sits at
+// [a * kRowStride + trip * kThreads + tid].
+template <int kM>
+__device__ __forceinline__ float* row_cache(Shared<kM>& sh) {
+  if constexpr (Neighbours<kM>::kDynamicRows) {
+    extern __shared__ float4 ndt_dynamic_smem[];
+    return reinterpret_cast<float*>(ndt_dynamic_smem);
+  } else {
+    return &sh.row[0][0];
+  }
+}
+
 // One pass over the pairs: per-lane accumulators, block partial, grid barrier,
 // fixed-order total in sh.tot. kind 0: L, g, H; 1: L, g and the fitness sums
 // (matched count, Σ min d², mask count); 2: the fitness sums alone.
-template <int kind>
-__device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
+template <int kM, int kind>
+__device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& buf,
                                      cg::grid_group& grid) {
+  using Nb = Neighbours<kM>;
+  constexpr int kLanes = Nb::kLanes;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   TICK(kind * 8);
 
@@ -270,20 +330,30 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
   const float* R = reinterpret_cast<const float*>(sh.rot[0]);
   const float* Rc = reinterpret_cast<const float*>(sh.rot[10]);
   const float o0 = sh.origin[0], o1 = sh.origin[1], o2 = sh.origin[2];
-  // DIRECT7 order: centre, +x, −x, +y, −y, +z, −z; lane 7 of a point idles
+  float* rows = row_cache(sh);
+  // the lane's voxel: DIRECT7 centre, +x, −x, +y, −y, +z, −z, lane 7 idle;
+  // the 27-cube (v / 9, v / 3 % 3, v % 3) − 1, lanes 27-31 idle
   const int v = lane & (kLanes - 1);
-  const int dx = (v == 1) - (v == 2), dy = (v == 3) - (v == 4), dz = (v == 5) - (v == 6);
+  int dx = 0, dy = 0, dz = 0;
+  if constexpr (kM == 7) {
+    dx = (v == 1) - (v == 2); dy = (v == 3) - (v == 4); dz = (v == 5) - (v == 6);
+  } else if constexpr (kM == 27) {
+    dx = v / 9 - 1; dy = (v / 3) % 3 - 1; dz = v % 3 - 1;
+  }
   const long long items = (long long)p.n * kLanes;
   const long long stride = (long long)gridDim.x * kThreads;
   // the trip count is the warp's, so that every lane reaches the shuffles
-  const bool kept = items <= stride;    // one trip: a thread's pair never changes
+  // kept: at most kCacheTrips trips, a thread's pairs never change
+  const bool kept = items <= stride * Nb::kCacheTrips;
+  int trip = 0;         // of the kept trips; one trip (DIRECT1, DIRECT7) is trip 0
+  constexpr bool kTrips = Nb::kCacheTrips > 1;
   for (long long base = (long long)blockIdx.x * kThreads + (tid & ~31); base < items;
-       base += stride) {
+       base += stride, ++trip) {
     const int i = (int)((base + lane) / kLanes);
     float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
     bool point_on = false;
     if (kept) {
-      const float4 q = sh.point[tid / kLanes];
+      const float4 q = sh.point[(kTrips ? trip * Nb::kPointsPerTrip : 0) + tid / kLanes];
       q0 = q.x; q1 = q.y; q2 = q.z; point_on = q.w != 0.0f;
     } else if (i < p.n) {
       // the mask and the point are asked for together
@@ -291,6 +361,7 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
       q0 = __ldg(p.src + 3 * i); q1 = __ldg(p.src + 3 * i + 1); q2 = __ldg(p.src + 3 * i + 2);
       point_on = m != 0;
     }
+    float* row = rows + (kTrips ? trip * kThreads : 0) + tid;
     // the point under the trial pose
     float pt[3];
 #pragma unroll
@@ -302,10 +373,11 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
     float c0, c1, c2, xx, xy, xz, yy, yz, zz;
     bool on;
     if (kept && kind != 0) {
-      c0 = sh.row[0][tid]; c1 = sh.row[1][tid]; c2 = sh.row[2][tid];
-      xx = sh.row[3][tid]; xy = sh.row[4][tid]; xz = sh.row[5][tid];
-      yy = sh.row[6][tid]; yz = sh.row[7][tid]; zz = sh.row[8][tid];
-      on = sh.row[9][tid] != 0.0f;
+      c0 = row[0]; c1 = row[Nb::kRowStride]; c2 = row[2 * Nb::kRowStride];
+      xx = row[3 * Nb::kRowStride]; xy = row[4 * Nb::kRowStride];
+      xz = row[5 * Nb::kRowStride]; yy = row[6 * Nb::kRowStride];
+      yz = row[7 * Nb::kRowStride]; zz = row[8 * Nb::kRowStride];
+      on = row[9 * Nb::kRowStride] != 0.0f;
     } else {
       float pc[3];
 #pragma unroll
@@ -314,33 +386,42 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared& sh, int& buf,
       const int nx = (int)floorf((pc[0] - o0) / p.res) + dx;
       const int ny = (int)floorf((pc[1] - o1) / p.res) + dy;
       const int nz = (int)floorf((pc[2] - o2) / p.res) + dz;
-      on = point_on && v < 7 && nx >= 0 && nx < p.gx && ny >= 0 && ny < p.gy
+      on = point_on && v < kM && nx >= 0 && nx < p.gx && ny >= 0 && ny < p.gy
            && nz >= 0 && nz < p.gz;
       float2 r0 = {0.0f, 0.0f}, r1 = r0, r2 = r0, r3 = r0, r4 = r0;
       if (on) {
         const long long flat = ((long long)nx * p.gy + ny) * p.gz + nz;
-        const float2* row = reinterpret_cast<const float2*>(p.fin + 10 * flat);
-        r0 = __ldg(row); r1 = __ldg(row + 1); r2 = __ldg(row + 2);
-        r3 = __ldg(row + 3); r4 = __ldg(row + 4);
+        const float2* src_row = reinterpret_cast<const float2*>(p.fin + 10 * flat);
+        r0 = __ldg(src_row); r1 = __ldg(src_row + 1); r2 = __ldg(src_row + 2);
+        r3 = __ldg(src_row + 3); r4 = __ldg(src_row + 4);
       }
       on = on && r4.y > 0.0f;
       c0 = (o0 + (float)nx * p.res) + r0.x;
       c1 = (o1 + (float)ny * p.res) + r0.y;
       c2 = (o2 + (float)nz * p.res) + r1.x;
+      if constexpr (kM == 27) {
+        // KDTREE: the voxels whose mean lies within res of the point where
+        // the neighbourhood is gathered (the reference's radius search)
+        if (p.kdtree) {
+          const float e0 = pc[0] - c0, e1 = pc[1] - c1, e2 = pc[2] - c2;
+          on = on && e0 * e0 + e1 * e1 + e2 * e2 < p.res2;
+        }
+      }
       xx = r1.y; xy = r2.x; xz = r2.y; yy = r3.x; yz = r3.y; zz = r4.x;
       if (kept) {
-        sh.row[0][tid] = c0; sh.row[1][tid] = c1; sh.row[2][tid] = c2;
-        sh.row[3][tid] = xx; sh.row[4][tid] = xy; sh.row[5][tid] = xz;
-        sh.row[6][tid] = yy; sh.row[7][tid] = yz; sh.row[8][tid] = zz;
-        sh.row[9][tid] = on ? 1.0f : 0.0f;
+        row[0] = c0; row[Nb::kRowStride] = c1; row[2 * Nb::kRowStride] = c2;
+        row[3 * Nb::kRowStride] = xx; row[4 * Nb::kRowStride] = xy;
+        row[5 * Nb::kRowStride] = xz; row[6 * Nb::kRowStride] = yy;
+        row[7 * Nb::kRowStride] = yz; row[8 * Nb::kRowStride] = zz;
+        row[9 * Nb::kRowStride] = on ? 1.0f : 0.0f;
       }
     }
     const float d0 = pt[0] - c0, d1_ = pt[1] - c1, d2_ = pt[2] - c2;
 
     if (kind >= 1) {
       // fitness: the nearest of the point's valid voxel means, a min over its
-      // 8 lanes. A line-search trial adds it too: where the trial's pose is
-      // the align's last, no fitness pass follows.
+      // kLanes lanes. A line-search trial adds it too: where the trial's pose
+      // is the align's last, no fitness pass follows.
       float dmin = on ? d0 * d0 + d1_ * d1_ + d2_ * d2_ : INFINITY;
 #pragma unroll
       for (int off = 1; off < kLanes; off <<= 1)
@@ -556,10 +637,66 @@ __device__ __forceinline__ void newton_step(const float* tot, float two_s, float
   alpha0 = fminf(dpn, step_size);
 }
 
+// More-Thuente pieces (ops/ndt.py::mt_trial_value, mt_update_interval; the
+// reference's ndt_omp_impl.hpp:646-757), on the lead warp's registers, all
+// lanes alike. Every case is computed, as the plain version's selects do.
+__device__ __forceinline__ float safe_div(float num, float den) {
+  const float tiny = 1e-30f;
+  return num / (fabsf(den) > tiny ? den : (den >= 0.0f ? tiny : -tiny));
+}
+
+__device__ __forceinline__ float mt_trial_value(float a_l, float f_l, float g_l, float a_u,
+                                                float f_u, float g_u, float a_t, float f_t,
+                                                float g_t) {
+  const float z1 = 3.0f * safe_div(f_t - f_l, a_t - a_l) - g_t - g_l;
+  const float w1 = sqrtf(fmaxf(z1 * z1 - g_t * g_l, 0.0f));
+  const float a_c1 = a_l + (a_t - a_l) * safe_div(w1 - g_l - z1, g_t - g_l + 2.0f * w1);
+  const float a_q = a_l - 0.5f * (a_l - a_t) * safe_div(g_l, g_l - safe_div(f_l - f_t, a_l - a_t));
+  const float case1 = fabsf(a_c1 - a_l) < fabsf(a_q - a_l) ? a_c1 : 0.5f * (a_q + a_c1);
+  const float a_s = a_l - safe_div(a_l - a_t, g_l - g_t) * g_l;
+  const float case2 = fabsf(a_c1 - a_t) >= fabsf(a_s - a_t) ? a_c1 : a_s;
+  const float a_t3 = fabsf(a_c1 - a_t) < fabsf(a_s - a_t) ? a_c1 : a_s;
+  const float case3 = a_t > a_l ? fminf(a_t + 0.66f * (a_u - a_t), a_t3)
+                                : fmaxf(a_t + 0.66f * (a_u - a_t), a_t3);
+  const float z4 = 3.0f * safe_div(f_t - f_u, a_t - a_u) - g_t - g_u;
+  const float w4 = sqrtf(fmaxf(z4 * z4 - g_t * g_u, 0.0f));
+  const float case4 = a_u + (a_t - a_u) * safe_div(w4 - g_u - z4, g_t - g_u + 2.0f * w4);
+  if (f_t > f_l) return case1;
+  if (g_t * g_l < 0.0f) return case2;
+  return fabsf(g_t) <= fabsf(g_l) ? case3 : case4;
+}
+
+// updateIntervalMT: the endpoints after a trial at (a_t, f_t, g_t); true where
+// the interval converged (none of the update cases applies)
+__device__ __forceinline__ bool mt_update_interval(float& a_l, float& f_l, float& g_l,
+                                                   float& a_u, float& f_u, float& g_u,
+                                                   float a_t, float f_t, float g_t) {
+  if (f_t > f_l) {
+    a_u = a_t; f_u = f_t; g_u = g_t;
+    return false;
+  }
+  const float side = g_t * (a_l - a_t);
+  if (side > 0.0f) {
+    a_l = a_t; f_l = f_t; g_l = g_t;
+    return false;
+  }
+  if (side < 0.0f) {
+    a_u = a_l; f_u = f_l; g_u = g_l;
+    a_l = a_t; f_l = f_t; g_l = g_t;
+    return false;
+  }
+  return true;
+}
+
+// kM voxels a point, line search kLs. Every instantiation is the same loop;
+// kM picks the lanes and the row cache (Neighbours), kLs the block that
+// follows the Hessian pass.
+template <int kM, int kLs>
 __global__ void __launch_bounds__(kThreads, 1)
 ndt_align_kernel(const NdtParams p) {
+  using Nb = Neighbours<kM>;
   cg::grid_group grid = cg::this_grid();
-  __shared__ Shared sh;
+  __shared__ Shared<kM> sh;
   const int tid = threadIdx.x;
   const bool lead = tid < 32;          // the control warp; its lanes agree
   const bool first = tid == 0;         // writes the block's shared decisions
@@ -573,6 +710,9 @@ ndt_align_kernel(const NdtParams p) {
   float a_eval = 0.0f, fit_n = 0.0f, fit_d = 0.0f, fit_m = 0.0f;   // the last trial's step and fitness sums
   int iters = 0, trials = 0;
   bool converged = false;
+  const float mu = 1e-4f, nu = 0.9f;
+  // the More-Thuente / clamped steps' range: [trans_eps / 2, step_size]
+  const float step_min = 0.5f * p.trans_eps, step_max = p.step_size;
 
   if (writer)
     for (int k = 0; k < kOut; ++k) p.out[k] = 0.0f;   // unused slots read as 0
@@ -582,26 +722,33 @@ ndt_align_kernel(const NdtParams p) {
     publish(sh, pose, ctx);
   }
   if (tid >= 32 && tid < 35) sh.origin[tid - 32] = p.origin[tid - 32];
-  if ((long long)p.n * kLanes <= (long long)gridDim.x * kThreads && tid >= 64
-      && tid < 64 + kThreads / kLanes) {
-    // one trip: the block's points stay in shared memory for every pass
-    const int i = blockIdx.x * (kThreads / kLanes) + tid - 64;
-    float4 q = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (i < p.n) {
-      q.x = __ldg(p.src + 3 * i); q.y = __ldg(p.src + 3 * i + 1); q.z = __ldg(p.src + 3 * i + 2);
-      q.w = __ldg(p.mask + i) ? 1.0f : 0.0f;
+  const long long stride = (long long)gridDim.x * kThreads;
+  if ((long long)p.n * Nb::kLanes <= stride * Nb::kCacheTrips && tid >= 64) {
+    // at most kCacheTrips trips: the block's points stay in shared memory for
+    // every pass
+    for (int j = tid - 64; j < Nb::kPoints; j += kThreads - 64) {
+      const int trip = j / Nb::kPointsPerTrip;
+      const int i = (int)(((long long)blockIdx.x * kThreads + trip * stride) / Nb::kLanes)
+                    + j % Nb::kPointsPerTrip;
+      float4 q = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (i < p.n) {
+        q.x = __ldg(p.src + 3 * i); q.y = __ldg(p.src + 3 * i + 1); q.z = __ldg(p.src + 3 * i + 2);
+        q.w = __ldg(p.mask + i) ? 1.0f : 0.0f;
+      }
+      sh.point[j] = q;
     }
-    sh.point[tid - 64] = q;
   }
   __syncthreads();
 
   while (true) {
-    pass<0>(p, sh, buf, grid);                       // L, g, H at `pose`
+    pass<kM, 0>(p, sh, buf, grid);                   // L, g, H at `pose`
     if (lead) {
       phi0 = sh.tot[0];
       newton_step(sh.tot, p.two_s, p.step_size, g, H, dir, dphi0, alpha0);
       TICK(24);
-      a = alpha0;
+      // backtracking starts at α0; More-Thuente and the clamped step at
+      // clip(α0, step_min, step_max)
+      a = kLs == kBacktrack ? alpha0 : fminf(fmaxf(alpha0, step_min), step_max);
       best_a = 0.0f; best_phi = INFINITY; phi_acc = INFINITY;
 #pragma unroll
       for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
@@ -621,40 +768,106 @@ ndt_align_kernel(const NdtParams p) {
     TICK(25);
     if (sh.stop_after_pass) return;                  // mode 1: one pass only
 
-    // Armijo + curvature backtrack (ops/ndt.py::_backtrack)
     bool done = false;
-    for (int t = 0; t < p.ls_max; ++t) {
+    if constexpr (kLs == kBacktrack) {
+      // Armijo + curvature backtrack (ops/ndt.py::_backtrack)
+      for (int t = 0; t < p.ls_max; ++t) {
+        if (lead) a_eval = a;
+        pass<kM, 1>(p, sh, buf, grid);               // L, g at pose + a·dir
+        if (lead) {
+          ++trials;
+          fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2];
+          const float phi_a = sh.tot[0];
+          float ga[6];
+#pragma unroll
+          for (int k = 0; k < 6; ++k) ga[k] = p.two_s * sh.tot[1 + k];
+          const float dphi_a = dot6(ga, dir);
+          const bool suff = phi_a <= phi0 + mu * a * dphi0;
+          const bool curv = fabsf(dphi_a) <= nu * fabsf(dphi0);
+          const bool accept = suff && curv;
+          if (phi_a < best_phi) { best_a = a; best_phi = phi_a; }
+          const float denom = 2.0f * (phi_a - phi0 - dphi0 * a);
+          const float a_q = fabsf(denom) > 1e-12f ? -dphi0 * a * a / denom : 0.5f * a;
+          float a_next = fminf(fmaxf(a_q, 0.1f * a), 0.5f * a);
+          if (suff && !curv && dphi_a < 0.0f) a_next = fminf(2.0f * a, alpha0);
+          const bool stuck = fabsf(a_next - a) < 1e-12f * fmaxf(a, 1e-12f);
+          if (accept || stuck) { phi_acc = phi_a; done = true; }
+          if (!accept) a = a_next;
+          if (!done && t + 1 < p.ls_max) {           // another trial follows
+#pragma unroll
+            for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
+            publish(sh, eval, ctx);
+          }
+          if (first) sh.ls_done = done;
+        }
+        __syncthreads();
+        if (sh.ls_done) break;
+      }
+    } else if constexpr (kLs == kMoreThuente) {
+      // More-Thuente with its loop live (ops/ndt.py::mt_exact_search): the
+      // first trial at clip(α0), then up to ls_max more while the interval
+      // has not converged and the trial fails the Wolfe test. psi drives the
+      // open interval; the endpoints switch to φ when it closes.
+      const float g0 = (1.0f - mu) * dphi0;        // dpsi at a = 0
+      float a_l = 0.0f, f_l = 0.0f, g_l = g0, a_u = 0.0f, f_u = 0.0f, g_u = g0;
+      bool open = true, later = false;
+      int t = 0;                                     // trials after the first
+      while (true) {
+        if (lead) a_eval = a;
+        pass<kM, 1>(p, sh, buf, grid);               // φ, ∇ at pose + a·dir
+        if (lead) {
+          ++trials;
+          fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2];
+          const float phi_n = sh.tot[0];
+          float ga[6];
+#pragma unroll
+          for (int k = 0; k < 6; ++k) ga[k] = p.two_s * sh.tot[1 + k];
+          const float dphi_n = dot6(ga, dir);
+          const float psi_n = phi_n - phi0 - mu * a * dphi0;
+          const float dpsi_n = dphi_n - mu * dphi0;
+          bool conv = false;
+          if (later) {
+            if (open && psi_n <= 0.0f && dpsi_n >= 0.0f) {
+              // the endpoints' psi → φ conversion, with the reference's sign
+              f_l = f_l + phi0 - mu * dphi0 * a_l;
+              g_l = g_l + mu * dphi0;
+              f_u = f_u + phi0 - mu * dphi0 * a_u;
+              g_u = g_u + mu * dphi0;
+              open = false;
+            }
+            conv = mt_update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a, open ? psi_n : phi_n,
+                                      open ? dpsi_n : dphi_n);
+            ++t;
+          }
+          later = true;
+          phi_acc = phi_n;
+          const bool wolfe = psi_n <= 0.0f && dphi_n <= -nu * dphi0;
+          const bool again = !conv && t < p.ls_max && !wolfe;
+          if (again) {
+            a = fminf(fmaxf(mt_trial_value(a_l, f_l, g_l, a_u, f_u, g_u, a,
+                                           open ? psi_n : phi_n, open ? dpsi_n : dphi_n),
+                            step_min), step_max);
+#pragma unroll
+            for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
+            publish(sh, eval, ctx);
+          }
+          if (first) sh.ls_done = !again;
+        }
+        __syncthreads();
+        if (sh.ls_done) break;
+      }
+      done = true;                                   // the step is the last trial
+    } else {
+      // the reference's executed step (its More-Thuente loop is dead code):
+      // one trial at clip(α0), whose φ the diagnostics keep
       if (lead) a_eval = a;
-      pass<1>(p, sh, buf, grid);                     // L, g at pose + a·dir
+      pass<kM, 1>(p, sh, buf, grid);
       if (lead) {
         ++trials;
         fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2];
-        const float mu = 1e-4f, nu = 0.9f;
-        const float phi_a = sh.tot[0];
-        float ga[6];
-#pragma unroll
-        for (int k = 0; k < 6; ++k) ga[k] = p.two_s * sh.tot[1 + k];
-        const float dphi_a = dot6(ga, dir);
-        const bool suff = phi_a <= phi0 + mu * a * dphi0;
-        const bool curv = fabsf(dphi_a) <= nu * fabsf(dphi0);
-        const bool accept = suff && curv;
-        if (phi_a < best_phi) { best_a = a; best_phi = phi_a; }
-        const float denom = 2.0f * (phi_a - phi0 - dphi0 * a);
-        const float a_q = fabsf(denom) > 1e-12f ? -dphi0 * a * a / denom : 0.5f * a;
-        float a_next = fminf(fmaxf(a_q, 0.1f * a), 0.5f * a);
-        if (suff && !curv && dphi_a < 0.0f) a_next = fminf(2.0f * a, alpha0);
-        const bool stuck = fabsf(a_next - a) < 1e-12f * fmaxf(a, 1e-12f);
-        if (accept || stuck) { phi_acc = phi_a; done = true; }
-        if (!accept) a = a_next;
-        if (!done && t + 1 < p.ls_max) {             // another trial follows
-#pragma unroll
-          for (int k = 0; k < 6; ++k) eval[k] = pose[k] + a * dir[k];
-          publish(sh, eval, ctx);
-        }
-        if (first) sh.ls_done = done;
+        phi_acc = sh.tot[0];
+        done = true;
       }
-      __syncthreads();
-      if (sh.ls_done) break;
     }
 
     if (lead) {
@@ -685,7 +898,7 @@ ndt_align_kernel(const NdtParams p) {
   }
 
   if (!sh.fit_known) {
-    pass<2>(p, sh, buf, grid);                        // fitness on the last neighbourhood
+    pass<kM, 2>(p, sh, buf, grid);                   // fitness on the last neighbourhood
     if (lead) { fit_n = sh.tot[kFit]; fit_d = sh.tot[kFit + 1]; fit_m = sh.tot[kFit + 2]; }
   }
   if (writer) {
@@ -741,40 +954,99 @@ __global__ void probe_control_kernel(const float* sums, int steps, float two_s,
 
 extern "C" {
 
-// (threads per block, lanes per point, accumulators, floats per partial,
-// floats of the result record)
-void ndt_geometry(int* threads, int* lanes, int* acc, int* row, int* out) {
+// (threads per block, accumulators, floats per partial, floats of the result
+// record)
+void ndt_geometry(int* threads, int* acc, int* row, int* out) {
   *threads = kThreads;
-  *lanes = kLanes;
   *acc = kAcc;
   *row = kRow;
   *out = kOut;
 }
 
-// Blocks of the kernel that the device can hold at once (0 on an error, or
-// where the device cannot launch cooperatively).
-int ndt_max_blocks(int device) {
-  int coop = 0, sms = 0, per_sm = 0;
+// Lanes a point and the trips the row cache spans, for `neighbours` voxels a
+// point (1, 7 or 27; 0 for another count).
+void ndt_neighbours(int neighbours, int* lanes, int* cache_trips) {
+  *lanes = neighbours == 1 ? Neighbours<1>::kLanes
+         : neighbours == 7 ? Neighbours<7>::kLanes
+         : neighbours == 27 ? Neighbours<27>::kLanes : 0;
+  *cache_trips = neighbours == 1 ? Neighbours<1>::kCacheTrips
+               : neighbours == 7 ? Neighbours<7>::kCacheTrips
+               : neighbours == 27 ? Neighbours<27>::kCacheTrips : 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+using AlignKernel = void (*)(NdtParams);
+
+template <int kM>
+AlignKernel pick_ls(int ls) {
+  return ls == kBacktrack ? ndt_align_kernel<kM, kBacktrack>
+       : ls == kMoreThuente ? ndt_align_kernel<kM, kMoreThuente>
+       : ls == kRefClamped ? ndt_align_kernel<kM, kRefClamped> : nullptr;
+}
+
+// The instantiation for `neighbours` voxels a point and line search `ls`, its
+// dynamic shared memory, and that memory granted to it (nullptr on an unknown
+// pair or a refused attribute).
+AlignKernel pick(int neighbours, int ls, int* dynamic_bytes) {
+  AlignKernel k = nullptr;
+  *dynamic_bytes = 0;
+  if (neighbours == 1) k = pick_ls<1>(ls);
+  if (neighbours == 7) k = pick_ls<7>(ls);
+  if (neighbours == 27) {
+    k = pick_ls<27>(ls);
+    *dynamic_bytes = Neighbours<27>::kDynamicBytes;
+  }
+  if (k != nullptr && *dynamic_bytes > 0
+      && cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *dynamic_bytes) != cudaSuccess) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  return k;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of the instantiation (`neighbours`, `ls`) that the device can hold at
+// once (0 on an error, or where the device cannot launch cooperatively).
+int ndt_max_blocks(int device, int neighbours, int ls) {
+  int coop = 0, sms = 0, per_sm = 0, dynamic_bytes = 0;
   if (cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) != cudaSuccess
       || !coop)
     return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ndt_align_kernel,
-                                                    kThreads, 0) != cudaSuccess)
+  const AlignKernel k = pick(neighbours, ls, &dynamic_bytes);
+  if (k == nullptr
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reinterpret_cast<const void*>(k),
+                                                       kThreads, dynamic_bytes) != cudaSuccess)
     return 0;
   return sms * per_sm;
 }
 
-// One align (mode 0) or one Hessian pass at `init_pose` (mode 1) on `stream`.
-// `blocks` must not exceed ndt_max_blocks(); `partial` holds 2·blocks·32
-// floats, `out` 64. Returns the CUDA error code of the launch (0 = success).
+// One align (mode 0) or one Hessian pass at `init_pose` (mode 1) on `stream`,
+// with `neighbours` voxels a point (1, 7 or 27; `kdtree` masks the 27 by
+// distance² < res2 = res²) and line search `ls` (0 backtrack, 1 More-Thuente,
+// 2 the clamped step). `blocks` must not exceed ndt_max_blocks(); `partial` holds
+// 2·blocks·32 floats, `out` 64. Returns the CUDA error code of the launch
+// (0 = success).
 int ndt_align_launch(const void* src, const void* mask, const void* fin,
                      const void* origin, const void* init_pose, void* out,
                      void* partial, int n, int gx, int gy, int gz, float res,
                      float d1, float s, float two_s, float four_s2,
                      float step_size, float trans_eps, int max_iter, int ls_max,
-                     int mode, int blocks, void* stream) {
+                     int mode, int blocks, int neighbours, int ls, int kdtree,
+                     float res2, void* stream) {
+  int dynamic_bytes = 0;
+  const AlignKernel k = pick(neighbours, ls, &dynamic_bytes);
+  if (k == nullptr || (kdtree && neighbours != 27))
+    return static_cast<int>(cudaErrorInvalidValue);
   NdtParams p;
   p.src = static_cast<const float*>(src);
   p.mask = static_cast<const unsigned char*>(mask);
@@ -787,10 +1059,11 @@ int ndt_align_launch(const void* src, const void* mask, const void* fin,
   p.res = res; p.d1 = d1; p.s = s; p.two_s = two_s; p.four_s2 = four_s2;
   p.step_size = step_size; p.trans_eps = trans_eps;
   p.max_iter = max_iter; p.ls_max = ls_max; p.mode = mode;
+  p.kdtree = kdtree; p.res2 = res2;
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ndt_align_kernel), dim3(blocks), dim3(kThreads),
-      args, 0, static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(k), dim3(blocks), dim3(kThreads), args,
+      dynamic_bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,6 +81,13 @@
 //   keyframes everything fits; at 2048 live the vectors stay in scratch.
 //   K ≤ kMaxK and L ≤ kMaxL keep the fixed part within the budget.
 //
+// - The block-Jacobi preconditioner (`precond="jacobi"`, the reference's
+//   pose_graph.py:423-432) is the instantiation pgo_cg_kernel<true>: each
+//   live keyframe's 6×6 block (node 0 = I, + 1e-6·I, as assembled) factored
+//   by chol6 in its own thread, all at once, and M⁻¹ v one forward and
+//   backward substitution a keyframe, in parallel; no chain, no sweeps, no
+//   scaling. The PCG loop and its fixed-order sums are the same code.
+//
 // Built with nvcc (sm_90a) into a shared library with a plain C interface;
 // the wrapper ops/cuda/pgo_kernel.py allocates the outputs and the scratch
 // and passes PyTorch's current stream.
@@ -629,11 +636,26 @@ __device__ void transfer_products(const Layout& s, const float* A) {
   seg_pass<true, kTransfer>(s, A);
 }
 
-// The preconditioner M⁻¹ v → out (M = the scaled chain factor): scaling in,
-// forward chain, the blocks' Cholesky solves, backward chain, scaling out;
-// the chains in w.
+// The preconditioner M⁻¹ v → out. The chain's (kJacobi false; M = the scaled
+// chain factor): scaling in, forward chain, the blocks' Cholesky solves,
+// backward chain, scaling out; the chains in w. Block-Jacobi (kJacobi): each
+// keyframe's own block solve, in parallel.
+template <bool kJacobi>
 __device__ void precond(const Layout& s, const float* Ag, const float* v, float* out) {
   const int tid = threadIdx.x;
+  if constexpr (kJacobi) {
+    for (int k = tid; k < s.n_act; k += kThreads) {
+      float w[6];
+#pragma unroll
+      for (int a = 0; a < 6; ++a) w[a] = v[6 * k + a];
+      chol_solve6(s.chol + 36 * k, w);
+#pragma unroll
+      for (int a = 0; a < 6; ++a) out[6 * k + a] = w[a];
+    }
+    __syncthreads();
+    TICK(kTBlockSolve);
+    return;
+  }
   for (int i = tid; i < 6 * s.n_act; i += kThreads) s.w[i] = v[i] / s.d[i];
   __syncthreads();
   TICK(kTPrecIn);
@@ -762,6 +784,10 @@ __device__ void hvp(const Args& a, const Layout& s, const float* v, float* y) {
   TICK(kTHvp);
 }
 
+// kJacobi: the block-Jacobi preconditioner (each keyframe's 6×6 block
+// factored on its own, in parallel; no chain, no sweeps) in place of the
+// chain's.
+template <bool kJacobi>
 __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kLanes / 32 + 1];
@@ -807,7 +833,7 @@ __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
   s.head = reinterpret_cast<int*>(c.take(n_act));
   s.next = reinterpret_cast<int*>(c.take(2 * n_loop));
   s.lc = c.take(12 * n_loop);
-  s.seg = n_seq >= a.seg_min;
+  s.seg = !kJacobi && n_seq >= a.seg_min;
   s.lseg = segment_links(n_seq);
   s.nseg = (n_seq + s.lseg - 1) / s.lseg;
   s.A = g.A;
@@ -817,7 +843,7 @@ __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
     s.P = c.take(2 * s.nseg * 36);
     s.yend = c.take(6 * s.nseg);
     s.yin = c.take(6 * s.nseg);
-  } else if (c.fits(36 * n_seq)) {
+  } else if (!kJacobi && c.fits(36 * n_seq)) {
     As = c.take(36 * n_seq);
     s.A = As;
   }
@@ -830,78 +856,93 @@ __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
   s.d = c.take_or(6 * n_act, g.d);
   s.chol = c.take_or(36 * n_act, g.chol);
 
-  // Jacobi scaling
-  for (int i = tid; i < 6 * n_act; i += kThreads) {
-    const int k = i / 6, cc = i % 6;
-    s.d[i] = sqrtf(fabsf(a.D[36 * k + 7 * cc]) + 1e-12f);
-  }
-  for (int n = tid; n < n_act; n += kThreads) s.head[n] = -1;
-  __syncthreads();
-  // the decoupled blocks (k = 0 and k ≥ n_seq), A's zero blocks, and the
-  // chain's scaled operands U'_k, D'_k (k in [1, n_seq))
-  for (int k = tid; k < n_act; k += kThreads) {
-    if (k != 0 && k < n_seq) continue;
-    float S[36];
-    const float* dk = s.d + 6 * k;
-    for (int i = 0; i < 6; ++i)
-      for (int j = 0; j < 6; ++j) S[i * 6 + j] = a.D[36 * k + i * 6 + j] / (dk[i] * dk[j]);
-    if (k != 0) {
+  if constexpr (kJacobi) {
+    for (int n = tid; n < n_act; n += kThreads) s.head[n] = -1;
+    // each live block's Cholesky factor (the blocks carry node 0 = I and the
+    // 1e-6·I damping already), a thread a keyframe
+    for (int k = tid; k < n_act; k += kThreads) {
+      float S[36];
+      for (int e = 0; e < 36; ++e) S[e] = a.D[36 * k + e];
+      chol6(S, s.chol + 36 * k);
+    }
+    __syncthreads();
+    TICK(kTScale);
+  } else {
+    // Jacobi scaling
+    for (int i = tid; i < 6 * n_act; i += kThreads) {
+      const int k = i / 6, cc = i % 6;
+      s.d[i] = sqrtf(fabsf(a.D[36 * k + 7 * cc]) + 1e-12f);
+    }
+    for (int n = tid; n < n_act; n += kThreads) s.head[n] = -1;
+    __syncthreads();
+    // the decoupled blocks (k = 0 and k ≥ n_seq), A's zero blocks, and the
+    // chain's scaled operands U'_k, D'_k (k in [1, n_seq))
+    for (int k = tid; k < n_act; k += kThreads) {
+      if (k != 0 && k < n_seq) continue;
+      float S[36];
+      const float* dk = s.d + 6 * k;
       for (int i = 0; i < 6; ++i)
-        for (int j = 0; j < i; ++j) {
-          const float m = 0.5f * (S[i * 6 + j] + S[j * 6 + i]);
-          S[i * 6 + j] = m;
-          S[j * 6 + i] = m;
-        }
+        for (int j = 0; j < 6; ++j) S[i * 6 + j] = a.D[36 * k + i * 6 + j] / (dk[i] * dk[j]);
+      if (k != 0) {
+        for (int i = 0; i < 6; ++i)
+          for (int j = 0; j < i; ++j) {
+            const float m = 0.5f * (S[i * 6 + j] + S[j * 6 + i]);
+            S[i * 6 + j] = m;
+            S[j * 6 + i] = m;
+          }
+      }
+      damp_chol6(S, s.chol + 36 * k);
+      for (int e = 0; e < 36; ++e) g.A[36 * k + e] = 0.f;
     }
-    damp_chol6(S, s.chol + 36 * k);
-    for (int e = 0; e < 36; ++e) g.A[36 * k + e] = 0.f;
-  }
-  if (tid < 36) {
-    g.A[36 * n_seq + tid] = 0.f;
-    if (As) As[tid] = 0.f;
-  }
-  for (int u = tid; u < 36 * (n_seq - 1); u += kThreads) {
-    const int k = 1 + u / 36, e = u % 36, i = e / 6, j = e % 6;
-    g.UD[72 * k + e] = a.U[36 * k + e] / (s.d[6 * (k - 1) + i] * s.d[6 * k + j]);
-    g.UD[72 * k + 36 + e] = a.D[36 * k + e] / (s.d[6 * k + i] * s.d[6 * k + j]);
-  }
-  __syncthreads();
-  TICK(kTScale);
+    if (tid < 36) {
+      g.A[36 * n_seq + tid] = 0.f;
+      if (As) As[tid] = 0.f;
+    }
+    for (int u = tid; u < 36 * (n_seq - 1); u += kThreads) {
+      const int k = 1 + u / 36, e = u % 36, i = e / 6, j = e % 6;
+      g.UD[72 * k + e] = a.U[36 * k + e] / (s.d[6 * (k - 1) + i] * s.d[6 * k + j]);
+      g.UD[72 * k + 36 + e] = a.D[36 * k + e] / (s.d[6 * k + i] * s.d[6 * k + j]);
+    }
+    __syncthreads();
+    TICK(kTScale);
 
+  }
   if (tid < 32) {
-    // the Thomas recursion along the coupled prefix in warp 0, lane j < 6 a
-    // column; lanes 0-17 copy link k+kFactorRing's 72 operands, 16 bytes each,
-    // while link k runs
-    const int lane = tid;
-    const int j = lane < 6 ? lane : 0;
-    if (lane < 6) {
-      for (int i = 0; i < 6; ++i) Lprev[i * 6 + lane] = s.chol[i * 6 + lane];
-    }
-#pragma unroll
-    for (int q = 0; q < kFactorRing; ++q) {
-      const int k = 1 + q;
-      if (k < n_seq && lane < 18)
-        __pipeline_memcpy_async(fring + 72 * (k % kFactorRing) + 4 * lane,
-                                g.UD + 72 * k + 4 * lane, 16);
-      __pipeline_commit();
-    }
-    for (int k = 1; k < n_seq; ++k) {
-      __pipeline_wait_prior(kFactorRing - 1);
-      __syncwarp();
-      float* slot = fring + 72 * (k % kFactorRing);
-      float acol[6];
-      factor_link<true>(slot, slot + 36, Lprev, Sblk, j, acol, s.chol + 36 * k);
-      // every lane is past its reads of the slot
-      const int kn = k + kFactorRing;
-      if (kn < n_seq && lane < 18)
-        __pipeline_memcpy_async(slot + 4 * lane, g.UD + 72 * kn + 4 * lane, 16);
-      __pipeline_commit();
+    if constexpr (!kJacobi) {
+      // the Thomas recursion along the coupled prefix in warp 0, lane j < 6 a
+      // column; lanes 0-17 copy link k+kFactorRing's 72 operands, 16 bytes each,
+      // while link k runs
+      const int lane = tid;
+      const int j = lane < 6 ? lane : 0;
       if (lane < 6) {
+        for (int i = 0; i < 6; ++i) Lprev[i * 6 + lane] = s.chol[i * 6 + lane];
+      }
 #pragma unroll
-        for (int i = 0; i < 6; ++i) g.A[36 * k + i * 6 + j] = acol[i];
-        if (As) {
+      for (int q = 0; q < kFactorRing; ++q) {
+        const int k = 1 + q;
+        if (k < n_seq && lane < 18)
+          __pipeline_memcpy_async(fring + 72 * (k % kFactorRing) + 4 * lane,
+                                  g.UD + 72 * k + 4 * lane, 16);
+        __pipeline_commit();
+      }
+      for (int k = 1; k < n_seq; ++k) {
+        __pipeline_wait_prior(kFactorRing - 1);
+        __syncwarp();
+        float* slot = fring + 72 * (k % kFactorRing);
+        float acol[6];
+        factor_link<true>(slot, slot + 36, Lprev, Sblk, j, acol, s.chol + 36 * k);
+        // every lane is past its reads of the slot
+        const int kn = k + kFactorRing;
+        if (kn < n_seq && lane < 18)
+          __pipeline_memcpy_async(slot + 4 * lane, g.UD + 72 * kn + 4 * lane, 16);
+        __pipeline_commit();
+        if (lane < 6) {
 #pragma unroll
-          for (int i = 0; i < 6; ++i) As[36 * k + i * 6 + j] = acol[i];
+          for (int i = 0; i < 6; ++i) g.A[36 * k + i * 6 + j] = acol[i];
+          if (As) {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) As[36 * k + i * 6 + j] = acol[i];
+          }
         }
       }
     }
@@ -931,7 +972,7 @@ __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
   }
   __syncthreads();
   TICK(kTInit);
-  precond(s, g.A, s.r, s.z);
+  precond<kJacobi>(s, g.A, s.r, s.z);
   for (int i = tid; i < 6 * n_act; i += kThreads) s.p[i] = s.z[i];
   const float rz0 = block_dot(s.r, s.z, 6 * n_act, red);
   TICK(kTReduce);
@@ -947,7 +988,7 @@ __global__ void __launch_bounds__(kThreads) pgo_cg_kernel(Args a) {
     }
     __syncthreads();
     TICK(kTUpdate);
-    precond(s, g.A, s.r, s.z);
+    precond<kJacobi>(s, g.A, s.r, s.z);
     const float rz_new = block_dot(s.r, s.z, 6 * n_act, red);
     TICK(kTReduce);
     const float beta = rz_new / fmaxf(rz, 1e-20f);
@@ -1079,7 +1120,8 @@ extern "C" int pgo_segment_links(int n_seq) {
 
 // One launch with the substitutions segmented from `seg_min` coupled
 // keyframes on (the kernel's own choice is kSegmentedMin); pgo_cg_launch
-// passes kSegmentedMin. Every pointer is a contiguous device array (see
+// passes kSegmentedMin. `jacobi` picks the block-Jacobi preconditioner (the
+// sweeps then never run). Every pointer is a contiguous device array (see
 // Args); returns the CUDA error of the launch (0 on success).
 extern "C" int pgo_cg_launch_sweep(const float* D, const float* U, const float* g,
                                    const float* Ji, const float* Jj, const float* oinfo,
@@ -1089,20 +1131,22 @@ extern "C" int pgo_cg_launch_sweep(const float* D, const float* U, const float* 
                                    const unsigned char* kf, const unsigned char* run,
                                    int K, int L, float cg_tol, int cg_iterations,
                                    float* x, int* iters, float* scratch, void* stream,
-                                   int seg_min) {
+                                   int seg_min, int jacobi) {
   if (K < 2 || K > kMaxK || L < 0 || L > kMaxL || cg_iterations < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = smem_bytes(K, L);
+  void (*kernel)(Args) = jacobi ? pgo_cg_kernel<true> : pgo_cg_kernel<false>;
   const cudaError_t set = cudaFuncSetAttribute(
-      pgo_cg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
   Args a{D, U, g, Ji, Jj, oinfo, wp, Jli, Jlj, li, lj, wl, gA, gz, kf, run,
          K, L, cg_iterations, cg_tol, seg_min, bytes / 4, x, iters, scratch};
-  pgo_cg_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch: the factor and the whole PCG loop of one Gauss-Newton iteration.
+// One launch: the factor and the whole PCG loop of one Gauss-Newton iteration,
+// with the chain's preconditioner (`jacobi` 0) or the block-Jacobi one (1).
 extern "C" int pgo_cg_launch(const float* D, const float* U, const float* g,
                              const float* Ji, const float* Jj, const float* oinfo,
                              const float* wp, const float* Jli, const float* Jlj,
@@ -1110,8 +1154,9 @@ extern "C" int pgo_cg_launch(const float* D, const float* U, const float* g,
                              const float* wl, const float* gA, const float* gz,
                              const unsigned char* kf, const unsigned char* run,
                              int K, int L, float cg_tol, int cg_iterations,
-                             float* x, int* iters, float* scratch, void* stream) {
+                             float* x, int* iters, float* scratch, void* stream,
+                             int jacobi) {
   return pgo_cg_launch_sweep(D, U, g, Ji, Jj, oinfo, wp, Jli, Jlj, li, lj, wl, gA, gz, kf,
                              run, K, L, cg_tol, cg_iterations, x, iters, scratch, stream,
-                             kSegmentedMin);
+                             kSegmentedMin, jacobi);
 }

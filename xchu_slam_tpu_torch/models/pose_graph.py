@@ -6,8 +6,10 @@ information, loop factors a Cauchy-robust (IRLS) weight scaled by ICP
 fitness, GPS factors constrain altitude only. Each GN iteration
 materializes the per-factor 6×6 Jacobian blocks once and assembles the
 gradient, the Hessian-vector product and the preconditioner from them. The
-preconditioner solves the chain part of the Hessian exactly: a block-LDLᵀ
-(Thomas) factorization plus two affine prefix scans for the substitutions.
+default preconditioner (`precond="tridiag"`) solves the chain part of the
+Hessian exactly: a block-LDLᵀ (Thomas) factorization plus two affine prefix
+scans for the substitutions. `precond="jacobi"` is the reference's
+block-Jacobi one: a Cholesky factor of each 6×6 diagonal block.
 
 Two routes, picked by where the tensors live (as `ndt.align` picks its
 own). On the card (`solve`) each Gauss-Newton iteration's system is
@@ -53,7 +55,8 @@ class GraphSpec(NamedTuple):
 
 
 def spec_from_config(pgo_cfg) -> GraphSpec:
-    return GraphSpec(
+    """The config's spec; an unknown preconditioner is refused here."""
+    spec = GraphSpec(
         max_keyframes=pgo_cfg.max_keyframes,
         max_loops=pgo_cfg.max_loops,
         odom_info_t=1.0 / pgo_cfg.odom_noise_trans,
@@ -67,6 +70,8 @@ def spec_from_config(pgo_cfg) -> GraphSpec:
         precond=pgo_cfg.precond,
         gps_info_z=1.0 / pgo_cfg.gps_noise_alt,
     )
+    _check_spec(spec)
+    return spec
 
 
 class GraphData(NamedTuple):
@@ -338,10 +343,18 @@ def _hvp(sys_: _System, graph: GraphData, v):
 def _pcg_ref(sys_: _System, graph: GraphData, spec: GraphSpec) -> torch.Tensor:
     """The plain PCG with a relative stop on the preconditioned norm; its
     stop test is read back once per iteration."""
-    dsc, chols, Af = block_tridiag_factor(sys_.blocks, sys_.U)
+    if spec.precond == "jacobi":
+        # the reference's block-Jacobi preconditioner: each diagonal block
+        # (node 0 = I, + 1e-6·I) factored on its own
+        chol = _chol(sys_.blocks)
 
-    def precond(v):
-        return block_tridiag_solve(dsc, chols, Af, v)
+        def precond(v):
+            return torch.cholesky_solve(v[..., None], chol)[..., 0]
+    else:
+        dsc, chols, Af = block_tridiag_factor(sys_.blocks, sys_.U)
+
+        def precond(v):
+            return block_tridiag_solve(dsc, chols, Af, v)
 
     b = -sys_.g
     x = torch.zeros_like(b)
@@ -363,8 +376,9 @@ def _pcg_ref(sys_: _System, graph: GraphData, spec: GraphSpec) -> torch.Tensor:
 
 
 def _check_spec(spec: GraphSpec):
-    if spec.precond != "tridiag":
-        raise ValueError(f"precond {spec.precond!r} is not ported")
+    """Both routes run the preconditioners the kernel has an instantiation
+    for."""
+    pgo_kernel.precond_code(spec.precond)
 
 
 def solve_ref(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
@@ -396,7 +410,8 @@ def _gn_step_cuda(Ts, graph: GraphData, spec: GraphSpec, run) -> torch.Tensor:
         s.blocks.contiguous(), s.U.contiguous(), s.g.contiguous(), s.Ji.contiguous(),
         s.Jj.contiguous(), s.odom_info, s.wp, s.Jli.contiguous(), s.Jlj.contiguous(),
         graph.loop_i, graph.loop_j, s.wl.contiguous(), s.A.contiguous(),
-        s.gz.contiguous(), graph.kf_mask, run, spec.cg_tol, spec.cg_iterations)
+        s.gz.contiguous(), graph.kf_mask, run, spec.cg_tol, spec.cg_iterations,
+        precond=spec.precond)
     return torch.matmul(Ts, se3.se3_exp(x * mask0))
 
 
@@ -454,8 +469,8 @@ def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
     iteration's CUDA graph (`_GnGraph`, captured at the first solve of a
     store shape and spec) `gn_iterations` times: the system assembled in
     PyTorch, a fixed number of launches, and solved by one launch of
-    `csrc/pgo_kernel.cu` (factor and PCG, the stop test on the card). No host
-    synchronisation."""
+    `csrc/pgo_kernel.cu` (the spec's preconditioner's factor and the PCG,
+    the stop test on the card). No host synchronisation."""
     if poses6.device.type == "cpu":
         return solve_ref(poses6, graph, spec, run)
     _check_spec(spec)

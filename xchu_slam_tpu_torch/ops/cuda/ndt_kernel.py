@@ -12,13 +12,16 @@ PyTorch's current stream (the capturing stream under a CUDA graph capture).
 One cooperative launch is one whole align: `align_record` returns the
 kernel's 64-float record on the card (`RECORD` names its slots).
 `hessian_pass` runs the kernel's single-pass mode: (L, g, H) at a pose.
-`plan` is the launch geometry: a lane per (point, neighbour) pair, 8 lanes a
-point, one block of 512 threads an SM. `probe` launches the source's probe
-kernels, which time what an align waits for (a launch, a barrier, a round
-trip to L2, the control step); nothing on a main path calls it. The library
-is compiled by nvcc from the repository's source at first use, with
-`-fmad=false` so that the control thresholds are compared as the plain
-version compares them.
+The kernel has one instantiation per neighbourhood size and line search
+(`NdtSpec.neighbor_mode` × `ls_mode`: DIRECT1, DIRECT7 or the 27-cube of
+DIRECT26 / KDTREE, × backtrack, mt_exact, ref_clamped); the spec picks it.
+`plan` is the launch geometry: a lane per (point, neighbour) pair, `LANES`
+lanes a point (1, 8 or 32), one block of 512 threads an SM. `probe`
+launches the source's probe kernels, which time what an align waits for (a
+launch, a barrier, a round trip to L2, the control step); nothing on a main
+path calls it. The library is compiled by nvcc from the repository's source
+at first use, with `-fmad=false` so that the control thresholds are compared
+as the plain version compares them.
 """
 
 from __future__ import annotations
@@ -29,14 +32,23 @@ from pathlib import Path
 
 import torch
 
+from xchu_slam_tpu_torch.ops import voxel_map as vm
 from xchu_slam_tpu_torch.ops.cuda import _build
 
 _SRC = _build.CSRC / "ndt_kernel.cu"
 NVCC_FLAGS = (*_build.BASE_FLAGS, "-fmad=false")
 
-# the kernel's geometry (csrc/ndt_kernel.cu: kThreads, kLanes, kAcc, kRow, kOut)
+# the kernel's geometry (csrc/ndt_kernel.cu: kThreads, kAcc, kRow, kOut, and
+# Neighbours<M>: kLanes, kCacheTrips)
 THREADS = 512
-LANES = 8       # lanes that own one source point: its 7 voxels and an idle one
+# voxels a point, by neighbour mode; the lanes that own one source point (its
+# voxels and idle lanes up to a power of two), and the trips of the
+# grid-stride loop over which the kernel keeps the gathered rows in shared
+# memory (past them it gathers again every pass)
+NEIGHBOURS = vm.NEIGHBOR_COUNT
+LANES = {"direct1": 1, "direct7": 8, "direct26": 32, "kdtree": 32}
+CACHE_TRIPS = {"direct1": 1, "direct7": 1, "direct26": 4, "kdtree": 4}
+LINE_SEARCHES = {"backtrack": 0, "mt_exact": 1, "ref_clamped": 2}
 ACC = 28
 ROW = 32        # floats of one block's partial
 OUT = 64
@@ -63,43 +75,68 @@ def build() -> tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_align_launch.argtypes = [ptr] * 7 + [i32] * 4 + [f32] * 7 + [i32] * 4 + [ptr]
+    lib.ndt_align_launch.argtypes = ([ptr] * 7 + [i32] * 4 + [f32] * 7 + [i32] * 7 + [f32]
+                                     + [ptr])
     lib.ndt_align_launch.restype = i32
-    lib.ndt_max_blocks.argtypes = [i32]
+    lib.ndt_max_blocks.argtypes = [i32] * 3
     lib.ndt_max_blocks.restype = i32
     lib.ndt_probe_max_clusters.argtypes = [i32, i32]
     lib.ndt_probe_max_clusters.restype = i32
     lib.ndt_probe_launch.argtypes = [i32] * 4 + [ptr] * 2 + [f32] * 2 + [ptr]
     lib.ndt_probe_launch.restype = i32
-    geometry = [i32() for _ in range(5)]
+    geometry = [i32() for _ in range(4)]
     lib.ndt_geometry(*(ctypes.byref(v) for v in geometry))
-    if tuple(v.value for v in geometry) != (THREADS, LANES, ACC, ROW, OUT):
+    lanes, trips = i32(), i32()
+    per_mode = {}
+    for mode, m in NEIGHBOURS.items():
+        lib.ndt_neighbours(m, ctypes.byref(lanes), ctypes.byref(trips))
+        per_mode[mode] = (lanes.value, trips.value)
+    if tuple(v.value for v in geometry) != (THREADS, ACC, ROW, OUT) or per_mode != {
+            mode: (LANES[mode], CACHE_TRIPS[mode]) for mode in NEIGHBOURS}:
         raise RuntimeError("ndt_kernel.cu and its wrapper disagree on the geometry")
     return lib
 
 
-def plan(n: int, sms: int) -> tuple[int, int]:
-    """(blocks, trips) of one launch for `n` source points where the card
-    holds `sms` blocks of the kernel at once (one an SM). A block covers
-    THREADS / LANES points a trip of its grid-stride loop; the blocks are the
-    fewest that keep the trips at their least, so no block idles a whole trip
-    and the barrier has no more arrivals than it needs."""
+def plan(n: int, sms: int, lanes: int = LANES["direct7"]) -> tuple[int, int]:
+    """(blocks, trips) of one launch for `n` source points of `lanes` lanes
+    each where the card holds `sms` blocks of the kernel at once (one an SM).
+    A block covers THREADS / lanes points a trip of its grid-stride loop; the
+    blocks are the fewest that keep the trips at their least, so no block
+    idles a whole trip and the barrier has no more arrivals than it needs."""
     if n < 1 or sms < 1:
         raise ValueError(f"plan needs n >= 1 and sms >= 1, got {n}, {sms}")
-    needed = -(-n * LANES // THREADS)
+    needed = -(-n * lanes // THREADS)
     trips = -(-needed // sms)
     return -(-needed // trips), trips
 
 
-@functools.lru_cache(maxsize=8)
-def max_blocks(device_index: int) -> int:
-    """Blocks of the kernel that the device holds at once: the most a
-    cooperative launch may ask for."""
+@functools.lru_cache(maxsize=32)
+def max_blocks(device_index: int, neighbor_mode: str = "direct7",
+               ls_mode: str = "backtrack") -> int:
+    """Blocks of the mode's kernel instantiation that the device holds at
+    once: the most a cooperative launch may ask for."""
     with torch.cuda.device(device_index):
-        n = _library().ndt_max_blocks(device_index)
+        n = _library().ndt_max_blocks(device_index, NEIGHBOURS[neighbor_mode],
+                                      LINE_SEARCHES[ls_mode])
     if n < 1:
         raise RuntimeError("the device cannot launch the NDT kernel cooperatively")
     return n
+
+
+def check_modes(nspec) -> None:
+    """Raise on a spec that has no kernel instantiation (and that the plain
+    version does not run either), naming what is refused."""
+    if nspec.max_iterations < 1:
+        raise ValueError("NdtSpec.max_iterations must be >= 1")
+    if nspec.ls_mode not in LINE_SEARCHES:
+        raise ValueError(f"unknown ls_mode {nspec.ls_mode!r}; the port runs "
+                         f"{tuple(LINE_SEARCHES)}")
+    if nspec.neighbor_mode not in NEIGHBOURS:
+        raise ValueError(f"neighbor_mode {nspec.neighbor_mode!r} is not ported; the port "
+                         f"runs {tuple(NEIGHBOURS)} (direct7_rows is refused)")
+    if nspec.regather_dist != 0.0:
+        raise ValueError(f"regather_dist={nspec.regather_dist} is not ported: the port "
+                         "gathers the neighbourhood every Newton iteration (0.0)")
 
 
 def _check(fin, origin, src, mask, pose, gspec):
@@ -122,15 +159,11 @@ def _check(fin, origin, src, mask, pose, gspec):
 def _launch(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float,
             mode: int) -> torch.Tensor:
     _check(fin, origin, src, mask, pose, gspec)
-    if nspec.max_iterations < 1:
-        raise ValueError("NdtSpec.max_iterations must be >= 1")
-    if nspec.ls_mode != "backtrack" or nspec.regather_dist != 0.0 \
-            or nspec.neighbor_mode != "direct7":
-        raise ValueError("only ls_mode='backtrack', regather_dist=0 and "
-                         "neighbor_mode='direct7' are ported")
+    check_modes(nspec)
     dev = src.device
     lib = _library()
-    blocks, _trips = plan(src.shape[0], max_blocks(dev.index))
+    nb = nspec.neighbor_mode
+    blocks, _trips = plan(src.shape[0], max_blocks(dev.index, nb, nspec.ls_mode), LANES[nb])
     out = torch.empty(OUT, dtype=torch.float32, device=dev)
     partial = torch.empty(2 * blocks * ROW, dtype=torch.float32, device=dev)
     s = -0.5 * d2
@@ -142,7 +175,8 @@ def _launch(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float,
             gspec.resolution, d1, s, 2.0 * s, 4.0 * s * s,
             nspec.step_size, nspec.trans_eps,
             nspec.max_iterations, nspec.ls_max_trials, mode, blocks,
-            _build.raw_stream(dev.index))
+            NEIGHBOURS[nb], LINE_SEARCHES[nspec.ls_mode], int(nb == "kdtree"),
+            gspec.resolution ** 2, _build.raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"ndt_kernel launch failed: CUDA error {rc}")
     return out

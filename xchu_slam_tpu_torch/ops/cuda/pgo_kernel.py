@@ -1,13 +1,15 @@
 """The pose-graph PCG on the card: the CUDA kernel `csrc/pgo_kernel.cu`.
 
-One launch is the linear solve of one Gauss-Newton iteration: the chain
-preconditioner's block-LDLᵀ factorisation, then the PCG loop with its stop
-test `rz > cg_tol·rz0 && it < cg_iterations` decided in the kernel, one block
-of 384 threads, nothing read back. Its plain PyTorch version is the factor,
-substitutions and CG loop of `models/pose_graph.py::solve_ref`, which takes
-CPU tensors; `pose_graph.solve` comes here for CUDA tensors, from both
-engines. `cg` takes CUDA tensors only: it launches the kernel or raises,
-never falls back, never synchronises, and goes to PyTorch's current stream.
+One launch is the linear solve of one Gauss-Newton iteration: the
+preconditioner's factorisation (the chain's block-LDLᵀ for "tridiag", each
+diagonal block's Cholesky for "jacobi", one kernel instantiation each), then
+the PCG loop with its stop test `rz > cg_tol·rz0 && it < cg_iterations`
+decided in the kernel, one block of 384 threads, nothing read back. Its
+plain PyTorch version is the factor, substitutions and CG loop of
+`models/pose_graph.py::solve_ref`, which takes CPU tensors;
+`pose_graph.solve` comes here for CUDA tensors, from both engines. `cg`
+takes CUDA tensors only: it launches the kernel or raises, never falls
+back, never synchronises, and goes to PyTorch's current stream.
 The library is compiled by nvcc from the repository's source at first use.
 
 The kernel's first version (`csrc/pgo_kernel_first.cu`, `_cg_first`) stays
@@ -30,6 +32,7 @@ _SRC_FIRST = _build.CSRC / "pgo_kernel_first.cu"
 NVCC_FLAGS = _build.BASE_FLAGS
 THREADS = 384   # csrc/pgo_kernel.cu: kThreads
 MAX_KEYFRAMES, MAX_LOOPS = 4096, 256   # kMaxK, kMaxL: the slots its shared memory holds
+PRECONDS = {"tridiag": 0, "jacobi": 1}   # the kernel's instantiations
 
 # kernel launches since the last reset (one per Gauss-Newton iteration of a
 # solve on the card; read and reset by callers that need to show it ran)
@@ -55,9 +58,9 @@ _CG_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_fl
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pgo_cg_launch.argtypes = _CG_ARGTYPES
+    lib.pgo_cg_launch.argtypes = _CG_ARGTYPES + [i32]
     lib.pgo_cg_launch.restype = i32
-    lib.pgo_cg_launch_sweep.argtypes = _CG_ARGTYPES + [i32]
+    lib.pgo_cg_launch_sweep.argtypes = _CG_ARGTYPES + [i32, i32]
     lib.pgo_cg_launch_sweep.restype = i32
     lib.pgo_scratch_floats.argtypes = [i32, i32]
     lib.pgo_scratch_floats.restype = ctypes.c_longlong
@@ -122,32 +125,43 @@ def _launch(launch, scratch_floats, named: dict, cg_tol: float, cg_iterations: i
     return x, iters
 
 
+def precond_code(precond: str) -> int:
+    """The instantiation of `precond`; raises on an unknown name."""
+    if precond not in PRECONDS:
+        raise ValueError(f"unknown precond {precond!r}; the port runs {tuple(PRECONDS)}")
+    return PRECONDS[precond]
+
+
 def cg(D, U, g, Ji, Jj, oinfo, wp, Jli, Jlj, li, lj, wl, gA, gz, kf, run,
-       cg_tol: float, cg_iterations: int):
+       cg_tol: float, cg_iterations: int, precond: str = "tridiag"):
     """The update x [K,6] (0 on node 0, on dead keyframes and everywhere when
     `run` is false) and the CG trip count (int32 [1]) of one Gauss-Newton
-    iteration, both on the card. Arguments as `pose_graph.solve`'s
-    `_gn_system` assembles them."""
+    iteration, both on the card, with the `precond` preconditioner
+    ("tridiag" or "jacobi"). Arguments as `pose_graph.solve`'s `_gn_system`
+    assembles them (U is read by "tridiag" alone)."""
     global launches
     named = dict(D=D, U=U, g=g, Ji=Ji, Jj=Jj, oinfo=oinfo, wp=wp, Jli=Jli, Jlj=Jlj,
                  li=li, lj=lj, wl=wl, gA=gA, gz=gz, kf=kf, run=run)
+    code = precond_code(precond)
     lib = _library()
-    out = _launch(lib.pgo_cg_launch, lib.pgo_scratch_floats, named, cg_tol, cg_iterations)
+    out = _launch(lib.pgo_cg_launch, lib.pgo_scratch_floats, named, cg_tol, cg_iterations,
+                  code)
     launches += 1
     return out
 
 
 def _cg_sweep(D, U, g, Ji, Jj, oinfo, wp, Jli, Jlj, li, lj, wl, gA, gz, kf, run,
               cg_tol: float, cg_iterations: int, seg_min: int):
-    """`cg` with the substitutions segmented from `seg_min` coupled keyframes
-    on (the kernel's own choice is its constant kSegmentedMin): 0 forces the
-    segmented sweeps, a number past K the sequential ones. For timings and
-    tests only: not counted in `launches`."""
+    """`cg` ("tridiag") with the substitutions segmented from `seg_min`
+    coupled keyframes on (the kernel's own choice is its constant
+    kSegmentedMin): 0 forces the segmented sweeps, a number past K the
+    sequential ones. For timings and tests only: not counted in
+    `launches`."""
     named = dict(D=D, U=U, g=g, Ji=Ji, Jj=Jj, oinfo=oinfo, wp=wp, Jli=Jli, Jlj=Jlj,
                  li=li, lj=lj, wl=wl, gA=gA, gz=gz, kf=kf, run=run)
     lib = _library()
     return _launch(lib.pgo_cg_launch_sweep, lib.pgo_scratch_floats, named, cg_tol,
-                   cg_iterations, int(seg_min))
+                   cg_iterations, int(seg_min), PRECONDS["tridiag"])
 
 
 def _cg_first(D, U, g, Ji, Jj, oinfo, wp, Jli, Jlj, li, lj, wl, gA, gz, kf, run,

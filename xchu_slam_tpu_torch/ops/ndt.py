@@ -1,9 +1,14 @@
 """NDT scan-to-map alignment, the odometry hot loop (port of
 `xchu_slam_tpu.ops.ndt`).
 
-Newton iterations with a backtracking (Armijo + curvature) line search, as
-the reference's default `ls_mode="backtrack"`, with a fresh DIRECT7 gather
-per Newton iteration (`regather_dist=0`).
+Newton iterations with the reference's three line searches (`ls_mode`):
+"backtrack" (the default: Armijo + curvature backtracking), "mt_exact" (the
+More-Thuente search with its loop live) and "ref_clamped" (what the
+reference's binary executes: its More-Thuente loop is dead code, so the step
+is the clamped first trial), over any of its neighbourhoods
+(`neighbor_mode`: direct1, direct7, direct26, kdtree), gathered afresh every
+Newton iteration (`regather_dist=0`; a frozen neighbourhood,
+`regather_dist > 0`, is not ported and is refused by name).
 
 The reference runs both loops on the device under `lax.while_loop`, for
 both of its engines. So does the port: `align` has one route per device,
@@ -49,7 +54,9 @@ class NdtSpec(NamedTuple):
 
 
 def spec_from_config(ndt_cfg) -> NdtSpec:
-    return NdtSpec(
+    """The config's spec, checked (`check_spec`): a mode the port does not
+    run is refused here, before any scan."""
+    spec = NdtSpec(
         step_size=ndt_cfg.step_size,
         trans_eps=ndt_cfg.trans_eps,
         max_iterations=ndt_cfg.max_iterations,
@@ -60,6 +67,8 @@ def spec_from_config(ndt_cfg) -> NdtSpec:
         ls_mode=ndt_cfg.ls_mode,
         regather_dist=ndt_cfg.regather_dist,
     )
+    check_spec(spec)
+    return spec
 
 
 def gauss_constants(outlier_ratio: float, resolution: float) -> tuple[float, float]:
@@ -80,13 +89,21 @@ class AlignResult(NamedTuple):
     matched_frac: torch.Tensor  # fraction of source pts hitting ≥1 voxel
     fitness: torch.Tensor       # mean sq dist to matched voxel means
     # score/matched_frac/fitness are diagnostics: score is the line-search φ
-    # at the accepted pose, matched/fitness reuse the last-gathered DIRECT7
+    # at the accepted pose, matched/fitness reuse the last-gathered
     # neighbourhood (as in the reference)
 
 
+def check_spec(nspec: NdtSpec) -> None:
+    """Raise on a spec the port does not run, naming what is refused: both
+    routes run the modes the kernel has an instantiation for
+    (`ndt_kernel.check_modes`)."""
+    ndt_kernel.check_modes(nspec)
+
+
 def _fitness(pose, src_xyz, src_mask, nb):
-    """Matched fraction + mean squared distance to the nearest DIRECT7 voxel
-    mean, on a neighbourhood gathered ≤ one line-search step from `pose`."""
+    """Matched fraction + mean squared distance to the nearest valid voxel
+    mean of the neighbourhood (a min over its M voxels), gathered ≤ one
+    line-search step from `pose`."""
     pts = se3.rotate_translate(pose, src_xyz)
     mean_w, _, vvalid = nb
     d2_ = torch.sum((pts[:, None, :] - mean_w) ** 2, -1)
@@ -193,18 +210,116 @@ def _backtrack(phi_dphi, phi0, dphi0, alpha0, nspec: NdtSpec):
     return _f32(0.0), phi0     # nothing improved over φ(0): take no step
 
 
-def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec):
-    """Newton + backtracking line search. `prepare(pose)` gathers the
+_TINY = 1e-30
+
+
+def _safe_div(num, den):
+    """num/den with a sign-preserving floor of 1e-30 on |den| (every branch
+    of the trial selection is computed, as the reference's selects do)."""
+    floor = torch.where(den >= 0.0, _f32(_TINY), _f32(-_TINY))
+    return num / torch.where(torch.abs(den) > _TINY, den, floor)
+
+
+def mt_trial_value(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
+    """`trialValueSelectionMT` (ndt_omp_impl.hpp:682-757) on float32 host
+    scalars, as the reference's branch-free form computes it: the four
+    More-Thuente cases with the cubic, quadratic and secant minimisers, every
+    case evaluated, square roots clamped at 0 and divisions floored."""
+    z1 = 3.0 * _safe_div(f_t - f_l, a_t - a_l) - g_t - g_l
+    w1 = torch.sqrt(torch.clamp(z1 * z1 - g_t * g_l, min=0.0))
+    a_c1 = a_l + (a_t - a_l) * _safe_div(w1 - g_l - z1, g_t - g_l + 2.0 * w1)
+    a_q = a_l - 0.5 * (a_l - a_t) * _safe_div(
+        g_l, g_l - _safe_div(f_l - f_t, a_l - a_t))
+    case1 = torch.where(torch.abs(a_c1 - a_l) < torch.abs(a_q - a_l),
+                        a_c1, 0.5 * (a_q + a_c1))
+    a_s = a_l - _safe_div(a_l - a_t, g_l - g_t) * g_l
+    case2 = torch.where(torch.abs(a_c1 - a_t) >= torch.abs(a_s - a_t), a_c1, a_s)
+    a_t3 = torch.where(torch.abs(a_c1 - a_t) < torch.abs(a_s - a_t), a_c1, a_s)
+    case3 = torch.where(a_t > a_l,
+                        torch.minimum(a_t + 0.66 * (a_u - a_t), a_t3),
+                        torch.maximum(a_t + 0.66 * (a_u - a_t), a_t3))
+    z4 = 3.0 * _safe_div(f_t - f_u, a_t - a_u) - g_t - g_u
+    w4 = torch.sqrt(torch.clamp(z4 * z4 - g_t * g_u, min=0.0))
+    case4 = a_u + (a_t - a_u) * _safe_div(w4 - g_u - z4, g_t - g_u + 2.0 * w4)
+    if f_t > f_l:
+        return case1
+    if g_t * g_l < 0.0:
+        return case2
+    return case3 if torch.abs(g_t) <= torch.abs(g_l) else case4
+
+
+def mt_update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
+    """`updateIntervalMT` (ndt_omp_impl.hpp:646-677): the updated endpoints
+    and whether the interval converged (none of the U1-U3 cases applies)."""
+    if f_t > f_l:
+        return a_l, f_l, g_l, a_t, f_t, g_t, False
+    side = g_t * (a_l - a_t)
+    if side > 0.0:
+        return a_t, f_t, g_t, a_u, f_u, g_u, False
+    if side < 0.0:
+        return a_t, f_t, g_t, a_l, f_l, g_l, False
+    return a_l, f_l, g_l, a_u, f_u, g_u, True
+
+
+def mt_exact_search(phi_dphi, phi0, dphi0, alpha0, nspec: NdtSpec):
+    """`computeStepLengthMT` (ndt_omp_impl.hpp:762-916) with its loop live,
+    on float32 host scalars. Returns (a, φ(a), trials after the first): the
+    last trial evaluated.
+
+    The reference's quirks are kept: psi(a) = φ(a) − φ(0) − μ·a·φ'(0) drives
+    the open interval; when it closes the endpoints switch to φ with the
+    reference's conversion f + φ(0) − μ·φ'(0)·a (its sign differs from the
+    algebraic inverse); step_min = trans_eps / 2; the Wolfe test is part of
+    the loop condition, so a first trial that meets it makes no loop trip."""
+    mu, nu = _f32(1e-4), _f32(0.9)
+    step_min, step_max = _f32(0.5 * nspec.trans_eps), _f32(nspec.step_size)
+    a_t = torch.minimum(torch.maximum(alpha0, step_min), step_max)
+    phi_t, dphi_t = phi_dphi(a_t)
+    g0 = (1.0 - mu) * dphi0                   # dpsi at a = 0
+    a_l = f_l = a_u = f_u = _f32(0.0)
+    g_l = g_u = g0
+    open_, done, t = True, False, 0
+
+    def wolfe(a, phi, dphi):
+        return bool(phi - phi0 - mu * a * dphi0 <= 0.0) and bool(dphi <= -nu * dphi0)
+
+    while not done and t < nspec.ls_max_trials and not wolfe(a_t, phi_t, dphi_t):
+        psi_t = phi_t - phi0 - mu * a_t * dphi0
+        dpsi_t = dphi_t - mu * dphi0
+        f_t, g_t = (psi_t, dpsi_t) if open_ else (phi_t, dphi_t)
+        a_new = torch.minimum(torch.maximum(
+            mt_trial_value(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t), step_min), step_max)
+        phi_n, dphi_n = phi_dphi(a_new)
+        psi_n = phi_n - phi0 - mu * a_new * dphi0
+        dpsi_n = dphi_n - mu * dphi0
+        if open_ and bool(psi_n <= 0.0) and bool(dpsi_n >= 0.0):
+            # the endpoints' psi → phi conversion (reference :888-896)
+            f_l = f_l + phi0 - mu * dphi0 * a_l
+            g_l = g_l + mu * dphi0
+            f_u = f_u + phi0 - mu * dphi0 * a_u
+            g_u = g_u + mu * dphi0
+            open_ = False
+        ft, gt = (psi_n, dpsi_n) if open_ else (phi_n, dphi_n)
+        a_l, f_l, g_l, a_u, f_u, g_u, done = mt_update_interval(
+            a_l, f_l, g_l, a_u, f_u, g_u, a_new, ft, gt)
+        a_t, phi_t, dphi_t = a_new, phi_n, dphi_n
+        t += 1
+    return a_t, phi_t, t
+
+
+def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec,
+                 stats: dict | None = None):
+    """Newton + the spec's line search. `prepare(pose)` gathers the
     neighbourhood context on the device; `vgh(pose, ctx)` and
     `vg(pose, ctx)` return (L, g, H) and (L, g) there. The pose and all
     6-vector arithmetic live on the host; each device pass costs one
     readback.
 
-    Returns (pose [6] host, iterations, converged, ctx_final, phi_final)."""
-    if nspec.max_iterations < 1:
-        raise ValueError("NdtSpec.max_iterations must be >= 1")
-    if nspec.ls_mode != "backtrack" or nspec.regather_dist != 0.0:
-        raise ValueError("only ls_mode='backtrack' with regather_dist=0 is ported")
+    Returns (pose [6] host, iterations, converged, ctx_final, phi_final).
+    With `stats` (a dict), it also receives the φ/∇ passes of the line
+    searches ("trials") and all passes ("passes"), as the kernel's record
+    counts them."""
+    check_spec(nspec)
     dev = init_pose.device
 
     def on_dev(p):
@@ -213,7 +328,7 @@ def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec):
     pose = init_pose.detach().to("cpu", torch.float32)
     ctx = prepare(init_pose)
     ctx_pose = pose
-    it, converged, phi_fin = 0, False, _f32(math.inf)
+    it, trials, converged, phi_fin = 0, 0, False, _f32(math.inf)
     while not converged and it < nspec.max_iterations:
         pose_d = on_dev(pose)
         if not torch.equal(pose, ctx_pose):
@@ -226,14 +341,27 @@ def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec):
         alpha0 = torch.clamp(dpn, max=nspec.step_size)
 
         def phi_dphi(a):
+            nonlocal trials
+            trials += 1
             La, ga, _ = _packed(vg(on_dev(pose + a * direction), ctx),
                                 want_hess=False)
             return La, torch.dot(ga, direction)
 
-        alpha, phi_fin = _backtrack(phi_dphi, L, dphi0, alpha0, nspec)
+        if nspec.ls_mode == "mt_exact":
+            alpha, phi_fin, _trials = mt_exact_search(phi_dphi, L, dphi0, alpha0, nspec)
+        elif nspec.ls_mode == "ref_clamped":
+            # the reference's executed step: its dead MT loop leaves the
+            # clamped first trial, whose φ is evaluated for the diagnostics
+            alpha = torch.minimum(torch.maximum(alpha0, _f32(0.5 * nspec.trans_eps)),
+                                  _f32(nspec.step_size))
+            phi_fin, _ = phi_dphi(alpha)
+        else:
+            alpha, phi_fin = _backtrack(phi_dphi, L, dphi0, alpha0, nspec)
         pose = pose + alpha * direction
         it += 1
         converged = bool(alpha < nspec.trans_eps)
+    if stats is not None:
+        stats.update(trials=trials, passes=it + trials)
     return pose, it, converged, ctx, phi_fin
 
 
@@ -250,10 +378,11 @@ def _packed(res, want_hess: bool):
 
 
 def align_ref(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
-              nspec: NdtSpec) -> AlignResult:
+              nspec: NdtSpec, stats: dict | None = None) -> AlignResult:
     """The plain version of the align kernel, on tensors of any one device:
     `newton_align` over `ops/ndt_deriv.py`'s passes, then `_fitness` on the
-    last neighbourhood. Every pass costs a readback on CUDA tensors."""
+    last neighbourhood. Every pass costs a readback on CUDA tensors. With
+    `stats`, the pass counts (`newton_align`)."""
     d1, d2 = gauss_constants(nspec.outlier_ratio, nspec.resolution)
 
     def prepare(p):
@@ -268,7 +397,7 @@ def align_ref(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
                                              d1, d2, want_hess=False, nb=nb)
 
     pose, iters, converged, nb_fin, phi_fin = newton_align(
-        vgh, vg, prepare, init_pose, nspec)
+        vgh, vg, prepare, init_pose, nspec, stats)
     dev = init_pose.device
     pose = pose.to(dev)
     frac, fitness = _fitness(pose, src_xyz, src_mask, nb_fin)

@@ -2,9 +2,10 @@
 `xchu_slam_tpu.ops.ndt_deriv`).
 
 Parameterization: p = [t; r,p,y], x' = Rz(y)Ry(p)Rx(r)·q + t,
-loss = Σ d1·exp(−d2/2·δᵀBδ), δ = x'−μ, summed over every (point × DIRECT7
-voxel) pair, with the exact gradient and Hessian (including the
-second-order angle terms) as batched contractions.
+loss = Σ d1·exp(−d2/2·δᵀBδ), δ = x'−μ, summed over every (point ×
+neighbourhood voxel) pair (M = 1 / 7 / 27 voxels a point by mode), with the
+exact gradient and Hessian (including the second-order angle terms) as
+batched contractions.
 """
 
 from __future__ import annotations
@@ -50,9 +51,9 @@ def _rot_and_derivs(rpy: torch.Tensor):
 
 
 def neighborhood(pose, src_xyz, grid, gspec: vm.GridSpec, mode: str = "direct7"):
-    """DIRECT-mode neighbourhood of the transformed source
-    (mean_w, icov6, valid); gathered once per Newton iteration and reused by
-    that iteration's line-search trials."""
+    """The `mode` neighbourhood of the transformed source (mean_w, icov6,
+    valid); gathered once per Newton iteration and reused by that
+    iteration's line-search trials (KDTREE's distance mask included)."""
     pts = se3.rotate_translate(pose, src_xyz)
     return vm.lookup_neighbors(grid, gspec, pts, mode)
 
@@ -72,20 +73,20 @@ def ndt_value_grad_hess(pose, src_xyz, src_mask, grid, gspec: vm.GridSpec,
     if nb is None:
         nb = vm.lookup_neighbors(grid, gspec, pts, mode)
     mean_w, icov6, vvalid = nb                                 # [N,M,·]
-    delta = pts[:, None, :] - mean_w                           # [N,7,3]
-    Bd = linalg.sym6_matvec(icov6, delta)                      # [N,7,3]
-    x = torch.sum(delta * Bd, -1)                              # [N,7]
+    delta = pts[:, None, :] - mean_w                           # [N,M,3]
+    Bd = linalg.sym6_matvec(icov6, delta)                      # [N,M,3]
+    x = torch.sum(delta * Bd, -1)                              # [N,M]
     use = vvalid & src_mask[:, None]
     e = torch.exp(s * torch.clamp(x, min=0.0))
-    c = torch.where(use, d1 * e, 0.0)                          # [N,7]
+    c = torch.where(use, d1 * e, 0.0)                          # [N,M]
 
     L = torch.sum(c)
 
     # J = [I | D], D[:, :, k] = dR_k · q  → D as [N,3(a),3(k)]
     D = torch.einsum("kab,nb->nak", dR, q)
     # a6 = δᵀB·J: translation part = Bδ; rotation part = Bδ·D_k
-    a_rot = torch.einsum("nva,nak->nvk", Bd, D)                # [N,7,3]
-    a6 = torch.cat([Bd, a_rot], -1)                            # [N,7,6]
+    a_rot = torch.einsum("nva,nak->nvk", Bd, D)                # [N,M,3]
+    a6 = torch.cat([Bd, a_rot], -1)                            # [N,M,6]
 
     g = 2.0 * s * torch.einsum("nv,nvi->i", c, a6)
 
@@ -98,8 +99,8 @@ def ndt_value_grad_hess(pose, src_xyz, src_mask, grid, gspec: vm.GridSpec,
     M = icov6.shape[1]
     BD = torch.stack([linalg.sym6_matvec(icov6, D[:, None, :, k].expand(-1, M, -1))
                       for k in range(3)], -1)                  # [N,M,3,3]
-    Bmat = linalg.sym6_to_mat(icov6)                           # [N,7,3,3]
-    BJ = torch.cat([Bmat, BD], -1)                             # [N,7,3,6]
+    Bmat = linalg.sym6_to_mat(icov6)                           # [N,M,3,3]
+    BJ = torch.cat([Bmat, BD], -1)                             # [N,M,3,6]
     eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[0], 3, 3)
     Jfull = torch.cat([eye, D], -1)                            # [N,3,6]
     JtBJ = torch.einsum("nv,nxi,nvxj->ij", c, Jfull, BJ)

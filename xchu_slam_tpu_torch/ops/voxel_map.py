@@ -3,10 +3,11 @@
 
 The map is a direct-addressed dense tensor of voxel statistics anchored near
 the vehicle. Scatter-adds build the statistics, `finalize` turns them into
-per-voxel (mean, inverse covariance, valid) rows, and DIRECT7 neighbourhoods
-are constant-offset gathers from that base table with a bounds check per
-neighbour. Statistics are accumulated in voxel-corner-relative coordinates,
-so Σxxᵀ − n·μμᵀ does not cancel in float32 and recentring is an index shift.
+per-voxel (mean, inverse covariance, valid) rows, and the neighbourhoods
+(DIRECT1, DIRECT7, DIRECT26, KDTREE) are constant-offset gathers from that
+base table with a bounds check per neighbour. Statistics are accumulated in
+voxel-corner-relative coordinates, so Σxxᵀ − n·μμᵀ does not cancel in
+float32 and recentring is an index shift.
 
 Unlike the reference, the finalized table is the [V,10] base table (see
 types.VoxelGrid).
@@ -221,32 +222,52 @@ def recentre(grid: VoxelGrid, new_centre: torch.Tensor, spec: GridSpec,
                      fin=moved(grid.fin))
 
 
-def _offsets7(device) -> torch.Tensor:
-    """DIRECT7 offsets [7,3] in the reference's order: centre, ±x, ±y, ±z
-    (built on the device, no host copy)."""
-    e = torch.eye(3, dtype=torch.int32, device=device)
-    return torch.stack([e[0] * 0, e[0], -e[0], e[1], -e[1], e[2], -e[2]])
+# the offset tables of the neighbour modes (reference `_MODE_OFFSETS`,
+# voxel_map.py:283-318): direct1 the centre only; direct7 centre, ±x, ±y, ±z;
+# direct26 and kdtree the 27-cube in `meshgrid(..., indexing="ij")` order
+# (PCL's 26 neighbours plus the centre). kdtree then keeps the voxels whose
+# mean lies within `resolution` of the point: a centroid that close to the
+# query lies inside the 27-cube, so that is the reference's radius search.
+NEIGHBOR_COUNT = {"direct1": 1, "direct7": 7, "direct26": 27, "kdtree": 27}
+
+
+def neighbor_offsets(mode: str, device) -> torch.Tensor:
+    """The mode's offsets [M,3] (int32), built on the device, no host copy."""
+    if mode not in NEIGHBOR_COUNT:
+        raise ValueError(f"unknown neighbor mode {mode!r} (direct7_rows is not ported)")
+    if mode == "direct1":
+        return torch.zeros((1, 3), dtype=torch.int32, device=device)
+    if mode == "direct7":
+        e = torch.eye(3, dtype=torch.int32, device=device)
+        return torch.stack([e[0] * 0, e[0], -e[0], e[1], -e[1], e[2], -e[2]])
+    r = torch.arange(-1, 2, dtype=torch.int32, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
 
 
 def lookup_neighbors(grid: VoxelGrid, spec: GridSpec, xyz: torch.Tensor,
                      mode: str = "direct7"):
-    """For each query point gather its DIRECT7 voxel neighbourhood:
-    (mean_world [N,7,3], icov6 [N,7,6], valid [N,7]).
+    """For each query point gather its voxel neighbourhood in `mode`:
+    (mean_world [N,M,3], icov6 [N,M,6], valid [N,M]), M = 1 / 7 / 27.
 
     Each neighbour is bounds-checked on its own coordinates, so a centre up
-    to one voxel outside the grid still sees its in-bounds face neighbours
-    (the reference's border-padded table gives the same answer). Entries
-    with valid False hold an arbitrary row and must not be used."""
-    if mode != "direct7":
-        raise ValueError(f"neighbor mode {mode!r} is not ported")
+    to one voxel outside the grid still sees its in-bounds neighbours (the
+    reference's clip into its border-padded table gives the same answer).
+    Entries with valid False hold an arbitrary row and must not be used.
+    kdtree also drops the voxels whose mean is `resolution` or more from
+    `xyz` (the points where the neighbourhood is gathered)."""
     idx3, _ = _voxel_index3(spec, grid.origin, xyz)
-    nidx3 = idx3[:, None, :] + _offsets7(xyz.device)[None, :, :]
+    nidx3 = idx3[:, None, :] + neighbor_offsets(mode, xyz.device)[None, :, :]
     inb = ((nidx3 >= 0) & (nidx3 < _dims(spec, nidx3))).all(dim=-1)
     flat = torch.where(inb, _flat(spec, nidx3), 0)
-    rows = grid.fin[flat]                                  # [N,7,10]
+    rows = grid.fin[flat]                                  # [N,M,10]
     valid = (rows[..., 9] > 0.0) & inb
     corner = grid.origin + nidx3.to(torch.float32) * spec.resolution
-    return corner + rows[..., 0:3], rows[..., 3:9], valid
+    mean_w = corner + rows[..., 0:3]
+    if mode == "kdtree":
+        d = xyz[:, None, :] - mean_w
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        valid = valid & (d2 < spec.resolution ** 2)
+    return mean_w, rows[..., 3:9], valid
 
 
 def grid_points(grid: VoxelGrid, spec: GridSpec):
