@@ -10,9 +10,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
               ndt_kernel.cu, pgo_kernel.cu, icp_kernel.cu, guess_kernel.cu,
               sm_90a) and the
               PGO and ICP kernels' first versions (pgo_kernel_first.cu,
-              icp_kernel_first.cu), one nvcc each, started together; prints
-              ptxas's registers, shared memory and spills (none allowed but in
-              the NDT kernel's instantiations of SPILL_EXEMPT)
+              icp_kernel_first.cu), one nvcc each, and the scan loader
+              (native/loader.cpp, g++, into build/native/), started together;
+              prints ptxas's registers, shared memory and spills (none allowed
+              but in the NDT kernel's instantiations of SPILL_EXEMPT)
   3. kernel   the NN kernel against its first version (idx and d² bit-equal)
               and its plain PyTorch version (d² to rtol = atol = 1e-4, valid
               indices, ties at the lowest index) on the card, over shapes and
@@ -121,7 +122,27 @@ After phase 9:
               keyframes, loops, aligned ATE, Newton iterations and trials a
               scan, scans/s, NDT and PGO launches (≥ 1 loop, ATE < 1.0 m, the
               rerun bit-identical)
-Phases 5-10 also assert that every path with a verification launched
+After phase 10:
+ 11. sources  every scan source of the reference, each run in a fresh
+              interpreter (`--sources-child`) so that its render workers
+              fork before its first CUDA call: `run-sim --engine device` on
+              the circuit without and with `--render-procs 3` (pose hashes
+              identical, no scan rendered inline; `mean_wait_ms`,
+              `mean_dispatch_ms` and the streaming rate both ways); the
+              reference's "realism" configuration (`--realism --render-procs
+              5 --prefetch-threads 3 --prefetch-depth 6`, ≥ 1 loop, ATE <
+              1.0 m) and `--realism` through the host engine on 120 scans; a
+              TUM file of a closed lap of `closed_lap_trajectory` and 80 more
+              scans (camera frame) through `--trajectory --engine device
+              --render-procs 3 --imu --wheel` with a checkpoint (≥ 1 loop, a
+              guess launch a scan), then `localize --trajectory` against it
+              (≥ 1 found, median error < 1.5 m); `run-kitti` at the default
+              config on 380 `.bin` scans of a closed circuit at HDL-64 density
+              (~120,000 points) written to a temporary directory: the host
+              engine with and without `defer_sync` (poses identical, scans/s
+              both ways) and the device engine, each closing ≥ 1 loop with the
+              native reader
+Phases 5-11 also assert that every path with a verification launched
 icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
 readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
@@ -129,7 +150,8 @@ Then one JSON line of kernel records (all five kernels, with the launches of
 each path; the NDT and PGO entries with their modes' records) and, last, the
 result line. `--kernel-only` stops after phase 3, `--kernels-only` after
 phase 4d, `--modes-only` runs phases 1-4d and 10, `--device-only` runs
-phases 1, 2, 5, 8 and 9; none of the four prints a result line.
+phases 1, 2, 5, 8 and 9, `--sources-only` runs phases 1, 2 and 11; none of
+the five prints a result line.
 """
 
 from __future__ import annotations
@@ -204,8 +226,11 @@ def phase_build() -> dict:
     from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
                                              pgo_kernel)
 
+    from xchu_slam_tpu_torch.io import native_loader
+
     builds = (nn_kernel.build, ndt_kernel.build, pgo_kernel.build, pgo_kernel.build_first,
-              icp_kernel.build, icp_kernel.build_first, guess_kernel.build)
+              icp_kernel.build, icp_kernel.build_first, guess_kernel.build,
+              native_loader.build)
     with ThreadPoolExecutor(len(builds)) as pool:
         builds = [pool.submit(b) for b in builds]
         builds = [b.result() for b in builds]
@@ -1966,6 +1991,247 @@ def phase_mode_circuits() -> dict:
     return out
 
 
+# the sources phase (11): each run in a fresh interpreter, whose render
+# workers fork before its first CUDA call
+SOURCES_MARK = "sources-child: "
+SOURCES_PROCS = 3                  # render workers of the A/B
+REALISM_HOST_SCANS = 120           # the host engine's realism run (render inline)
+TRAJ_LAP, TRAJ_EXTRA, TRAJ_RADIUS = 320, 80, 40.0   # the TUM file: a lap + 80 scans
+KITTI_SCANS, KITTI_RADIUS = 380, 45.0    # 316 m a lap: scans 316-379 revisit 0-63
+KITTI_POINTS = 120_000             # HDL-64 density: default_config's 131,072 capacity is real
+# rendered to 40 m in a world of 40 buildings: with 120,000 points spread to
+# 60 m, the 0.5 m voxels overflow max_points and the radius filter leaves
+# ~1,000 points, mostly ground, on which NDT does not hold its track
+KITTI_RANGE, KITTI_BUILDINGS = 40.0, 40
+KITTI_WRITERS = 6
+SOURCES_TIMEOUT_S = 600
+
+
+def _pose_hash(pipe) -> str:
+    """A hash of every pose of a run: the odometry and both keyframe
+    trajectories."""
+    import hashlib
+
+    _stamps, kf_odo, kf_opt = pipe.keyframe_trajectory()
+    return hashlib.sha256(pipe.odometry_trajectory().tobytes() + kf_odo.tobytes()
+                          + kf_opt.tobytes()).hexdigest()[:16]
+
+
+def _write_kitti(root: str) -> dict:
+    """The closed circuit at HDL-64 density as KITTI velodyne `.bin` files
+    (rendered by forked workers) and its KITTI pose file (a row a scan,
+    camera frame)."""
+    from xchu_slam_tpu_torch.cli import _gt_in_map_frame
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.io.procsource import ProcessScanSource
+    from xchu_slam_tpu_torch.utils import sim
+
+    t0 = time.perf_counter()
+    world = sim.make_world(SEED, extent=KITTI_RADIUS * 2.5, n_buildings=KITTI_BUILDINGS,
+                           n_pillars=3 * KITTI_BUILDINGS, ground_pts=2_500_000,
+                           wall_pts_per_face=12_000)
+    gt = sim.loop_trajectory(n_scans=KITTI_SCANS, radius=KITTI_RADIUS, speed=1.0)
+    vdir = os.path.join(root, "velodyne")
+    os.makedirs(vdir)
+    points = []
+    scans = sim.RenderedScans(world, gt, seed=SEED, n_points=KITTI_POINTS,
+                              index=sim.WorldIndex(world), max_range=KITTI_RANGE)
+    with ProcessScanSource(scans, workers=KITTI_WRITERS, readahead=8 * KITTI_WRITERS) as src:
+        for k in range(KITTI_SCANS):
+            xyz, inten = src[k]
+            np.c_[xyz, inten].tofile(os.path.join(vdir, f"{k:06d}.bin"))
+            points.append(len(xyz))
+    gt_cam = kitti.velo_to_cam(_gt_in_map_frame(gt))
+    np.savetxt(os.path.join(root, "gt_kitti.txt"), gt_cam[:, :3, :4].reshape(-1, 12))
+    return {"velodyne_dir": vdir, "gt": os.path.join(root, "gt_kitti.txt"),
+            "scans": KITTI_SCANS, "points_min": int(min(points)),
+            "points_mean": round(float(np.mean(points)), 1),
+            "seconds": round(time.perf_counter() - t0, 2)}
+
+
+def sources_child(runs: list) -> None:
+    """Run `runs` in this interpreter, one after another, through the CLI's
+    functions; print one line: the marker, then a JSON list of each run's
+    summary, launches and pose hash."""
+    sys.path[:0] = [_HERE]
+    from xchu_slam_tpu_torch import cli
+
+    fns = {"run_sim": cli.run_sim, "run_kitti": cli.run_kitti, "localize": cli.localize_sim}
+    # the device engine's per-chunk times, as the summary's attribution sees them
+    seen, attribution = [], cli._chunk_attribution
+    cli._chunk_attribution = lambda chunks, *a: (seen.append(chunks), attribution(chunks, *a))[1]
+    out = []
+    for run in runs:
+        kind = run.pop("kind")
+        if kind == "write_kitti":
+            out.append(_write_kitti(**run))
+            continue
+        seen.clear()
+        res, counts = _count_launches(lambda: fns[kind](**run))
+        if kind == "localize":
+            out.append({"summary": res, "launches": counts})
+            continue
+        pipe, summary = res
+        summary.pop("artifacts", None)
+        rec = {"summary": summary, "launches": counts, "pose_hash": _pose_hash(pipe),
+               "icp_verifications": pipe.icp_verifications, "inloop_gn": _inloop_gn(pipe)}
+        if seen:
+            ch = seen[0]
+            rec["wait_ms"] = [round(1e3 * t, 1) for t in ch["wait_s"]]
+            rec["dispatch_ms"] = [round(1e3 * t, 1) for t in ch["dispatch_s"]]
+            # the rate after the first chunk, which carries the process's
+            # one-time starts (kernel loads, the first graph capture)
+            ts, span = ch["ts"], ch["span"]
+            rec["stream_after_chunk1_scans_per_sec"] = round(
+                (span[-1][1] - span[0][1]) / (ts[-1] - ts[1]), 2)
+        out.append(rec)
+        del pipe
+        torch.cuda.empty_cache()
+    print(SOURCES_MARK + json.dumps(out))
+
+
+def _sources_call(name: str, runs: list) -> list:
+    """`runs` in a child interpreter (`--sources-child`); its results. The
+    child's stderr is passed on; a failure of the child fails the phase."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sources-child",
+                           json.dumps(runs)], capture_output=True, text=True, cwd=_HERE,
+                          timeout=SOURCES_TIMEOUT_S, check=False)
+    sys.stderr.write(proc.stderr[-2000:])
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(SOURCES_MARK)]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"sources: {name} exited with code {proc.returncode}")
+    return json.loads(lines[-1][len(SOURCES_MARK):])
+
+
+def _write_lap_tum(path: str) -> None:
+    """A closed lap of the port's own circuit, and its first TRAJ_EXTRA
+    scans again, as a camera-frame TUM file stamped 0.1·i."""
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.utils import se3, sim
+
+    lap = sim.closed_lap_trajectory(TRAJ_LAP, radius=TRAJ_RADIUS)
+    poses = np.concatenate([lap, lap[:TRAJ_EXTRA]])
+    cam = sim.camera_frame_transform()
+    T = se3.pose_to_matrix(torch.from_numpy(poses.astype(np.float64))).numpy()
+    kitti.write_tum(path, 0.1 * np.arange(len(poses)), cam @ T @ np.linalg.inv(cam))
+
+
+def _check_source_run(name: str, rec: dict, scans: int, loops: bool = True,
+                      ate: float = 1.0) -> None:
+    s, c = rec["summary"], rec["launches"]
+    print(f"sources: {name} " + json.dumps({**{k: s.get(k) for k in (
+        "scans", "keyframes", "loops", "ate_rmse_m", "scans_per_sec", "stream_scans_per_sec",
+        "render_procs", "inline_renders", "reader", "defer_sync")},
+        "stream_after_chunk1_scans_per_sec": rec.get("stream_after_chunk1_scans_per_sec"),
+        "launches": c, "pose_hash": rec["pose_hash"]}))
+    _check_loop_kernels(f"sources {name}", c, rec["icp_verifications"], s["loops"],
+                        rec["inloop_gn"])
+    if c["ndt"] < scans - 1:
+        raise AssertionError(f"sources {name}: {c['ndt']} NDT launches over {scans} scans")
+    if loops and s["loops"] < 1:
+        raise AssertionError(f"sources {name}: closed no loop")
+    if not s.get("ate_rmse_m", 0.0) < ate:
+        raise AssertionError(f"sources {name}: aligned ATE {s['ate_rmse_m']} m ≥ {ate} m")
+    if s.get("inline_renders"):
+        raise AssertionError(f"sources {name}: {s['inline_renders']} scans rendered inline")
+
+
+def phase_sources(smi: str) -> dict:
+    """Every scan source of the reference through the port's CLI functions,
+    each run in a fresh interpreter: (1) the device engine on the circuit
+    without and with render workers (pose hashes identical; the chunk wait
+    and the streaming rate both ways); (2) the reference's "realism"
+    configuration (device engine, 5 workers, 3 staging threads, depth 6),
+    and realism through the host engine on a shorter run; (3) a TUM lap with
+    IMU + wheel windows through the device engine with workers and a
+    checkpoint, then `localize --trajectory` against it; (4) `run-kitti` on
+    HDL-64-density `.bin` files written here: the host engine with and
+    without `defer_sync` (poses identical) and the device engine, the reader
+    native on each."""
+    t0 = time.perf_counter()
+    paths = {}
+    dev = {"kind": "run_sim", "scans": SCANS, "radius": RADIUS, "seed": SEED,
+           "device": "cuda", "engine": "device", "chunk": 16}
+    # in turns: staging threads, workers, workers, threads
+    procs_run = {**dev, "render_procs": SOURCES_PROCS}
+    ab = [_sources_call(name, [run])[0] for name, run in (
+        ("device", dev), ("device --render-procs", procs_run),
+        ("device --render-procs", procs_run), ("device", dev))]
+    for turn, rec in enumerate(ab):
+        side = "procs" if rec["summary"].get("render_procs") else "threads"
+        _check_source_run(f"device ({side}, turn {turn + 1})", rec, SCANS, ate=0.10)
+        if rec["pose_hash"] != ab[0]["pose_hash"]:
+            raise AssertionError("sources: the render workers changed the poses")
+        att = rec["summary"]["chunk_attribution"]
+        print(f"sources: A/B turn {turn + 1} {side} ({smi}) " + json.dumps({
+            "mean_wait_ms": att["mean_wait_ms"], "mean_dispatch_ms": att["mean_dispatch_ms"],
+            "p50_chunk_ms": att["p50_ms"], "stream_scans_per_sec":
+            rec["summary"]["stream_scans_per_sec"], "stream_after_chunk1_scans_per_sec":
+            rec["stream_after_chunk1_scans_per_sec"], "scans_per_sec":
+            rec["summary"]["scans_per_sec"], "stage_seconds": rec["summary"]["stage_seconds"],
+            "wait_ms": rec["wait_ms"], "dispatch_ms": rec["dispatch_ms"]}))
+    paths["sources device"] = ab[0]["launches"]
+    paths["sources device procs"] = ab[1]["launches"]
+
+    (realism,) = _sources_call("realism", [{**dev, "realism": True, "render_procs": 5,
+                                            "prefetch_threads": 3, "prefetch_depth": 6}])
+    _check_source_run("realism device --render-procs 5", realism, SCANS)
+    paths["sources realism device"] = realism["launches"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tum = os.path.join(tmp, "lap_tum.txt")
+        _write_lap_tum(tum)
+        session = os.path.join(tmp, "traj")
+        traj, loc = _sources_call("trajectory", [
+            {"kind": "run_sim", "trajectory": tum, "scans": 0, "seed": SEED, "device": "cuda",
+             "engine": "device", "chunk": 16, "render_procs": SOURCES_PROCS, "imu": True,
+             "wheel": True, "checkpoint_every": CHECKPOINT_EVERY, "out": session},
+            {"kind": "localize", "session": os.path.join(session, "checkpoint.npz"),
+             "trajectory": tum, "seed": SEED, "queries": QUERIES,
+             "fitness_thresh": FITNESS_THRESH, "device": "cuda"}])
+        n_traj = TRAJ_LAP + TRAJ_EXTRA
+        _check_source_run("trajectory (TUM lap, imu + wheel)", traj, n_traj)
+        if traj["launches"]["guess"] < n_traj - 1:
+            raise AssertionError(f"sources trajectory: {traj['launches']['guess']} guess "
+                                 "launches")
+        ls = loc["summary"]
+        print("sources: localize --trajectory " + json.dumps(
+            {**{k: ls[k] for k in ("queries", "localized", "median_err_m")},
+             "launches": loc["launches"]}))
+        if ls["localized"] < 1 or not ls["median_err_m"] < 1.5 or loc["launches"]["nn"] < 1:
+            raise AssertionError(f"sources localize --trajectory: {ls}")
+        paths["sources trajectory"] = traj["launches"]
+        paths["sources localize trajectory"] = loc["launches"]
+
+        (wrote,) = _sources_call("write kitti", [{"kind": "write_kitti", "root": tmp}])
+        print("sources: kitti files " + json.dumps(wrote))
+        if wrote["points_mean"] < 0.8 * KITTI_POINTS:
+            raise AssertionError(f"sources: the kitti scans are too sparse: {wrote}")
+        kit = {"kind": "run_kitti", "velodyne_dir": wrote["velodyne_dir"], "gt": wrote["gt"],
+               "device": "cuda", "out": os.path.join(tmp, "kitti")}
+        host_realism, k_defer, k_sync, k_dev = _sources_call("host", [
+            {"kind": "run_sim", "scans": REALISM_HOST_SCANS, "radius": RADIUS, "seed": SEED,
+             "device": "cuda", "realism": True},
+            {**kit, "engine": "host"}, {**kit, "engine": "host", "defer_sync": False},
+            {**kit, "engine": "device"}])
+    _check_source_run("realism host", host_realism, REALISM_HOST_SCANS, loops=False)
+    for name, rec in (("run-kitti host defer_sync", k_defer), ("run-kitti host", k_sync),
+                      ("run-kitti device", k_dev)):
+        _check_source_run(name, rec, KITTI_SCANS)
+        if rec["summary"]["reader"] != "native":
+            raise AssertionError(f"sources {name}: the reader was {rec['summary']['reader']}")
+    if k_defer["pose_hash"] != k_sync["pose_hash"]:
+        raise AssertionError("sources: defer_sync changed the host engine's poses")
+    print(f"sources: run-kitti host scans/s defer_sync {k_defer['summary']['scans_per_sec']} "
+          f"against {k_sync['summary']['scans_per_sec']} without, poses identical ({smi})")
+    paths.update({"sources realism host": host_realism["launches"],
+                  "sources kitti host defer": k_defer["launches"],
+                  "sources kitti host": k_sync["launches"],
+                  "sources kitti device": k_dev["launches"]})
+    print(f"sources: {time.perf_counter() - t0:.1f} s")
+    return {"paths": paths}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -1983,9 +2249,15 @@ def phase_determinism() -> None:
 
 def main() -> int:
     sys.path[:0] = [_HERE, os.path.join(_HERE, "tests")]
+    if "--sources-child" in sys.argv[1:]:
+        sources_child(json.loads(sys.argv[sys.argv.index("--sources-child") + 1]))
+        return 0
     t0 = time.perf_counter()
     smi = phase_device()
     ptxas = phase_build()
+    if "--sources-only" in sys.argv[1:]:
+        phase_sources(smi)
+        return 0
     only_device = "--device-only" in sys.argv[1:]
     rec = None if only_device else phase_kernel()
     if "--kernel-only" in sys.argv[1:]:
@@ -2023,6 +2295,7 @@ def main() -> int:
         setting = f"ndt.ls_mode={ls}" if ls != "backtrack" else f"ndt.neighbor_mode={nb}"
         rec_m["circuit"] = circuits[setting]
     pgo_jacobi["circuit"] = circuits["pgo.precond=jacobi"]
+    by_path.update(phase_sources(smi)["paths"])
 
     def per_path(key):
         return {k: v[key] for k, v in by_path.items()}

@@ -470,16 +470,20 @@ def test_cli_device_engine_end_to_end(tmp_path, capsys):
     assert len((tmp_path / "odom_tum.txt").read_text().splitlines()) == summary["keyframes"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--render-procs", "2"],
-                                   ["--sync-every", "4"], ["--realism"],
-                                   ["--trajectory", "gt.txt"]])
+@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--render-procs", "-1"],
+                                   ["--sync-every", "4"], ["--chunk", "0"],
+                                   ["--prefetch-threads", "0"]])
 def test_cli_rejects_unported_flags_of_the_device_engine(flags, capsys):
-    """The reference's run-sim flags the port has not taken are refused by
-    name (`--imu`, `--wheel`, `--checkpoint-every` and `--continue-session`
-    are taken since the device engine's session was ported:
-    tests/test_torch_device_sensors.py)."""
+    """The reference's run-sim flags the port has not taken (`--mesh`,
+    `--sync-every`) are refused by name, and so are counts out of range of
+    those it has taken (`--imu`, `--wheel`, `--checkpoint-every` and
+    `--continue-session` are taken since the device engine's session was
+    ported, tests/test_torch_device_sensors.py; `--render-procs`,
+    `--realism` and `--trajectory` since the scan sources were,
+    tests/test_torch_procsource.py and tests/test_torch_sim_realism.py)."""
     with pytest.raises(SystemExit) as err:
         cli.main(["run-sim", "--scans", "4", "--device", "cpu", "--engine", "device",
                   *flags])
     assert err.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    want = "not ported yet" if flags[0] in ("--mesh", "--sync-every") else "must be >= "
+    assert want in capsys.readouterr().err

@@ -202,7 +202,7 @@ def test_inflate_and_invert_cov_matches_reference(case):
 
 PORT_MODULES = [
     "cli", "config", "convert", "types",
-    "io.export", "io.kitti", "io.prefetch",
+    "io.export", "io.kitti", "io.native_loader", "io.prefetch", "io.procsource",
     "models.batch_odometry", "models.continue_session", "models.device_pipeline",
     "models.odometry", "models.pipeline", "models.pose_graph", "models.relocalize",
     "ops.filter", "ops.icp", "ops.imu", "ops.isc", "ops.ndt", "ops.ndt_deriv",

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from bounded import within
 from xchu_slam_tpu import config as jconfig
 from xchu_slam_tpu.models import pipeline as jpipe, pose_graph as jpg, relocalize as jreloc
 from xchu_slam_tpu.ops import imu as jimu
@@ -361,7 +362,8 @@ def test_loop_method_none_detects_nothing(isc_circuit):
 # ------------------------------------------------------------- the CLI --- #
 
 @pytest.mark.parametrize("argv", [["--help"], ["run-sim", "--help"], ["eval", "--help"],
-                                  ["localize", "--help"], ["info", "--help"]])
+                                  ["localize", "--help"], ["info", "--help"],
+                                  ["run-kitti", "--help"]])
 def test_cli_help(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
@@ -370,19 +372,74 @@ def test_cli_help(argv, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["run-sim", "--engine", "device", "--mesh", "2"], ["run-sim", "--mesh", "4"],
-    ["run-sim", "--continue-session", "x.npz"], ["run-sim", "--realism"],
-    ["run-sim", "--trajectory", "gt.txt"], ["run-sim", "--render-procs", "2"],
+    ["run-sim", "--continue-session", "x.npz"],
+    ["run-sim", "--engine", "host", "--render-procs", "2"],
     ["run-sim", "--sync-every", "4"], ["run-sim", "--loop-method", "kdtree"],
-    ["run-kitti", "--velodyne-dir", "x"], ["localize", "--session", "x", "--trajectory", "t"],
+    ["run-kitti", "--velodyne-dir", "x", "--mesh", "2"],
 ])
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """A flag of the reference CLI that is not ported is an argparse error,
     not accepted and ignored; so is `--continue-session` with the host
-    engine, as in the reference."""
+    engine, as in the reference, and `--render-procs` with the host engine,
+    which draws every scan from one shared generator (the reference ignores
+    it there)."""
     with pytest.raises(SystemExit) as e:
-        cli.main(argv + ["--device", "cpu"] if argv[0] != "run-kitti" else argv)
+        cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2
     capsys.readouterr()
+
+
+@pytest.fixture(scope="module")
+def cli_inputs(tmp_path_factory):
+    """A TUM lap in the camera frame and a directory of 3 velodyne scans."""
+    root = tmp_path_factory.mktemp("cli_inputs")
+    cam = sim.camera_frame_transform()
+    T = se3.pose_to_matrix(torch.from_numpy(sim.closed_lap_trajectory(16, radius=8.0))).numpy()
+    kitti.write_tum(str(root / "lap_tum.txt"), 0.1 * np.arange(16),
+                    cam @ T @ np.linalg.inv(cam))
+    (root / "velodyne").mkdir()
+    world = sim.make_world(3, extent=40.0, ground_pts=20_000)
+    rng = np.random.default_rng(1)
+    for i, p in enumerate(sim.loop_trajectory(3, radius=10.0)):
+        xyz, inten = sim.render_scan(world, p, rng, n_points=3000)
+        np.c_[xyz, inten].astype(np.float32).tofile(root / "velodyne" / f"{i:06d}.bin")
+    return root
+
+
+CLI_SMALL = ["--set", "filter.max_points=2048", "--set", "pgo.max_keyframes=16",
+             "--set", "loop.submap_points=2048", "--set", "ndt.grid_x=40",
+             "--set", "ndt.grid_y=40", "--set", "ndt.grid_z=12"]
+NOW_PORTED = {
+    "run-sim --realism": ["run-sim", "--scans", "3", "--radius", "15", "--realism"],
+    "run-sim --trajectory": ["run-sim", "--scans", "3", "--trajectory", "{root}/lap_tum.txt"],
+    "run-sim --render-procs": ["run-sim", "--scans", "3", "--radius", "15", "--engine",
+                               "device", "--chunk", "2", "--render-procs", "2"],
+    "run-kitti": ["run-kitti", "--velodyne-dir", "{root}/velodyne",
+                  "--set", "filter.max_raw_points=4096"],
+    "localize --trajectory": ["localize", "--session", "{out}/checkpoint.npz", "--trajectory",
+                              "{root}/lap_tum.txt", "--scans", "3", "--queries", "1"],
+}
+
+
+@pytest.mark.parametrize("case", list(NOW_PORTED))
+def test_cli_runs_what_is_now_ported(case, cli_inputs, tmp_path, capsys):
+    """Each flag that the port once refused runs: 3 scans on the CPU, exit
+    without error, a JSON summary on stdout."""
+    out = tmp_path / "out"
+    if case == "localize --trajectory":
+        cli.main(["run-sim", "--scans", "3", "--trajectory", str(cli_inputs / "lap_tum.txt"),
+                  "--checkpoint-every", "2", "--out", str(out), "--device", "cpu", *CLI_SMALL])
+        capsys.readouterr()
+    argv = [a.format(root=cli_inputs, out=out) for a in NOW_PORTED[case]]
+    if argv[0] != "localize":
+        argv += ["--out", str(out), *CLI_SMALL]
+    # bounded: the --render-procs case forks
+    within(240, lambda: cli.main(argv + ["--device", "cpu"]))
+    summary = json.loads(capsys.readouterr().out)
+    if case == "localize --trajectory":
+        assert summary["queries"] == 1
+    else:
+        assert summary["scans"] == 3 and summary["keyframes"] >= 1
 
 
 def test_cli_needs_a_card_by_default():

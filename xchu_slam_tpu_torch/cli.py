@@ -10,10 +10,18 @@
                                              --checkpoint-every 200 --out out/dev
   python -m xchu_slam_tpu_torch.cli run-sim  --engine device \\
                                              --continue-session out/dev/checkpoint.npz
+  python -m xchu_slam_tpu_torch.cli run-sim  --engine device --realism --render-procs 5 \\
+                                             --prefetch-threads 3 --prefetch-depth 6
+  python -m xchu_slam_tpu_torch.cli run-sim  --trajectory gt_tum.txt --engine device \\
+                                             --render-procs 3 --out out/traj
+  python -m xchu_slam_tpu_torch.cli run-kitti --velodyne-dir .../velodyne --gt 00.txt \\
+                                             --out out/kitti00
   python -m xchu_slam_tpu_torch.cli info
 
-`run-sim` runs the synthetic squircle circuit with the config overrides and
-the world / trajectory / sensor-feed setup of `xchu_slam_tpu.cli run-sim`,
+`run-sim` runs the synthetic squircle circuit (or, with `--trajectory`, a
+TUM trajectory file in a corridor world built along it) with the config
+overrides and the world / trajectory / sensor-feed setup of
+`xchu_slam_tpu.cli run-sim`,
 writes the run's export files (`io/export.save_run`) and prints a JSON
 summary. `--engine host` (default) is `models/pipeline.SlamPipeline`, fed
 scan by scan; one random generator is consumed in a fixed order (IMU
@@ -23,20 +31,27 @@ same arguments. `--engine device` is `models/device_pipeline.
 DeviceSlamPipeline`, fed chunks of `--chunk` scans that the staging threads
 of `io/prefetch.DeviceChunkPrefetcher` render lazily (each scan from a
 generator of its own, as the reference's device path does) and copy to the
-card; its summary adds the streaming rate and the per-chunk wait / dispatch
-attribution. Its sensor windows are sliced per chunk from the same draws as
+card; with `--render-procs N` the scans are rendered by N forked worker
+processes instead (`io/procsource.ProcessScanSource`, forked before the
+run's first CUDA call); its summary adds the streaming rate and the
+per-chunk wait / dispatch attribution. `--realism` renders through the
+beam-level sensor model with moving traffic on either engine. Its sensor
+windows are sliced per chunk from the same draws as
 the host engine's, it writes `checkpoint.npz` at chunk boundaries, and
 `--continue-session` continues a saved device-engine session: the
 checkpoint's config governs the run, scan 0 seeds the continuation, and the
 summary covers the continued keyframes.
+`run-kitti` runs a directory of velodyne `.bin` scans at the default config
+(read by `io/native_loader.py`; the summary names the reader) through
+either engine, writes the camera-frame export and, with `--gt`, the ATE;
+the host engine pipelines one scan (`defer_sync`) unless `--no-defer-sync`.
 `eval` compares two trajectory files, `localize` places fresh scans in a
 saved session's map, `info` prints versions, devices and the default config.
 
 Every subcommand that computes takes `--device` (default `cuda`, an error
 without a card; `cpu` runs the kernels' plain versions). Not ported, and so
-not accepted: `run-kitti`, and `run-sim`'s `--mesh`, `--realism`,
-`--trajectory`, `--render-procs` and `--sync-every`; `--continue-session`
-needs `--engine device`, as in the reference.
+refused by name: `--mesh` (`run-sim`, `run-kitti`) and `--sync-every`;
+`--continue-session` and `--render-procs` need `--engine device`.
 """
 
 from __future__ import annotations
@@ -92,16 +107,31 @@ def _check_device(device: str) -> None:
         raise SystemExit("--device cuda: no CUDA device is available")
 
 
-def _sim_world_and_traj(scans: int, radius: float, seed: int):
-    """World and trajectory, shared by run-sim and localize: `localize` is
-    right only if its world is the mapping run's (a pure function of radius
-    and seed)."""
+def _sim_world_and_traj(scans: int, radius: float, seed: int,
+                        trajectory: str | None = None):
+    """(stamps, poses, world), shared by run-sim and localize: `localize` is
+    right only if its world is the mapping run's (a pure function of the
+    trajectory or the radius, and the seed). With a TUM `trajectory` file
+    the poses and stamps are the file's (its first `scans` rows; all where
+    `scans` is 0) and the world is a corridor along them; else the circuit
+    of `radius` with `scans` poses (0: 400)."""
     from xchu_slam_tpu_torch.utils import sim
 
+    if trajectory:
+        stamps, gt = sim.tum_trajectory_poses(trajectory, max_scans=scans)
+        return stamps, gt, sim.make_world_along(gt[:, :3], seed)
     n_scans = scans or 400
     world = sim.make_world(seed, extent=radius * 2.5)
     gt = sim.loop_trajectory(n_scans=n_scans, radius=radius, speed=1.0)
     return 0.1 * np.arange(n_scans), gt, world
+
+
+def _world_index(world, trajectory: str | None):
+    """The renders' `WorldIndex` of a world along a trajectory file (millions
+    of points), None for the circuit's world, as in the reference."""
+    from xchu_slam_tpu_torch.utils import sim
+
+    return sim.WorldIndex(world) if trajectory else None
 
 
 def _gt_in_map_frame(gt: np.ndarray) -> np.ndarray:
@@ -186,14 +216,16 @@ class _TailView:
 
 def _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
                      timers, on_scan, verbose: bool, checkpoint_every: int,
-                     out: str | None) -> None:
-    """Render and feed the circuit scan by scan to the host engine."""
+                     out: str | None, index=None, sensor=None, dynamics=None) -> None:
+    """Render and feed the scans one by one to the host engine (scan i at
+    time 0.1·i for the moving objects of `--realism`)."""
     from xchu_slam_tpu_torch.utils import sim
     from xchu_slam_tpu_torch.utils.checkpoint import save_checkpoint
 
     for i, p in enumerate(gt):
         with timers.time("render"):
-            xyz, inten = sim.render_scan(world, p, rng, n_points=24_000)
+            xyz, inten = sim.render_scan(world, p, rng, n_points=24_000, index=index,
+                                         sensor=sensor, dynamics=dynamics, t=0.1 * i)
         imu_w, wheel_w = _scan_windows(sensor_windows, i)
         galt = None
         if gps_alts is not None and np.isfinite(gps_alts[i]):
@@ -296,126 +328,161 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             gps: bool = False, out: str | None = None,
             checkpoint_every: int = 0, verbose: bool = False, timers=None,
             engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
-            prefetch_threads: int = 2, continue_from: str | None = None):
-    """Run the circuit through the host or the device engine. Returns
-    (pipeline, summary dict). With `out`, the run's artifacts are written
-    there. `timers` (a `StageTimers` for `device`) collects the stage times.
+            prefetch_threads: int = 2, continue_from: str | None = None,
+            realism: bool = False, trajectory: str | None = None,
+            render_procs: int = 0):
+    """Run the circuit, or the TUM `trajectory`, through the host or the
+    device engine. Returns (pipeline, summary dict). With `out`, the run's
+    artifacts are written there. `timers` (a `StageTimers` for `device`)
+    collects the stage times. `realism` renders through the beam-level
+    sensor model with moving traffic.
 
     Host engine: `on_scan(i, result, scan)` is called after each scan with
     the keyword arguments `process_scan` was given; `checkpoint.npz` is
     written every `checkpoint_every` scans. Device engine: the scans are
-    rendered lazily inside the staging threads and fed in chunks of `chunk`
-    with their sensor windows; `checkpoint.npz` is written at the chunk
-    boundaries where `(scans fed // 16) % max(checkpoint_every // 16, 1) ==
-    0`; `on_scan` is not ported to it. `continue_from` (device engine only)
-    continues the device-engine session saved in that checkpoint: its config
-    governs the run (the config arguments are then ignored), scan 0 seeds
-    the continuation, and the summary covers the continued keyframes."""
+    rendered lazily inside the staging threads, or by `render_procs` forked
+    worker processes, and fed in chunks of `chunk` with their sensor
+    windows; `checkpoint.npz` is written at the chunk boundaries where
+    `(scans fed // 16) % max(checkpoint_every // 16, 1) == 0`; `on_scan` is
+    not ported to it. `continue_from` (device engine only) continues the
+    device-engine session saved in that checkpoint: its config governs the
+    run (the config arguments are then ignored), scan 0 seeds the
+    continuation, and the summary covers the continued keyframes.
+
+    The render workers are forked before anything here touches CUDA, and
+    closed when the run ends, however it ends."""
     from xchu_slam_tpu_torch.io.export import save_run
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.utils import metrics, se3, sim
     from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
-    _check_device(device)
     if engine not in ("host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "device" and on_scan:
         raise ValueError("the device engine takes no per-scan callback")
     if continue_from and engine != "device":
         raise ValueError("continue_from requires the device engine")
-    cfg = sim_config(overrides, loop_method, imu, wheel, gps)
-    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
-    n_scans = len(gt)
-    rng = np.random.default_rng(seed)
-    timers = timers if timers is not None else StageTimers(device)
-    cont = None
-    if continue_from:
-        # loaded first: the checkpoint's config governs the run, and the
-        # sensor feeds below must be drawn for that config
-        from xchu_slam_tpu_torch.models.continue_session import continue_session
-
-        xyz0, inten0 = sim.RenderedScans(world, gt, seed=seed, n_points=24_000)[0]
-        with timers.time("continue"):
-            cont = continue_session(continue_from, xyz0, inten0, stamp=float(gt_stamps[0]),
-                                    log_capacity=max(n_scans, 8192), device=device)
-        if overrides or imu or wheel or gps or loop_method != "sc":
-            print("warning: --continue-session runs under the checkpoint's config; "
-                  "the CLI's config flags (--set/--imu/--wheel/--gps/--loop-method) "
-                  "are ignored", file=sys.stderr)
-        cfg = cont.cfg
-        print(f"continued session: relocalized to kf {cont.continuation['matched_kf']} "
-              f"(icp_fitness={cont.continuation['icp_fitness']:.3f}, "
-              f"{cont.continuation['old_keyframes']} saved keyframes)", file=sys.stderr)
-    sensor_windows, gps_alts = _sim_feeds(cfg, gt, gt_stamps, rng)
-    if out:
-        os.makedirs(out, exist_ok=True)
-    elif checkpoint_every:
-        raise ValueError("checkpoint_every needs an output directory")
-
-    chunks = None
+    if render_procs and engine != "device":
+        raise ValueError("render_procs requires the device engine: the host engine "
+                         "draws every scan from one shared generator")
+    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed, trajectory)
+    index = _world_index(world, trajectory)
+    sensor = dynamics = None
+    if realism:
+        sensor, dynamics = sim.SensorModel(), sim.DynamicObjects(gt[:, :3], seed=seed)
+    lazy = source = None
     if engine == "device":
-        from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+        lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000, index=index,
+                                 sensor=sensor, dynamics=dynamics)
+        if render_procs:
+            from xchu_slam_tpu_torch.io.procsource import ProcessScanSource
 
-        pipe = cont if cont is not None else DeviceSlamPipeline(
-            cfg, kf_points=4096, log_capacity=max(n_scans, 8192), device=device)
-        lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000)
-        t0 = time.perf_counter()
-        chunks = _run_device_engine(pipe, lazy, gt_stamps, gps_alts, cfg, chunk,
-                                    prefetch_depth, prefetch_threads, device,
-                                    timers, verbose, sensor_windows, checkpoint_every,
-                                    out, start=0 if cont is None else 1)
-    else:
-        pipe = SlamPipeline(cfg, kf_points=4096, device=device)
-        t0 = time.perf_counter()
-        _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
-                         timers, on_scan, verbose, checkpoint_every, out)
-    with timers.time("finalize"):
-        pipe.finalize()
-    wall = time.perf_counter() - t0
+            # forked before the first CUDA call of the run (the device check
+            # included); the reference's readahead: what the staging
+            # threads can hold
+            source = ProcessScanSource(
+                lazy, workers=render_procs,
+                readahead=(prefetch_depth + prefetch_threads + 2) * chunk)
+    try:
+        _check_device(device)
+        cfg = sim_config(overrides, loop_method, imu, wheel, gps)
+        n_scans = len(gt)
+        rng = np.random.default_rng(seed)
+        timers = timers if timers is not None else StageTimers(device)
+        cont = None
+        if continue_from:
+            # loaded first: the checkpoint's config governs the run, and the
+            # sensor feeds below must be drawn for that config
+            from xchu_slam_tpu_torch.models.continue_session import continue_session
 
-    paths = None
-    if out:
-        with timers.time("save"):
-            # camera-frame TUM export, so that `eval --est odom_tum.txt
-            # --gt <camera-frame GT file>` compares directly
-            paths = save_run(pipe, out, cam_T=sim.camera_frame_transform())
+            xyz0, inten0 = lazy[0]   # the raw source: the workers' scan 0 goes unread
+            with timers.time("continue"):
+                cont = continue_session(continue_from, xyz0, inten0, stamp=float(gt_stamps[0]),
+                                        log_capacity=max(n_scans, 8192), device=device)
+            if overrides or imu or wheel or gps or loop_method != "sc":
+                print("warning: --continue-session runs under the checkpoint's config; "
+                      "the CLI's config flags (--set/--imu/--wheel/--gps/--loop-method) "
+                      "are ignored", file=sys.stderr)
+            cfg = cont.cfg
+            print(f"continued session: relocalized to kf {cont.continuation['matched_kf']} "
+                  f"(icp_fitness={cont.continuation['icp_fitness']:.3f}, "
+                  f"{cont.continuation['old_keyframes']} saved keyframes)", file=sys.stderr)
+        sensor_windows, gps_alts = _sim_feeds(cfg, gt, gt_stamps, rng)
+        if out:
+            os.makedirs(out, exist_ok=True)
+        elif checkpoint_every:
+            raise ValueError("checkpoint_every needs an output directory")
 
-    gt_rel = _gt_in_map_frame(gt)
-    stamps, _kf_odo, kf_opt = pipe.keyframe_trajectory()
-    kf_base = 0 if cont is None else cont.continuation["old_keyframes"]
-    # a continuation is evaluated on its own keyframes only: the saved
-    # session's stamps belong to its own run
-    stamps, kf_opt = stamps[kf_base:], kf_opt[kf_base:]
-    n_streamed = n_scans - (0 if cont is None else 1)   # scan 0 went into the seed
-    ei, idx = metrics.associate(stamps, gt_stamps, max_diff=0.05)
-    kf_opt = kf_opt[ei]
-    estT = se3.pose_to_matrix(torch.from_numpy(kf_opt)).numpy()
-    gt_xyz = gt_rel[idx, :3, 3]
-    # SE(3)-aligned APE (the evo_ape -a convention); unaligned alongside
-    ate = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=True)
-    ate_raw = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=False)
-    drift, length = metrics.end_drift(kf_opt[:, :3], gt_xyz)
-    summary = {
-        "scans": n_scans,
-        "keyframes": pipe.kf_count,
-        "loops": pipe.loop_count,
-        "ate_rmse_m": round(float(ate), 4),
-        "ate_unaligned_m": round(float(ate_raw), 4),
-        "rpe_rmse_m": round(metrics.rpe_rmse(estT, gt_rel[idx]), 4),
-        "end_drift_m": round(drift, 3),
-        "length_m": round(length, 1),
-        "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
-        "scans_per_sec": round(n_streamed / wall, 2),
-    }
-    if cont is not None:
-        summary["continuation"] = {
-            **{k: v for k, v in cont.continuation.items() if k != "reloc_pose"},
-            "new_keyframes": pipe.kf_count - kf_base}
-    if chunks is not None:
-        summary["engine"] = "device"
-        summary.update(_chunk_attribution(chunks, pipe, n_streamed))
-    if paths is not None:
-        summary["artifacts"] = paths
+        chunks = None
+        if engine == "device":
+            from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+
+            pipe = cont if cont is not None else DeviceSlamPipeline(
+                cfg, kf_points=4096, log_capacity=max(n_scans, 8192), device=device)
+            t0 = time.perf_counter()
+            chunks = _run_device_engine(pipe, lazy if source is None else source, gt_stamps,
+                                        gps_alts, cfg, chunk, prefetch_depth, prefetch_threads,
+                                        device, timers, verbose, sensor_windows,
+                                        checkpoint_every, out, start=0 if cont is None else 1)
+        else:
+            pipe = SlamPipeline(cfg, kf_points=4096, device=device)
+            t0 = time.perf_counter()
+            _run_host_engine(pipe, world, gt, gt_stamps, gps_alts, sensor_windows, rng,
+                             timers, on_scan, verbose, checkpoint_every, out, index, sensor,
+                             dynamics)
+        with timers.time("finalize"):
+            pipe.finalize()
+        wall = time.perf_counter() - t0
+
+        paths = None
+        if out:
+            with timers.time("save"):
+                # camera-frame TUM export, so that `eval --est odom_tum.txt
+                # --gt <camera-frame GT file>` compares directly
+                paths = save_run(pipe, out, cam_T=sim.camera_frame_transform())
+
+        gt_rel = _gt_in_map_frame(gt)
+        stamps, _kf_odo, kf_opt = pipe.keyframe_trajectory()
+        kf_base = 0 if cont is None else cont.continuation["old_keyframes"]
+        # a continuation is evaluated on its own keyframes only: the saved
+        # session's stamps belong to its own run
+        stamps, kf_opt = stamps[kf_base:], kf_opt[kf_base:]
+        n_streamed = n_scans - (0 if cont is None else 1)   # scan 0 went into the seed
+        ei, idx = metrics.associate(stamps, gt_stamps, max_diff=0.05)
+        kf_opt = kf_opt[ei]
+        estT = se3.pose_to_matrix(torch.from_numpy(kf_opt)).numpy()
+        gt_xyz = gt_rel[idx, :3, 3]
+        # SE(3)-aligned APE (the evo_ape -a convention); unaligned alongside
+        ate = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=True)
+        ate_raw = metrics.ape_rmse(kf_opt[:, :3], gt_xyz, align=False)
+        drift, length = metrics.end_drift(kf_opt[:, :3], gt_xyz)
+        summary = {
+            "scans": n_scans,
+            "keyframes": pipe.kf_count,
+            "loops": pipe.loop_count,
+            "ate_rmse_m": round(float(ate), 4),
+            "ate_unaligned_m": round(float(ate_raw), 4),
+            "rpe_rmse_m": round(metrics.rpe_rmse(estT, gt_rel[idx]), 4),
+            "end_drift_m": round(drift, 3),
+            "length_m": round(length, 1),
+            "drift_pct": round(100.0 * drift / max(length, 1e-9), 3),
+            "scans_per_sec": round(n_streamed / wall, 2),
+        }
+        if cont is not None:
+            summary["continuation"] = {
+                **{k: v for k, v in cont.continuation.items() if k != "reloc_pose"},
+                "new_keyframes": pipe.kf_count - kf_base}
+        if chunks is not None:
+            summary["engine"] = "device"
+            summary.update(_chunk_attribution(chunks, pipe, n_streamed))
+        if paths is not None:
+            summary["artifacts"] = paths
+    finally:
+        if source is not None:
+            source.close()
+    if source is not None:
+        summary["render_procs"] = render_procs
+        summary["inline_renders"] = source.inline_renders
     return pipe, summary
 
 
@@ -431,17 +498,118 @@ def cmd_run_sim(args):
                             engine=args.engine, chunk=args.chunk,
                             prefetch_depth=args.prefetch_depth,
                             prefetch_threads=args.prefetch_threads,
-                            continue_from=args.continue_session)
+                            continue_from=args.continue_session, realism=args.realism,
+                            trajectory=args.trajectory, render_procs=args.render_procs)
+    print(json.dumps(summary, indent=2))
+    print(timers.report(), file=sys.stderr)
+
+
+def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
+              max_scans: int = 0, engine: str = "host", defer_sync: bool = True,
+              verbose: bool = False, overrides=(), device: str = "cuda", timers=None):
+    """Run the velodyne `.bin` scans of a directory (in name order, the
+    first `max_scans` where it is not 0; scan i stamped 0.1·i) at the
+    default config with `overrides`, through the host engine (scans staged
+    by `DeviceScanPrefetcher`, `defer_sync` on unless asked off) or the
+    device engine (chunks of 16 staged by `DeviceChunkPrefetcher`). Scans
+    are read by `io/native_loader.py` at `filter.max_raw_points`. Writes the
+    camera-frame export to `out`; with a KITTI pose file `gt` (one row a
+    scan, camera frame) the summary adds the keyframes' ATE. Returns
+    (pipeline, summary); the summary names the reader that ran."""
+    from xchu_slam_tpu_torch.config import default_config
+    from xchu_slam_tpu_torch.io import kitti, native_loader
+    from xchu_slam_tpu_torch.io.export import save_run
+    from xchu_slam_tpu_torch.io.prefetch import DeviceScanPrefetcher, LazyScans
+    from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
+    from xchu_slam_tpu_torch.utils import metrics
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    _check_device(device)
+    if engine not in ("host", "device"):
+        raise ValueError(f"unknown engine {engine!r}")
+    cfg = _apply_overrides(default_config(), overrides)
+    files = kitti.list_velodyne_dir(velodyne_dir)
+    if max_scans:
+        files = files[:max_scans]
+    if not files:
+        raise ValueError(f"no velodyne .bin scans in {velodyne_dir}")
+    capacity = cfg.filter.max_raw_points
+    reader = native_loader.reader()   # built here, before the timed region
+
+    def read(path):
+        xyz, inten, n = native_loader.read_velodyne(path, capacity=capacity)
+        return xyz[:n], inten[:n]
+
+    scans = LazyScans(files, read)
+    stamps = 0.1 * np.arange(len(files))
+    timers = timers if timers is not None else StageTimers(device)
+    chunks = None
+    if engine == "device":
+        from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+
+        pipe = DeviceSlamPipeline(cfg, kf_points=4096, log_capacity=max(len(files), 8192),
+                                  device=device)
+        t0 = time.perf_counter()
+        chunks = _run_device_engine(pipe, scans, stamps, None, cfg, 16, 2, 2, device,
+                                    timers, verbose)
+    else:
+        pipe = SlamPipeline(cfg, kf_points=4096, device=device)
+        pipe.defer_sync = defer_sync
+        t0 = time.perf_counter()
+        with DeviceScanPrefetcher(scans, capacity=capacity, depth=6, threads=3,
+                                  device=device) as pf, timers.time("slam"):
+            for i, cloud in enumerate(pf):
+                pipe.process_scan(cloud, None, stamp=float(stamps[i]))
+                if verbose and i % 100 == 0:
+                    print(f"scan {i}/{len(files)}: kf={pipe.kf_count} "
+                          f"loops={pipe.loop_count}", file=sys.stderr)
+    with timers.time("finalize"):
+        pipe.finalize()
+    wall = time.perf_counter() - t0
+    with timers.time("save"):
+        paths = save_run(pipe, out, to_camera_frame=True)
+    summary = {
+        "scans": len(files),
+        "keyframes": pipe.kf_count,
+        "loops": pipe.loop_count,
+        "scans_per_sec": round(len(files) / wall, 2),
+        "engine": engine,
+        "reader": reader,
+    }
+    if engine == "host":
+        summary["defer_sync"] = defer_sync
+    if gt:
+        gt_poses = kitti.read_kitti_poses(gt)
+        st, poses = kitti.read_tum(paths["odom_tum"])
+        # a keyframe row carries its scan's stamp: index the per-scan rows
+        idx = np.clip(np.round(np.asarray(st) * 10.0).astype(int), 0, len(gt_poses) - 1)
+        summary["ate_rmse_m"] = round(metrics.ape_rmse(poses[:, :3, 3],
+                                                       gt_poses[idx][:, :3, 3]), 4)
+    if chunks is not None:
+        summary.update(_chunk_attribution(chunks, pipe, len(files)))
+    summary["artifacts"] = paths
+    return pipe, summary
+
+
+def cmd_run_kitti(args):
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers
+
+    timers = StageTimers(args.device)
+    _pipe, summary = run_kitti(args.velodyne_dir, args.gt, args.out, args.max_scans,
+                               args.engine, not args.no_defer_sync, args.verbose, args.set,
+                               args.device, timers)
     print(json.dumps(summary, indent=2))
     print(timers.report(), file=sys.stderr)
 
 
 def localize_sim(session: str, queries: int = 12, scans: int = 0,
                  radius: float = 55.0, seed: int = 0, query_seed: int = 99,
-                 fitness_thresh: float | None = None, device: str = "cuda") -> dict:
+                 fitness_thresh: float | None = None, device: str = "cuda",
+                 trajectory: str | None = None) -> dict:
     """Localize `queries` fresh scans, rendered along the mapping run's
-    trajectory in its world (pass that run's scans / radius / seed) with
-    independent noise, against the session saved in checkpoint `session`."""
+    trajectory in its world (pass that run's scans / radius / seed, or its
+    TUM `trajectory` file / scans / seed) with independent noise, against
+    the session saved in checkpoint `session`."""
     from xchu_slam_tpu_torch.models.relocalize import localizer_from_checkpoint
     from xchu_slam_tpu_torch.utils import sim
 
@@ -451,14 +619,15 @@ def localize_sim(session: str, queries: int = 12, scans: int = 0,
         # ICP fitness is density-dependent; single-scan-vs-submap refinement
         # may need a looser gate than the session's in-run loop gate
         loc.cfg = loc.cfg.override({"loop.icp_fitness_thresh": fitness_thresh})
-    _stamps, gt, world = _sim_world_and_traj(scans, radius, seed)
+    _stamps, gt, world = _sim_world_and_traj(scans, radius, seed, trajectory)
+    index = _world_index(world, trajectory)
     gt_rel = _gt_in_map_frame(gt)   # the session's odometry starts at gt[0]
 
     qi = np.linspace(0, len(gt) - 1, queries).round().astype(int)
     rng = np.random.default_rng(query_seed)
     rows, errs = [], []
     for i in qi:
-        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
+        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000, index=index)
         r = loc.localize(xyz, inten)
         row = {"query_pose_idx": int(i), "found": r.found, "kf_idx": r.kf_idx,
                "sc_dist": round(r.sc_dist, 4) if np.isfinite(r.sc_dist) else None,
@@ -484,7 +653,8 @@ def localize_sim(session: str, queries: int = 12, scans: int = 0,
 def cmd_localize(args):
     print(json.dumps(localize_sim(args.session, args.queries, args.scans,
                                   args.radius, args.seed, args.query_seed,
-                                  args.fitness_thresh, args.device), indent=2))
+                                  args.fitness_thresh, args.device, args.trajectory),
+                     indent=2))
 
 
 def evaluate(est: str, gt: str, gt_format: str = "tum", t_max_diff: float = 0.05,
@@ -544,9 +714,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="xchu_slam_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    ps = sub.add_parser("run-sim", help="run SLAM on the synthetic circuit")
-    ps.add_argument("--scans", type=int, default=0, help="scans (0 = 400)")
+    ps = sub.add_parser("run-sim", help="run SLAM on the synthetic circuit, or along "
+                        "a TUM trajectory (--trajectory)")
+    ps.add_argument("--scans", type=int, default=0,
+                    help="scans (0 = 400 on the circuit, the whole file with --trajectory)")
     ps.add_argument("--radius", type=float, default=55.0)
+    ps.add_argument("--trajectory", default=None, metavar="TUM_FILE",
+                    help="TUM camera-frame trajectory file: simulate the scans along it "
+                    "in a corridor world")
+    ps.add_argument("--realism", action="store_true",
+                    help="beam-level sensor model (64 beams, per-ray occlusion, dropout, "
+                    "radial noise, attenuated intensity) and moving traffic")
     ps.add_argument("--seed", type=int, default=0)
     ps.add_argument("--loop-method", default="sc",
                     choices=["sc", "isc", "radius", "none"])
@@ -574,17 +752,37 @@ def main(argv=None):
                     help="staged chunks in flight ahead of the engine "
                     "(--engine device)")
     ps.add_argument("--prefetch-threads", type=int, default=2,
-                    help="staging threads; they also render the scans "
-                    "(--engine device)")
+                    help="staging threads; they also render the scans unless "
+                    "--render-procs (--engine device)")
+    ps.add_argument("--render-procs", type=int, default=0,
+                    help="render the scans in N forked worker processes, started "
+                    "before the run's first CUDA call (--engine device; 0 = in the "
+                    "staging threads)")
     # flags of the reference's run-sim that are named, so that they are
     # refused by name
-    for flag in ("--mesh", "--trajectory", "--render-procs", "--sync-every"):
+    for flag in ("--mesh", "--sync-every"):
         ps.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    ps.add_argument("--realism", action="store_true", help=argparse.SUPPRESS)
     _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
     ps.set_defaults(fn=cmd_run_sim)
+
+    pk = sub.add_parser("run-kitti", help="run SLAM on KITTI velodyne scans")
+    pk.add_argument("--velodyne-dir", required=True)
+    pk.add_argument("--gt", default=None, help="KITTI pose file (camera frame, a row "
+                    "a scan) for the ATE")
+    pk.add_argument("--out", default="out/kitti")
+    pk.add_argument("--max-scans", type=int, default=0)
+    pk.add_argument("--engine", default="host", choices=["host", "device"])
+    pk.add_argument("--no-defer-sync", action="store_true",
+                    help="the host engine waits for each scan's results before "
+                    "the next scan")
+    pk.add_argument("--verbose", action="store_true")
+    pk.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    _add_device(pk)
+    pk.add_argument("--set", action="append", default=[], metavar="key=value",
+                    help="config override, e.g. --set ndt.resolution=1.0")
+    pk.set_defaults(fn=cmd_run_kitti)
 
     pe = sub.add_parser("eval", help="APE/RPE between trajectories "
                         "(timestamp-associated, like evo)")
@@ -609,6 +807,8 @@ def main(argv=None):
                     help="trajectory length (match the mapping run)")
     pl.add_argument("--radius", type=float, default=55.0,
                     help="circuit radius (match the mapping run)")
+    pl.add_argument("--trajectory", default=None, metavar="TUM_FILE",
+                    help="TUM trajectory file (match the mapping run)")
     pl.add_argument("--seed", type=int, default=0,
                     help="world seed (must match the mapping run)")
     pl.add_argument("--query-seed", type=int, default=99,
@@ -623,14 +823,18 @@ def main(argv=None):
     pi.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    if args.cmd in ("run-sim", "run-kitti"):
+        for flag in ("mesh", "sync_every"):
+            if getattr(args, flag, None):
+                p.error(f"--{flag.replace('_', '-')} is not ported yet")
     if args.cmd == "run-sim":
-        for flag, on in (("--mesh", args.mesh), ("--trajectory", args.trajectory),
-                         ("--render-procs", args.render_procs),
-                         ("--sync-every", args.sync_every), ("--realism", args.realism)):
-            if on:
-                p.error(f"{flag} is not ported yet")
         if args.continue_session and args.engine != "device":
             p.error("--continue-session requires --engine device")
+        if args.render_procs and args.engine != "device":
+            p.error("--render-procs requires --engine device: the host engine draws "
+                    "every scan from one shared generator")
+        if args.render_procs < 0:
+            p.error("--render-procs must be >= 0")
     if args.cmd == "run-sim" and args.engine == "device":
         if args.chunk < 1 or args.prefetch_depth < 1 or args.prefetch_threads < 1:
             p.error("--chunk, --prefetch-depth and --prefetch-threads must be >= 1")

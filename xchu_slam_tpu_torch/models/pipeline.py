@@ -9,13 +9,22 @@ Context or a radius search), ICP verification of the candidate against a
 pose-graph solve per accepted loop. Between solves, new keyframes chain onto
 the last optimized pose.
 
-Ported: the synchronous host engine with loop methods "sc", "isc", "radius"
-and "none"; the IMU / wheel-odometry NDT guess (`odom.use_imu`,
+Ported: the host engine with loop methods "sc", "isc", "radius" and
+"none"; the IMU / wheel-odometry NDT guess (`odom.use_imu`,
 `odom.use_odom`; integrated on the host, see ops/imu.py); GPS altitude
-factors (`pgo.use_gps`); `assemble_map`. Not ported, and refused by the
-constructor: `loop.async_detect` (the loop-closure worker thread) and
-`filter.detect_ground`. Also not ported: `defer_sync`, device-staged `Cloud`
-input, the device engine. The keyframe database and the factor graph are
+factors (`pgo.use_gps`); `assemble_map`; device-staged `Cloud` input
+(io/prefetch.DeviceScanPrefetcher); and `defer_sync`, a one-scan
+pipelining: scan k is enqueued with the step form that decides its map
+updates on the card and reads nothing back (`odometry.step(...,
+on_device=True)`), its pose and diagnostics are copied to the host right
+behind it, and only then are scan k - 1's results (waiting for scan k - 1's
+copy alone) read and consumed, so the host never waits on the scan it just
+enqueued. With IMU or wheel windows the pending scan is consumed before
+the guess, which integrates from the last consumed pose. The
+results are those of the synchronous mode, one call later; `finalize`
+consumes the last. Not ported, and refused by the constructor:
+`loop.async_detect` (the loop-closure worker thread) and
+`filter.detect_ground`. The keyframe database and the factor graph are
 preallocated at full capacity and updated in place.
 """
 
@@ -201,6 +210,15 @@ class SlamPipeline:
         # IMU guess state: the velocity estimate carried between scans
         self._imu_state = imu_ops.ImuState(velocity=torch.zeros(3))
         self.odom_log: list[dict] = []
+        # one-scan pipelining (see the module docstring): the enqueued scan
+        # whose results are consumed at the next call, and the two pinned
+        # host slots its readback is copied into behind its step
+        self.defer_sync = False
+        self._pending = None
+        self._slots = None
+        self._slot = 0
+        self._use_ext = {flag: torch.tensor(flag, device=self.device)
+                         for flag in (False, True)}
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
@@ -227,18 +245,24 @@ class SlamPipeline:
         return delta.to(self.device), True
 
     # ------------------------------------------------------------------ #
-    def process_scan(self, xyz: np.ndarray, intensity: np.ndarray | None,
+    def process_scan(self, xyz: np.ndarray | Cloud, intensity: np.ndarray | None,
                      stamp: float, gps_alt: float | None = None,
                      imu: imu_ops.ImuWindow | None = None,
-                     wheel: imu_ops.OdomWindow | None = None) -> dict:
-        """Feed one scan of raw body-frame points [n,3]. `imu` / `wheel`
-        carry the sensor samples since the previous scan; with
+                     wheel: imu_ops.OdomWindow | None = None) -> dict | None:
+        """Feed one scan: raw body-frame points [n,3], or a Cloud already
+        staged on the device (io/prefetch.DeviceScanPrefetcher). `imu` /
+        `wheel` carry the sensor samples since the previous scan; with
         `odom.use_imu` / `odom.use_odom` they replace the constant-velocity
         NDT guess. `gps_alt` is the altitude measured at this scan, if any;
-        with `pgo.use_gps` it becomes a factor when the scan is a keyframe."""
+        with `pgo.use_gps` it becomes a factor when the scan is a keyframe.
+        Returns the scan's result; with `defer_sync`, the previous scan's
+        (None when there is none)."""
         cfg = self.cfg
-        cloud = make_cloud(xyz, intensity, capacity=cfg.filter.max_raw_points,
-                           device=self.device)
+        if isinstance(xyz, Cloud):
+            cloud = xyz
+        else:
+            cloud = make_cloud(xyz, intensity, capacity=cfg.filter.max_raw_points,
+                               device=self.device)
         filt = filter_scan(cloud, cfg.filter)
         if self.odom_state is None:
             init = torch.zeros(6, dtype=torch.float32, device=self.device)
@@ -249,18 +273,62 @@ class SlamPipeline:
             self._add_kf(pose, stamp, filt, opt_pose=pose, gps_alt=gps_alt)
             self.scan_count += 1
             return {"pose": pose, "keyframe": True, "loop": None}
+        result = None
+        if self.defer_sync and self._pending is not None and \
+                (cfg.odom.use_imu or cfg.odom.use_odom):
+            # the guess integrates from the host copy of the last pose, and
+            # the IMU's from the velocity that consuming a scan resets: so
+            # the pending scan is consumed before the guess
+            result = self._consume(*self._pending)
+            self._pending = None
         ext_delta, use_ext = self._ext_guess(imu, wheel)
+        if not self.defer_sync:
+            self.odom_state, out = odometry.step(self.odom_state, filt.xyz, filt.mask,
+                                                 self.ospec, ext_delta, use_ext)
+            return self._consume(out, filt, stamp, gps_alt)
         self.odom_state, out = odometry.step(self.odom_state, filt.xyz, filt.mask,
-                                             self.ospec, ext_delta, use_ext)
-        return self._consume(out, filt, stamp, gps_alt)
+                                             self.ospec, ext_delta, self._use_ext[use_ext],
+                                             on_device=True)
+        staged = self._stage_readback(out)
+        if self._pending is not None:
+            result = self._consume(*self._pending)
+        self._pending = (out, filt, stamp, gps_alt, staged)
+        return result
+
+    def _stage_readback(self, out: odometry.OdomOutput):
+        """Enqueue the copy of the step's pose and diagnostics to the host
+        right behind the step: (host tensor [9], event that marks the copy
+        done, None on the CPU). Waiting on the event later waits for this
+        scan only, not for the scans enqueued after it."""
+        vals = torch.cat([out.pose, out.matched_frac.reshape(1).float(),
+                          out.fitness.reshape(1), out.iterations.reshape(1).float()])
+        if vals.device.type != "cuda":
+            return vals, None
+        if self._slots is None:
+            self._slots = [torch.empty(9, pin_memory=True) for _ in range(2)]
+        host = self._slots[self._slot]
+        self._slot ^= 1
+        host.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     def _consume(self, out: odometry.OdomOutput, filt: Cloud, stamp: float,
-                 gps_alt: float | None) -> dict:
+                 gps_alt: float | None, staged=None) -> dict:
         cfg = self.cfg
-        # the engine's readback of the pose and the diagnostics; the step made
-        # its own, for its branches, right after the align
-        host = torch.cat([out.pose, out.matched_frac.reshape(1).float(),
-                          out.fitness.reshape(1)]).cpu().numpy()
+        if staged is not None:
+            # defer_sync: the copy enqueued behind the step (`_stage_readback`)
+            host, done = staged
+            if done is not None:
+                done.synchronize()
+            host = host.numpy()
+            iters = int(host[8])
+        else:
+            # the engine's readback of the pose and the diagnostics; the step
+            # made its own, for its branches, right after the align
+            host = torch.cat([out.pose, out.matched_frac.reshape(1).float(),
+                              out.fitness.reshape(1)]).cpu().numpy()
+            iters = out.iterations
         pose, mfrac, fit = host[:6].copy(), host[6], host[7]
         prev_pose = self._last_odom_pose
         step_d = float(np.linalg.norm(pose[:2] - prev_pose[:2]))
@@ -278,7 +346,7 @@ class SlamPipeline:
                     ((pose[:3] - prev_pose[:3]) / dt).astype(np.float32)))
         self._last_stamp = float(stamp)
         self.odom_log.append({"stamp": stamp, "pose": pose,
-                              "iterations": int(out.iterations),
+                              "iterations": int(iters),
                               "matched_frac": float(mfrac),
                               "fitness": float(fit)})
 
@@ -421,7 +489,11 @@ class SlamPipeline:
 
     # ------------------------------------------------------------------ #
     def finalize(self):
-        """Final full-strength PGO solve."""
+        """Consume the pending scan (`defer_sync`), then the final
+        full-strength PGO solve."""
+        if self._pending is not None:
+            self._consume(*self._pending)
+            self._pending = None
         if self._dirty_graph or self.loop_count > 0:
             self._solve_graph(full=True)
 

@@ -4,7 +4,8 @@ plain C interface, loaded with ctypes.
 A source is compiled at first use into `build/kernels/` at the repository
 root, keyed by the hash of the source and the flags, and the compiler's
 output (ptxas's registers, shared memory and spills) is kept beside the
-library.
+library. `io/native_loader.py` builds the host scan loader the same way,
+with the host compiler, into `build/native/`.
 """
 
 from __future__ import annotations
@@ -30,24 +31,27 @@ def nvcc() -> str:
     return path
 
 
-def build(src: Path, flags: tuple[str, ...] = BASE_FLAGS) -> tuple[Path, float, str]:
-    """Compile `src` unless the library for this source and these flags
-    exists. Returns (library path, build seconds, nvcc output); a build that
-    was already there returns the kept output."""
+def build(src: Path, flags: tuple[str, ...] = BASE_FLAGS, compiler: str | None = None,
+          out_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
+    """Compile `src` with `compiler` (default nvcc) into `out_dir` unless the
+    library for this source and these flags exists. Returns (library path,
+    build seconds, compiler output); a build that was already there returns
+    the kept output."""
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{key}.so"
+    lib = out_dir / f"{src.stem}-{key}.so"
     log = lib.with_suffix(".log")
     if lib.exists() and log.exists():
         return lib, 0.0, log.read_text()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = compiler or nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc(), *flags, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
