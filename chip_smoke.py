@@ -142,7 +142,28 @@ After phase 10:
               engine with and without `defer_sync` (poses identical, scans/s
               both ways) and the device engine, each closing ≥ 1 loop with the
               native reader
-Phases 5-11 also assert that every path with a verification launched
+After phase 11:
+ 12. extras  the modules the reference runs beside its main path, at
+              run-sim's full width on the circuit: (a) `--set
+              filter.detect_ground=true` through the host engine (a valid
+              plane on most scans, median |d - 1.73| < 0.05 m, ground ms a
+              scan from CUDA events, scans/s beside phase 5's, poses and NN /
+              NDT launches equal to phase 5's; on 16 scans `detect_plane` on
+              the card, enqueued with no host synchronisation, against the CPU
+              given the card's triples); (b) `--set
+              loop.async_detect=true`: free-running (≥ 1 loop, ATE < 1.0 m,
+              scans/s beside phase 5's), then with each job waited for (a hash
+              of every pose equal to phase 5's); (c) GICP between 16 pairs of
+              consecutive keyframe clouds on the card against the CPU (the
+              same iteration count on ≥ 9 in 10, |Δpose| ≤ 1e-4 on those, ms an
+              align); (d) the window and distance localmaps over the last 20
+              and 50 keyframes on the card against the CPU (point counts and
+              validity equal, voxel means within 1e-4 m, inverse covariances
+              of both within 2e-4 / eig_inflation of a float64 finalize of
+              their sums, ms a build); (e) inside the waiting run, `device_trace`
+              over the 4 scans around the first verification: the trace names
+              the NDT and NN kernels (its size printed)
+Phases 5-12 also assert that every path with a verification launched
 icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
 readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
@@ -150,8 +171,9 @@ Then one JSON line of kernel records (all five kernels, with the launches of
 each path; the NDT and PGO entries with their modes' records) and, last, the
 result line. `--kernel-only` stops after phase 3, `--kernels-only` after
 phase 4d, `--modes-only` runs phases 1-4d and 10, `--device-only` runs
-phases 1, 2, 5, 8 and 9, `--sources-only` runs phases 1, 2 and 11; none of
-the five prints a result line.
+phases 1, 2, 5, 8 and 9, `--sources-only` runs phases 1, 2 and 11,
+`--extras-only` runs phases 1, 2, 5 and 12; none of the six prints a result
+line.
 """
 
 from __future__ import annotations
@@ -1107,7 +1129,8 @@ def phase_main() -> tuple[dict, dict]:
     _, _, kf_opt = pipe.keyframe_trajectory()
     _check_loop_kernels("main", counts, pipe.icp_verifications, summary["loops"],
                         _inloop_gn(pipe))
-    summary.update(icp_verifications=pipe.icp_verifications, nn_launches=launches,
+    summary.update(pose_hash=_pose_hash(pipe),
+                   icp_verifications=pipe.icp_verifications, nn_launches=launches,
                    ndt_launches=counts["ndt"], pgo_launches=counts["pgo"],
                    icp_step_launches=counts["icp_step"],
                    icp_live_trips=counts["icp_live_trips"],
@@ -2232,6 +2255,370 @@ def phase_sources(smi: str) -> dict:
     return {"paths": paths}
 
 
+# the extras phase (12): the modules the reference runs beside its main
+# path, each through the host engine or on the circuit's keyframes
+GROUND_D = 1.73          # the simulator's ground lies at z = -1.73 m (utils/sim.py:39-45)
+GROUND_COMPARE_SCANS = 16
+GROUND_NEAR = 1e-5       # a point this close to a threshold may fall either side
+GICP_PAIRS = 16
+LOCALMAP_WINDOWS = (20, 50)
+TRACE_SCANS = 4
+JOB_WAIT_S = 300    # s: a waited-for loop job, the first one building and capturing ICP
+
+
+def _ground_against_cpu(scans: list, cfg) -> dict:
+    """`detect_plane` on the card (enqueued under `set_sync_debug_mode
+    ("error")`: no host synchronisation) against the same code on the CPU,
+    given the card's triples: the band equal; the candidates equal but where the
+    normal lies within GROUND_NEAR of its threshold or the point's k-NN set
+    differs (the expanded distance rounds differently on the two devices,
+    which decides between nearly equidistant neighbours; counted); then,
+    given the card's candidates, `valid` equal, coefficients within TOL, the
+    ground mask equal but within GROUND_NEAR of `ransac_thresh`."""
+    from xchu_slam_tpu_torch.ops import ground
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import make_cloud
+
+    spec = ground.spec_from_config(cfg.ground)
+    cos_t = float(torch.cos(torch.deg2rad(torch.tensor(spec.normal_angle_deg))))
+    err, near_cand, knn_cand, knn_sets, near_ground = 0.0, 0, 0, 0, 0
+    for xyz, inten in scans:
+        filt = filter_scan(make_cloud(xyz, inten, capacity=cfg.filter.max_raw_points,
+                                      device="cuda"), cfg.filter)
+        xyz_c, band_c, nrm_c, cand_c = ground.candidates(filt.xyz, filt.mask, spec)
+        tri = ground.draw_triples(cand_c, spec.ransac_iters)
+        card = ground.fit_plane(xyz_c, cand_c, tri, spec)
+        # the whole detection enqueued with no host synchronisation
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            whole = ground.detect_plane(filt.xyz, filt.mask, spec)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not all(torch.equal(a, b) for a, b in zip(card, whole)):
+            raise AssertionError("ground: detect_plane differs from its own parts")
+        xyz_h, band_h, _nrm_h, cand_h = ground.candidates(filt.xyz.cpu(), filt.mask.cpu(), spec)
+        if not torch.equal(band_h, band_c.cpu()):
+            raise AssertionError("ground: the band differs between the card and the CPU")
+        differ = (cand_h != cand_c.cpu()).numpy()
+        near = (torch.abs(nrm_c[:, 2].abs() - cos_t) <= GROUND_NEAR).cpu().numpy()
+        other_set = (ground.knn_indices(xyz_h, band_h, spec.normal_knn).sort(1).values
+                     != ground.knn_indices(xyz_c, band_c, spec.normal_knn).sort(1).values.cpu()
+                     ).any(1).numpy()
+        if (differ & ~near & ~other_set).any():
+            raise AssertionError(f"ground: {int((differ & ~near & ~other_set).sum())} "
+                                 "candidates differ away from the normal threshold with the "
+                                 "same neighbours")
+        near_cand += int((differ & near).sum())
+        knn_cand += int((differ & ~near).sum())
+        knn_sets += int((other_set & band_c.cpu().numpy()).sum())
+        host = ground.fit_plane(xyz_h, cand_c.cpu(), tri.cpu(), spec)
+        if bool(host.valid) != bool(card.valid):
+            raise AssertionError("ground: valid differs between the card and the CPU")
+        err = max(err, float((host.coeffs - card.coeffs.cpu()).abs().max()))
+        c = card.coeffs.cpu()
+        dist = torch.abs(xyz_h @ c[:3] + c[3])
+        gdiff = (host.ground_mask != card.ground_mask.cpu()).numpy()
+        if (gdiff & ~(torch.abs(dist - spec.ransac_thresh) <= GROUND_NEAR).numpy()).any():
+            raise AssertionError("ground: the ground masks differ away from ransac_thresh")
+        near_ground += int(gdiff.sum())
+    if not err <= TOL:
+        raise AssertionError(f"ground: coefficients differ by {err} between the card and the CPU")
+    return {"scans": len(scans), "max_abs_err_coeffs": err,
+            "candidates_differing_near_threshold": near_cand,
+            "candidates_differing_with_other_knn_set": knn_cand,
+            "band_points_with_other_knn_set": knn_sets,
+            "ground_points_differing_near_threshold": near_ground}
+
+
+def _extras_ground(smi: str, main_counts: dict, main_summary: dict):
+    """(a) `filter.detect_ground` through the host engine on the circuit.
+    Returns (record, launches, pipeline, scan index of each verification)."""
+    from xchu_slam_tpu_torch.cli import run_sim, sim_config
+    from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
+    from xchu_slam_tpu_torch.ops import icp
+
+    events, results, raw, verify_at, scan_no = [], [], [], [], [0]
+    maybe_ground, align = SlamPipeline._maybe_ground, icp.align
+
+    def timed_ground(self, filt):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = maybe_ground(self, filt)
+        e.record()
+        events.append((s, e))
+        return out
+
+    def marking_align(*args, **kw):
+        verify_at.append(scan_no[0])
+        return align(*args, **kw)
+
+    def on_scan(i, res, scan):
+        results.append(res["ground"])
+        if i < GROUND_COMPARE_SCANS:
+            raw.append((scan["xyz"].copy(), scan["intensity"].copy()))
+        scan_no[0] = i + 1
+
+    SlamPipeline._maybe_ground, icp.align = timed_ground, marking_align
+    try:
+        (pipe, summary), counts = _count_launches(lambda: run_sim(
+            SCANS, RADIUS, SEED, "cuda", overrides=["filter.detect_ground=true"],
+            on_scan=on_scan))
+    finally:
+        SlamPipeline._maybe_ground, icp.align = maybe_ground, align
+    torch.cuda.synchronize()
+    valid = torch.stack([g.valid for g in results]).cpu().numpy()
+    d = torch.stack([g.coeffs[3] for g in results]).cpu().numpy()
+    nz = torch.stack([g.coeffs[2] for g in results]).cpu().numpy()
+    ms = float(np.mean([s.elapsed_time(e) for s, e in events]))
+    rec = {"card": smi, "scans": len(results), "valid_share": round(float(valid.mean()), 4),
+           "median_abs_d_minus_1.73_m": float(np.median(np.abs(d[valid] - GROUND_D))),
+           "min_normal_z_valid": float(nz[valid].min()),
+           "ground_ms_per_scan": round(ms, 5), "scans_per_sec": summary["scans_per_sec"],
+           "main_scans_per_sec": main_summary["scans_per_sec"],
+           "pose_hash": _pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
+           "keyframes": summary["keyframes"], "loops": summary["loops"],
+           "ate_rmse_m": summary["ate_rmse_m"],
+           "nn_launches": counts["nn"], "ndt_launches": counts["ndt"]}
+    rec["card_against_cpu"] = _ground_against_cpu(raw, sim_config())
+    print(f"extras ground [{smi}]: " + json.dumps(rec))
+    if len(results) != SCANS or not valid.mean() > 0.5:
+        raise AssertionError(f"ground: a valid plane on {valid.mean():.3f} of the scans")
+    if not rec["median_abs_d_minus_1.73_m"] < 0.05:
+        raise AssertionError(f"ground: median |d - 1.73| {rec['median_abs_d_minus_1.73_m']} m")
+    if rec["pose_hash"] != rec["main_pose_hash"]:
+        raise AssertionError("ground: the poses differ from the main path's")
+    if counts["nn"] != main_counts["nn"] or counts["ndt"] != main_counts["ndt"]:
+        raise AssertionError(f"ground: NN / NDT launches {counts['nn']} / {counts['ndt']} "
+                             f"against main's {main_counts['nn']} / {main_counts['ndt']}")
+    return rec, counts, pipe, verify_at
+
+
+def _trace_kernels(path: str) -> dict:
+    """Kernel events of a Chrome trace, counted by the port's kernel names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {tag: sum(tag in n for n in names) for tag in
+             ("ndt_align_kernel", "nn_kernel", "nn_merge_kernel", "icp_step_kernel")}
+    return {"kernel_events": len(names), **found}
+
+
+def _extras_async(smi: str, main_counts: dict, main_summary: dict, verify_at: list):
+    """(b) `loop.async_detect` on the circuit: free-running, then with each
+    job waited for (poses equal to the main path's), and (e) inside that run
+    a `device_trace` over the TRACE_SCANS scans around the first
+    verification."""
+    from xchu_slam_tpu_torch.cli import run_sim
+    from xchu_slam_tpu_torch.models.async_worker import AsyncLoopWorker
+    from xchu_slam_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    (pipe, summary), free = _count_launches(lambda: run_sim(
+        SCANS, RADIUS, SEED, "cuda", overrides=["loop.async_detect=true"]))
+    _check_loop_kernels("extras async", free, pipe.icp_verifications, summary["loops"],
+                        _inloop_gn(pipe))
+    rec = {"card": smi, "free_running": {
+        "keyframes": summary["keyframes"], "loops": summary["loops"],
+        "ate_rmse_m": summary["ate_rmse_m"], "verifications": pipe.icp_verifications,
+        "scans_per_sec": summary["scans_per_sec"],
+        "sync_scans_per_sec": main_summary["scans_per_sec"]}}
+    if summary["loops"] < 1 or not summary["ate_rmse_m"] < 1.0:
+        raise AssertionError(f"async free-running: {rec['free_running']}")
+    del pipe
+
+    first = verify_at[0]
+    start = max(first - 2, 1)        # the traced scans: start .. start + TRACE_SCANS - 1
+    stack, trace_dir = [], tempfile.mkdtemp(prefix="extras_trace_")
+
+    def on_scan(i, _res, _scan):
+        if i == start - 1:
+            stack.append(device_trace(trace_dir))
+            stack[0].__enter__()
+        elif i == start + TRACE_SCANS - 1:
+            stack.pop().__exit__(None, None, None)
+
+    submit = AsyncLoopWorker.submit
+
+    def submit_and_wait(self, k, stamp):
+        submit(self, k, stamp)
+        with self.jobs.all_tasks_done:
+            if not self.jobs.all_tasks_done.wait_for(lambda: not self.jobs.unfinished_tasks,
+                                                     JOB_WAIT_S):
+                raise AssertionError(f"async, waiting: the loop worker's job for keyframe "
+                                     f"{k} did not finish within {JOB_WAIT_S} s")
+
+    AsyncLoopWorker.submit = submit_and_wait
+    try:
+        (pipe, summary), waiting = _count_launches(lambda: run_sim(
+            SCANS, RADIUS, SEED, "cuda", overrides=["loop.async_detect=true"],
+            on_scan=on_scan))
+    finally:
+        AsyncLoopWorker.submit = submit
+        while stack:
+            stack.pop().__exit__(None, None, None)
+    path = os.path.join(trace_dir, TRACE_FILE)
+    rec["waiting"] = {"loops": summary["loops"], "ate_rmse_m": summary["ate_rmse_m"],
+                      "pose_hash": _pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
+                      "nn_launches": waiting["nn"], "main_nn_launches": main_counts["nn"]}
+    trace = {"scans": list(range(start, start + TRACE_SCANS)), "first_verification": first,
+             "bytes": os.path.getsize(path), **_trace_kernels(path)}
+    print(f"extras async [{smi}]: " + json.dumps(rec))
+    print(f"extras trace [{smi}]: " + json.dumps(trace))
+    if rec["waiting"]["pose_hash"] != rec["waiting"]["main_pose_hash"]:
+        raise AssertionError("async, each job waited for: the poses differ from the main path's")
+    if trace["ndt_align_kernel"] < 1 or trace["nn_kernel"] < 1:
+        raise AssertionError(f"the trace does not name the NDT and NN kernels: {trace}")
+    os.remove(path)
+    return free, waiting
+
+
+def _extras_gicp(smi: str, pipe, gspec) -> dict:
+    """(c) GICP between consecutive keyframe clouds of the circuit (4096
+    points each; the target the earlier keyframe's grid in its own frame,
+    the guess the odometric relative pose) on the card against the CPU."""
+    from xchu_slam_tpu_torch.ops import gicp, voxel_map as vm
+    from xchu_slam_tpu_torch.utils import se3
+
+    db = pipe.db
+    same, err, iters, ms = 0, 0.0, [], []
+    for k in range(GICP_PAIRS):
+        def inputs(dev):
+            tgt = db.clouds[k].to(dev)
+            grid = vm.make_grid(gspec, vm.centered_origin(gspec, tgt.new_zeros(3)))
+            grid = vm.finalize(vm.insert_points(grid, tgt, db.cloud_mask[k].to(dev), gspec), gspec)
+            rel = torch.matmul(se3.inverse(se3.pose_to_matrix(db.poses[k])),
+                               se3.pose_to_matrix(db.poses[k + 1]))
+            return (db.clouds[k + 1].to(dev), db.cloud_mask[k + 1].to(dev), grid,
+                    se3.matrix_to_pose(rel).to(dev), gspec)
+
+        args = inputs("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = gicp.align(*args)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        host = gicp.align(*inputs("cpu"))
+        iters.append(int(card.iterations))
+        if int(host.iterations) == int(card.iterations):
+            same += 1
+            err = max(err, float((host.pose - card.pose.cpu()).abs().max()))
+    rec = {"card": smi, "pairs": GICP_PAIRS, "points": int(db.clouds.shape[1]),
+           "same_iterations": same, "max_abs_err_pose": err,
+           "iterations": iters, "ms_per_align_first": round(ms[0], 3),
+           "ms_per_align_median": round(float(np.median(ms[1:])), 3)}
+    print(f"extras gicp [{smi}]: " + json.dumps(rec))
+    if same < 0.9 * GICP_PAIRS or not err <= TOL:
+        raise AssertionError(f"gicp on the card against the CPU: {rec}")
+    return rec
+
+
+LOCALMAP_MEAN_TOL = 1e-4   # m: the transform's last bit at 50 m moves a voxel mean ~4e-6 m
+# A voxel's sums are of voxel-local offsets in [0, resolution), so a first
+# moment is bounded by n·res and a second by n·res². Each moment column is held
+# to the CPU's within STATS_RTOL of that bound: the transform's last bit at
+# 60 m (~8e-6 m) and a float32 sum's rounding stay below 3e-5 of it.
+STATS_RTOL = 1e-4
+# the trigonometric eigenvalues are within 2e-4 of the largest of float64's
+# (tests/test_torch_foundations.py); the inverse covariance sees eigenvalues
+# down to eig_inflation of the largest, so its rows are held to float64's
+# within 2e-4 / eig_inflation of the row's largest entry
+EIG_F64_RTOL = 2e-4
+
+
+def _localmap_errors(card, host, gspec) -> dict:
+    """A grid built on the card against the same build on the CPU: the
+    voxels whose point count or validity differs; each moment column's
+    largest |Δ| card against CPU relative to its bound (STATS_RTOL); on the
+    voxels valid in both, the largest |Δ mean| and |Δ inverse covariance|
+    relative to the voxel's largest entry, card against CPU, and the card's
+    against a float64 finalize of its own sums (near-repeated eigenvalues
+    make the float32 inverse covariance of a thin voxel uncertain to ~1 %,
+    on either device, so the inverse covariance is held to float64 and the
+    sums card to CPU)."""
+    from xchu_slam_tpu_torch.ops import voxel_map as vm
+
+    c, h = card.fin.cpu(), host.fin
+    cs, hs = card.stats.cpu(), host.stats
+    both = (c[:, 9] > 0) & (h[:, 9] > 0)
+    n = torch.clamp(hs[:, :1], min=1.0)
+    res = gspec.resolution
+    bound = torch.cat([n.expand(-1, 3) * res, n.expand(-1, 6) * res * res], 1)
+    stats_rel = ((cs[:, 1:] - hs[:, 1:]).abs() / bound).max(0).values
+
+    def icov_rel(a, ref):
+        scale = ref[both, 3:9].abs().max(1, keepdim=True).values + 1e-30
+        return float(((a[both, 3:9] - ref[both, 3:9]).abs() / scale).max())
+
+    return {"points": int(cs[:, 0].sum()), "valid_voxels": int(both.sum()),
+            "voxels_other_count": int((cs[:, 0] != hs[:, 0]).sum()),
+            "voxels_other_validity": int((c[:, 9] != h[:, 9]).sum()),
+            "max_rel_err_stats_by_column": [float(x) for x in stats_rel],
+            "max_abs_err_mean_m": float((c[both, :3] - h[both, :3]).abs().max()),
+            "max_rel_err_icov_card_cpu": icov_rel(c, h),
+            "max_rel_err_icov_card_f64": icov_rel(c, vm.finalize_stats(cs.double(), gspec))}
+
+
+def _extras_localmaps(smi: str, pipe, gspec) -> dict:
+    """(d) The window and distance localmaps from the circuit's last
+    keyframes on the card against the CPU (`_localmap_errors`: the counts
+    and validity equal, every moment column within STATS_RTOL of its bound,
+    means within LOCALMAP_MEAN_TOL, the card's inverse covariance within
+    EIG_F64_RTOL / eig_inflation of a float64 finalize of its sums); ms a
+    build from CUDA events."""
+    from xchu_slam_tpu_torch.models import localmap_keyframes as lk
+
+    db = pipe.db
+    n = pipe.kf_count
+    rec = {"card": smi, "keyframes": n, "points_per_keyframe": int(db.clouds.shape[1])}
+    for w in LOCALMAP_WINDOWS:
+        for name, build, kw in (("window", lk.build_window_localmap, {"window": w}),
+                                ("distance", lk.build_distance_localmap,
+                                 {"radius": 50.0, "max_window": w})):
+            def run(dev):
+                centre = db.opt_poses[n - 1, :3].to(dev)
+                return build(db.clouds.to(dev), db.cloud_mask.to(dev), db.opt_poses.to(dev),
+                             n, centre, gspec, **kw)
+
+            card = run("cuda")
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(5):
+                run("cuda")
+            e.record()
+            torch.cuda.synchronize()
+            host = run("cpu")
+            rec[f"{name} {w}"] = {**_localmap_errors(card, host, gspec),
+                                  "host_points": int(host.stats[:, 0].sum()),
+                                  "ms": round(s.elapsed_time(e) / 5, 4)}
+    print(f"extras localmaps [{smi}]: " + json.dumps(rec))
+    for key, row in rec.items():
+        if isinstance(row, dict) and (
+                row["points"] != row["host_points"] or row["points"] == 0
+                or row["voxels_other_count"] or row["voxels_other_validity"]
+                or not max(row["max_rel_err_stats_by_column"]) <= STATS_RTOL
+                or not row["max_abs_err_mean_m"] <= LOCALMAP_MEAN_TOL
+                or not row["max_rel_err_icov_card_f64"] <= EIG_F64_RTOL / gspec.eig_inflation):
+            raise AssertionError(f"localmap {key} on the card against the CPU: {row}")
+    return rec
+
+
+def phase_extras(smi: str, main_counts: dict, main_summary: dict) -> dict:
+    """Phase 12: ground, the async worker, GICP, the localmaps and a device
+    trace. Returns the launches of its paths."""
+    from xchu_slam_tpu_torch.cli import sim_config
+    from xchu_slam_tpu_torch.ops import voxel_map as vm
+
+    t0 = time.perf_counter()
+    _rec, ground_counts, pipe, verify_at = _extras_ground(smi, main_counts, main_summary)
+    free, waiting = _extras_async(smi, main_counts, main_summary, verify_at)
+    gspec = vm.spec_from_config(sim_config().ndt)
+    _rec, gicp_counts = _count_launches(lambda: _extras_gicp(smi, pipe, gspec))
+    _rec, map_counts = _count_launches(lambda: _extras_localmaps(smi, pipe, gspec))
+    print(f"extras: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return {"paths": {"extras ground": ground_counts, "extras async": free,
+                      "extras async waiting + trace": waiting, "extras gicp": gicp_counts,
+                      "extras localmaps": map_counts}}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -2258,7 +2645,7 @@ def main() -> int:
     if "--sources-only" in sys.argv[1:]:
         phase_sources(smi)
         return 0
-    only_device = "--device-only" in sys.argv[1:]
+    only_device = "--device-only" in sys.argv[1:] or "--extras-only" in sys.argv[1:]
     rec = None if only_device else phase_kernel()
     if "--kernel-only" in sys.argv[1:]:
         return 0
@@ -2274,6 +2661,9 @@ def main() -> int:
         phase_mode_circuits()
         return 0
     launches, host_summary = phase_main()
+    if "--extras-only" in sys.argv[1:]:
+        phase_extras(smi, launches, host_summary)
+        return 0
     if "--device-only" in sys.argv[1:]:
         phase_device_session(smi, phase_device_engine(host_summary))
         return 0
@@ -2296,6 +2686,7 @@ def main() -> int:
         rec_m["circuit"] = circuits[setting]
     pgo_jacobi["circuit"] = circuits["pgo.precond=jacobi"]
     by_path.update(phase_sources(smi)["paths"])
+    by_path.update(phase_extras(smi, launches, host_summary)["paths"])
 
     def per_path(key):
         return {k: v[key] for k, v in by_path.items()}

@@ -203,9 +203,11 @@ def test_inflate_and_invert_cov_matches_reference(case):
 PORT_MODULES = [
     "cli", "config", "convert", "types",
     "io.export", "io.kitti", "io.native_loader", "io.prefetch", "io.procsource",
-    "models.batch_odometry", "models.continue_session", "models.device_pipeline",
-    "models.odometry", "models.pipeline", "models.pose_graph", "models.relocalize",
-    "ops.filter", "ops.icp", "ops.imu", "ops.isc", "ops.ndt", "ops.ndt_deriv",
+    "models.async_worker", "models.batch_odometry", "models.continue_session",
+    "models.device_pipeline", "models.localmap_keyframes", "models.odometry",
+    "models.pipeline", "models.pose_graph", "models.relocalize",
+    "ops.filter", "ops.gicp", "ops.ground", "ops.icp", "ops.imu", "ops.isc", "ops.ndt",
+    "ops.ndt_deriv",
     "ops.scancontext", "ops.voxel_map", "ops.cuda._build", "ops.cuda.guess_kernel",
     "ops.cuda.icp_kernel", "ops.cuda.ndt_kernel", "ops.cuda.nn_kernel", "ops.cuda.pgo_kernel",
     "utils.checkpoint", "utils.linalg", "utils.metrics", "utils.profiling",

@@ -18,6 +18,7 @@ from xchu_slam_tpu.utils import checkpoint as jckpt, sim as jsim
 from xchu_slam_tpu_torch import cli, config as tconfig, convert
 from xchu_slam_tpu_torch.io import kitti
 from xchu_slam_tpu_torch.models import pipeline as tpipe, pose_graph as tpg, relocalize as treloc
+from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
 from xchu_slam_tpu_torch.ops import imu as timu
 from xchu_slam_tpu_torch.utils import checkpoint as tckpt, metrics, se3, sim
 from xchu_slam_tpu_torch.utils.profiling import StageTimers
@@ -347,8 +348,15 @@ def test_isc_circuit_closes_loops(isc_circuit):
     ({"loop.method": "kdtree"}, "unknown loop.method"),
 ])
 def test_constructor_refuses_what_is_not_ported(over, match):
+    """The host engine runs the worker and the ground path; the device
+    engine refuses both by name, as the reference's device engine has
+    neither. An unknown loop method is refused by both."""
+    cfg = tconfig.tiny_config().override(over)
     with pytest.raises(ValueError, match=match):
-        tpipe.SlamPipeline(tconfig.tiny_config().override(over))
+        DeviceSlamPipeline(cfg, device="cpu")
+    if "loop.method" in over:
+        with pytest.raises(ValueError, match=match):
+            tpipe.SlamPipeline(cfg)
 
 
 def test_loop_method_none_detects_nothing(isc_circuit):

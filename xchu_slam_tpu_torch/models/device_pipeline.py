@@ -414,10 +414,14 @@ class DeviceSlamPipeline:
         one made through `ctypes`)."""
         if cfg.loop.method not in ("sc", "isc", "radius", "none"):
             raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
+        # the reference's device engine has neither: both run in the host
+        # engine (`SlamPipeline`)
         if cfg.loop.async_detect:
-            raise ValueError("loop.async_detect is not ported")
+            raise ValueError("loop.async_detect: the device engine has no loop worker "
+                             "(the reference's has none); use the host engine")
         if cfg.filter.detect_ground:
-            raise ValueError("filter.detect_ground (ops/ground.py) is not ported")
+            raise ValueError("filter.detect_ground: the device engine has no ground path "
+                             "(the reference's has none); use the host engine")
         self.cfg = cfg
         self.device = torch.device(device)
         self.spec = spec_from_config(cfg, kf_points, log_capacity)

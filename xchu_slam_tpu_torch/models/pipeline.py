@@ -22,10 +22,14 @@ copy alone) read and consumed, so the host never waits on the scan it just
 enqueued. With IMU or wheel windows the pending scan is consumed before
 the guess, which integrates from the last consumed pose. The
 results are those of the synchronous mode, one call later; `finalize`
-consumes the last. Not ported, and refused by the constructor:
-`loop.async_detect` (the loop-closure worker thread) and
-`filter.detect_ground`. The keyframe database and the factor graph are
-preallocated at full capacity and updated in place.
+consumes the last. `filter.detect_ground` fits the ground plane of every
+filtered scan (ops/ground.py, on the scan's device, nothing read back): the
+scan's result carries it as `"ground"`. `loop.async_detect` runs detection
+and verification on a worker thread (models/async_worker.py, its own CUDA
+stream on the card) that reads the published snapshot of the database; the
+loops it verifies are applied at the next scan boundary. The keyframe
+database and the factor graph are preallocated at full capacity and updated
+in place.
 """
 
 from __future__ import annotations
@@ -37,7 +41,10 @@ import torch
 
 from xchu_slam_tpu_torch.config import SlamConfig
 from xchu_slam_tpu_torch.models import odometry, pose_graph as pg
-from xchu_slam_tpu_torch.ops import icp, imu as imu_ops, isc as isc_ops, scancontext as sc
+# VerifiedLoop lives with the worker; it is imported here under its old name
+from xchu_slam_tpu_torch.models.async_worker import AsyncLoopWorker, VerifiedLoop
+from xchu_slam_tpu_torch.ops import (ground as ground_ops, icp, imu as imu_ops,
+                                     isc as isc_ops, scancontext as sc)
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import Cloud, make_cloud
 from xchu_slam_tpu_torch.utils import se3
@@ -163,14 +170,6 @@ class LoopRecord(NamedTuple):
     method: str
 
 
-class VerifiedLoop(NamedTuple):
-    i: int
-    j: int
-    T: torch.Tensor   # [4,4] pose of keyframe j in keyframe i's frame
-    fitness: float
-    method: str
-
-
 class SlamPipeline:
     """End-to-end SLAM engine instance on one device. Feed scans; read
     trajectories."""
@@ -179,11 +178,6 @@ class SlamPipeline:
                  device: torch.device | str = "cpu"):
         if cfg.loop.method not in ("sc", "isc", "radius", "none"):
             raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
-        if cfg.loop.async_detect:
-            raise ValueError("loop.async_detect (the loop-closure worker "
-                             "thread) is not ported")
-        if cfg.filter.detect_ground:
-            raise ValueError("filter.detect_ground (ops/ground.py) is not ported")
         self.cfg = cfg
         self.device = torch.device(device)
         self.ospec = odometry.spec_from_config(cfg)
@@ -219,6 +213,11 @@ class SlamPipeline:
         self._slot = 0
         self._use_ext = {flag: torch.tensor(flag, device=self.device)
                          for flag in (False, True)}
+        self.gnd_spec = ground_ops.spec_from_config(cfg.ground)
+        # the database as the loop worker may read it, and the event after
+        # the writes that made it (see `_publish`)
+        self._snapshot = (self.db, None)
+        self._worker = AsyncLoopWorker(self) if cfg.loop.async_detect else None
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
@@ -272,7 +271,8 @@ class SlamPipeline:
             self._last_stamp = float(stamp)
             self._add_kf(pose, stamp, filt, opt_pose=pose, gps_alt=gps_alt)
             self.scan_count += 1
-            return {"pose": pose, "keyframe": True, "loop": None}
+            return {"pose": pose, "keyframe": True, "loop": None,
+                    "ground": self._maybe_ground(filt)}
         result = None
         if self.defer_sync and self._pending is not None and \
                 (cfg.odom.use_imu or cfg.odom.use_odom):
@@ -316,6 +316,7 @@ class SlamPipeline:
     def _consume(self, out: odometry.OdomOutput, filt: Cloud, stamp: float,
                  gps_alt: float | None, staged=None) -> dict:
         cfg = self.cfg
+        ground_res = self._maybe_ground(filt)
         if staged is not None:
             # defer_sync: the copy enqueued behind the step (`_stage_readback`)
             host, done = staged
@@ -359,8 +360,32 @@ class SlamPipeline:
             self._add_kf(pose, stamp, filt, opt_pose=opt_pose, gps_alt=gps_alt)
             k = self.kf_count - 1
             if k >= 1 and k % cfg.loop.detect_period == 0:
-                loop_rec = self._detect_and_verify(k, stamp)
-        return {"pose": pose, "keyframe": is_kf, "loop": loop_rec}
+                if self._worker is not None:
+                    self._worker.submit(k, stamp)
+                else:
+                    loop_rec = self._detect_and_verify(k, stamp)
+        # loops the worker verified are applied at scan boundaries
+        if self._worker is not None:
+            for v in self._worker.drain():
+                if self._apply_loop(v) is not None:
+                    loop_rec = self.loops[-1]
+        return {"pose": pose, "keyframe": is_kf, "loop": loop_rec, "ground": ground_res}
+
+    def _maybe_ground(self, filt: Cloud) -> ground_ops.GroundResult | None:
+        if not self.cfg.filter.detect_ground:
+            return None
+        return ground_ops.detect_plane(filt.xyz, filt.mask, self.gnd_spec)
+
+    def _publish(self) -> None:
+        """Publish the database for the loop worker, with an event on this
+        thread's stream after the writes that made it (none on the CPU)."""
+        if self._worker is None:
+            return
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        self._snapshot = (self.db, ready)
 
     # ------------------------------------------------------------------ #
     def _relative(self, pose_a, pose_b) -> torch.Tensor:
@@ -398,15 +423,18 @@ class SlamPipeline:
             self.graph.gps_alt[k] = gps_alt
             self.graph.gps_mask[k] = True
         self._last_kf_odom = np.asarray(pose, np.float32)
+        self._publish()
 
     # ------------------------------------------------------------------ #
-    def detect_and_verify_snapshot(self, k: int, stamp: float) -> VerifiedLoop | None:
-        """Detection + ICP verification of keyframe k against the current
-        database. Mutates nothing but the verification counter. Two
+    def detect_and_verify_snapshot(self, k: int, stamp: float,
+                                   db: KfDb | None = None) -> VerifiedLoop | None:
+        """Detection + ICP verification of keyframe k against `db` (by
+        default the current database; the loop worker passes the published
+        snapshot). Mutates nothing but the verification counter. Two
         readbacks: the candidate with its 2-D gate distance, then the ICP
         result (the ICP loop reads nothing back on the card)."""
         cfg = self.cfg
-        db = self.db
+        db = self.db if db is None else db
         method = cfg.loop.method
         if method == "sc":
             c = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, self.scspec, cur=k)
@@ -483,17 +511,26 @@ class SlamPipeline:
             if spec.solve_every > 1 and self.loop_count % spec.solve_every:
                 return
             spec = pg.inloop_spec(spec)
+        # a fresh tensor on either route (never the CUDA graph's buffer), so
+        # a snapshot the worker holds keeps its poses
         opt = pg.solve(self.db.opt_poses, self.graph, spec)
         self.db = self.db._replace(opt_poses=opt)
         self._dirty_graph = False
+        self._publish()
 
     # ------------------------------------------------------------------ #
     def finalize(self):
-        """Consume the pending scan (`defer_sync`), then the final
-        full-strength PGO solve."""
+        """Consume the pending scan (`defer_sync`); stop the loop worker
+        first, then apply what it verified (the other order loses the last
+        loop); then the final full-strength PGO solve."""
         if self._pending is not None:
             self._consume(*self._pending)
             self._pending = None
+        if self._worker is not None:
+            worker, self._worker = self._worker, None
+            worker.stop()
+            for v in worker.drain():
+                self._apply_loop(v)
         if self._dirty_graph or self.loop_count > 0:
             self._solve_graph(full=True)
 

@@ -222,4 +222,5 @@ def load_checkpoint(path: str, device: torch.device | str = "cuda"):
             velocity=torch.tensor(meta["imu_velocity"], dtype=torch.float32))
     if meta.get("last_stamp") is not None:
         pipe._last_stamp = float(meta["last_stamp"])
+    pipe._publish()   # the loop worker's snapshot is the restored database
     return pipe

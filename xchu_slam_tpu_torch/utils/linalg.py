@@ -74,6 +74,28 @@ def sym_eigvals3(A: torch.Tensor) -> torch.Tensor:
     return torch.stack([lam0, lam1, lam2], -1)
 
 
+def smallest_eigvec3(A: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of the smallest eigenvalue of symmetric [..., 3, 3].
+
+    Branch-free: the null direction of (A − λ₀I) is recovered as the largest
+    of the cross products of its rows (the rows span the orthogonal
+    complement), which fixes the sign as the reference's method does. A
+    fully degenerate (isotropic) matrix gives +z."""
+    lam0 = sym_eigvals3(A)[..., 0]
+    B = A - lam0[..., None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
+    r0, r1, r2 = B[..., 0, :], B[..., 1, :], B[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], -2)
+    norms = torch.linalg.norm(cands, dim=-1)
+    best = torch.argmax(norms, dim=-1)
+    v = torch.take_along_dim(cands, best[..., None, None].expand(*best.shape, 1, 3),
+                             -2)[..., 0, :]
+    n = torch.linalg.norm(v, dim=-1, keepdim=True)
+    e_z = torch.zeros_like(v)
+    e_z[..., 2].fill_(1.0)
+    return torch.where(n > _EPS, v / torch.clamp(n, min=_EPS), e_z)
+
+
 def inv3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of [..., 3, 3] via adjugate (singular → 0)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

@@ -1,14 +1,18 @@
-"""Named stage timers (port of `xchu_slam_tpu.utils.profiling.StageTimers`).
+"""Stage timers and device traces (port of `xchu_slam_tpu.utils.profiling`).
 
-Host wall-clock meters. PyTorch returns before the device finishes, so a
-timer made for a CUDA device synchronizes it before a stage's clock starts
-and before it stops: the stage is then charged its own device work and none
-of the stage before it. A device-level trace (torch.profiler) is not ported.
+`StageTimers` are host wall-clock meters. PyTorch returns before the device
+finishes, so a timer made for a CUDA device synchronizes it before a stage's
+clock starts and before it stops: the stage is then charged its own device
+work and none of the stage before it. `device_trace` is a torch.profiler
+scope that writes a Chrome trace (chrome://tracing, Perfetto), where the
+reference writes a `jax.profiler` trace; `block_on` waits for the device
+work behind a nested structure of tensors.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -54,3 +58,53 @@ class StageTimers:
                 f"mean={self.mean_ms(name):8.2f} ms "
                 f"total={self.total[name]:8.2f} s")
         return "\n".join(lines)
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device: torch.device | str = "cuda"):
+    """torch.profiler scope: host activity, and the card's kernels and copies
+    where `device` is CUDA. On exit it waits for the device and writes
+    `<log_dir>/trace.json` (a later trace into the same directory replaces
+    it). Yields the profiler (its `key_averages()` etc.)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device_trace: no CUDA device is available")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def block_on(tree):
+    """Wait for the device work behind every tensor in a nested structure
+    (tuples, named tuples, lists, dicts), once per CUDA device; returns the
+    structure (for honest stage timings)."""
+    devices = set()
+
+    def visit(x):
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cuda":
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                visit(v)
+
+    visit(tree)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree
