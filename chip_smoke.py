@@ -35,6 +35,30 @@ Phases, each printing one line (any failure raises and exits non-zero):
   5. main     the `run-sim` host engine on the 430-scan, 55 m circuit at
               the default config; needs NN kernel launches ≥ 1, NDT kernel
               launches ≥ one a scan, loops ≥ 1 and aligned ATE < 1.0 m
+  5b. mesh   the sharded ops (`xchu_slam_tpu_torch/parallel`, the `mesh=`
+              branches): first the new entry points against their plain
+              versions at the shards' shapes (D = 2 and 4) of the circuit's
+              first align and verification: the NDT kernel's shard pass in
+              its three kinds at two pose pairs (within 1e-5), icp_partial
+              and icp_solve (within ICP_TOL), icp_partial + icp_solve
+              against icp_step bit for bit over a whole verification; their
+              times from CUDA-graph replays beside their bounds and plain
+              versions, and the NN kernel's at the shard's shapes. Then
+              rank groups through `parallel/distributed.launch`, fresh
+              interpreters (gloo at D = 2 and 4 sharing card 0, each
+              collective staged through pinned host memory; NCCL at D = 1;
+              NCCL at D = min(4, cards) where the machine has several
+              cards), each replaying what phase 5 recorded: its first 64
+              aligns, every Scan Context retrieval (the count printed), its
+              verifications, its final graph (163 live of 2048) and phase
+              4b's 2048-live graph, and slam_superstep on the first 8 scans. The ranks agree bit
+              for bit; NDT holds phase 4's rule against the kernel's aligns,
+              SC the same candidates, ICP the same iterations and |ΔT| ≤
+              ICP_TOL (bit for bit at one rank), PGO |Δpose| ≤ 1e-4,
+              slam_superstep its components; every kernel of the path
+              launched on every group. Prints ms an op (CUDA events), the
+              launches a rank of each kernel and the collectives and
+              host-staged collectives of each op
   6. session  the sensor-aided mapping session through the CLI's functions,
               in a temporary directory: `run-sim` on the same circuit with
               ISC loops, IMU + wheel + GPS inputs and a checkpoint every 200
@@ -167,13 +191,15 @@ Phases 5-12 also assert that every path with a verification launched
 icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
 readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
-Then one JSON line of kernel records (all five kernels, with the launches of
-each path; the NDT and PGO entries with their modes' records) and, last, the
+Then one JSON line of kernel records (all five kernels and the mesh's three
+entry points, with the launches of each path; the NDT and PGO entries with
+their modes' records, the NN kernel's with its time at the shards' shapes)
+and, last, the
 result line. `--kernel-only` stops after phase 3, `--kernels-only` after
 phase 4d, `--modes-only` runs phases 1-4d and 10, `--device-only` runs
 phases 1, 2, 5, 8 and 9, `--sources-only` runs phases 1, 2 and 11,
-`--extras-only` runs phases 1, 2, 5 and 12; none of the six prints a result
-line.
+`--extras-only` runs phases 1, 2, 5 and 12, `--mesh-only` phases 1, 2, 5 and
+5b; none of the seven prints a result line.
 """
 
 from __future__ import annotations
@@ -211,6 +237,10 @@ PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("pgo_cg_kernelILb0E", "pgo"),
                ("pgo_cg_kernelILb1E", "pgo jacobi"),
                ("pgo_cg_first_kernel", "pgo first version"),
+               *((f"ndt_pass_kernelILi{m}E", "ndt pass" if m == 7 else f"ndt pass {m}")
+                 for m in (1, 7, 27)),
+               ("icp_partial_kernel", "icp partial"),
+               ("icp_solve_kernel", "icp solve"),
                ("icp_step_kernel", "icp step"),
                ("icp_step_first_kernel", "icp step first version"),
                ("icp_init_kernel", "icp init"),
@@ -1104,11 +1134,16 @@ def _replay_verifications(calls) -> dict:
     return out
 
 
-def phase_main() -> tuple[dict, dict]:
+def phase_main(record: dict | None = None) -> tuple[dict, dict]:
+    """The circuit through the host engine. With `record` (a dict), it also
+    keeps what the mesh phase replays: the first MESH_ALIGNS aligns' inputs
+    and results, every Scan Context retrieval's query and result, the
+    verifications, and the pipeline (clones on the card, no readback)."""
     from xchu_slam_tpu_torch.cli import run_sim
-    from xchu_slam_tpu_torch.ops import icp
+    from xchu_slam_tpu_torch.ops import icp, ndt, scancontext as sc
 
     calls, align = [], icp.align
+    aligns, ndt_align, queries, detect = [], ndt.align, [], sc.detect_loop_on_device
 
     def recording_align(*args, **kw):
         res = align(*args, **kw)
@@ -1116,12 +1151,28 @@ def phase_main() -> tuple[dict, dict]:
                       res))
         return res
 
+    def recording_ndt(grid, xyz, mask, guess, gspec, nspec):
+        res = ndt_align(grid, xyz, mask, guess, gspec, nspec)
+        if len(aligns) < MESH_ALIGNS:
+            aligns.append(((grid.fin.clone(), grid.origin.clone(), xyz.clone(), mask.clone(),
+                            guess.clone(), gspec, nspec), res))
+        return res
+
+    def recording_detect(query, db, db_count, spec, cur=None):
+        res = detect(query, db, db_count, spec, cur)
+        queries.append(((query.clone(), db_count, cur, spec), res))
+        return res
+
     icp.align = recording_align
+    if record is not None:
+        ndt.align, sc.detect_loop_on_device = recording_ndt, recording_detect
     try:
         (pipe, summary), counts = _count_launches(
             lambda: run_sim(SCANS, RADIUS, SEED, "cuda"))
     finally:
-        icp.align = align
+        icp.align, ndt.align, sc.detect_loop_on_device = align, ndt_align, detect
+    if record is not None:
+        record.update(aligns=aligns, queries=queries, verifications=list(calls), pipe=pipe)
     replay = _replay_verifications(calls)
     print("main: the circuit's verifications again through align_ref " + json.dumps(replay))
     launches = counts["nn"]
@@ -2619,6 +2670,503 @@ def phase_extras(smi: str, main_counts: dict, main_summary: dict) -> dict:
                       "extras localmaps": map_counts}}
 
 
+# ---- the mesh phase: the sharded ops on rank groups ---- #
+
+MESH_ALIGNS = 64          # the circuit's first aligns, replayed on every group
+MESH_SUPERSTEPS = 8       # slam_superstep on the first scans of those
+MESH_SAME_ITERS = 0.9     # share of aligns with the single-device kernel's Newton count
+MESH_GROUP_TIMEOUT = 300  # s, a group's whole run, interpreters started to results read
+MESH_KERNELS = ("nn", "ndt_pass", "icp_partial", "icp_solve", "pgo")
+# the (backend, ranks) of the groups on one card: several ranks share it over
+# gloo (each collective staged through pinned host memory), NCCL puts one
+# rank on a card
+MESH_GROUPS = (("gloo", 2), ("gloo", 4), ("nccl", 1))
+NDT_PASS_FLOP = {"hessian": 0, "gradient": 1, "fitness": 2}   # index into ndt_flop
+# bytes a point and FP32 operations a point of the ICP split's entries: stage
+# 0 reads the point, mask, index, d² and the gathered target (the sums'
+# 8 multiply-adds), stage 1 the same (the 9 centred products, 3 + 9
+# multiply-adds), solve reads the point and writes the transformed one (9
+# multiply-adds); the eigen-solve is one per launch
+ICP_SPLIT_BYTES_PT = {"partial0": 12 + 1 + 4 + 4 + 12, "partial1": 12 + 1 + 4 + 4 + 12,
+                      "solve": 12 + 12}
+ICP_SPLIT_FLOP_PT = {"partial0": 2 * 8 + 15, "partial1": 2 * 12 + 15, "solve": 2 * 9}
+
+
+def _mesh_counts() -> dict:
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.utils import collectives
+
+    return {"nn": nn_kernel.launches, "ndt_pass": ndt_kernel.pass_launches,
+            "icp_partial": icp_kernel.partial_launches,
+            "icp_solve": icp_kernel.solve_launches, "pgo": pgo_kernel.launches,
+            "collectives": collectives.collectives, "host_staged": collectives.host_staged}
+
+
+def _mesh_reset() -> None:
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.utils import collectives
+
+    nn_kernel.launches = ndt_kernel.pass_launches = pgo_kernel.launches = 0
+    icp_kernel.partial_launches = icp_kernel.solve_launches = 0
+    collectives.collectives = collectives.host_staged = 0
+
+
+def mesh_rank(mesh, path: str) -> dict:
+    """One rank of a mesh group (`parallel/distributed.launch` runs it in a
+    fresh interpreter): the saved inputs through every sharded op on this
+    rank's device. Per op: the results, ms a call from CUDA events (after
+    one warm-up call), and the kernel launches and collectives of the timed
+    calls, counted from 0."""
+    from xchu_slam_tpu_torch.models import pose_graph as pg
+    from xchu_slam_tpu_torch.ops import icp, ndt, scancontext as sc, voxel_map as vm
+    from xchu_slam_tpu_torch.parallel import sharded
+    from xchu_slam_tpu_torch.types import VoxelGrid
+
+    inp = torch.load(path, weights_only=False)
+    dev = mesh.device
+    out = {"results": {}, "ms": {}, "launches": {}, "device": str(dev)}
+
+    def to(x):
+        return tuple(to(a) for a in x) if isinstance(x, tuple) else x.to(dev)
+
+    def run(name, calls):
+        if not calls:
+            out["launches"][name], out["ms"][name] = _mesh_counts(), None
+            return []
+        calls[0]()                                 # libraries loaded, first-call set-up
+        torch.cuda.synchronize(dev)
+        _mesh_reset()
+        ms, res = 0.0, []
+        for fn in calls:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res.append(fn())
+            b.record()
+            b.synchronize()
+            ms += a.elapsed_time(b)
+        out["launches"][name] = _mesh_counts()
+        out["ms"][name] = ms / len(calls)
+        return res
+
+    n = inp["ndt"]
+    gspec, nspec = vm.GridSpec(*n["gspec"]), ndt.NdtSpec(*n["nspec"])
+    aligns = [(VoxelGrid(origin=to(o), stats=None, fin=to(f)), to(x), to(m), to(g))
+              for f, o, x, m, g in n["cases"]]
+
+    def ndt_call(a):
+        r = ndt.align(*a, gspec, nspec, mesh=mesh)
+        return r.pose.cpu().numpy(), int(r.iterations)
+
+    out["results"]["ndt"] = run("ndt", [lambda a=a: ndt_call(a) for a in aligns])
+
+    s = inp["sc"]
+    scspec, db = sc.ScSpec(*s["spec"]), to(s["db"])
+
+    def sc_call(q, count, cur):
+        c = sc.read_candidate(sc.detect_loop_on_device(q, db, count, scspec, cur, mesh=mesh))
+        return c.idx, c.found, c.dist
+
+    out["results"]["sc"] = run("sc", [lambda q=to(q), c=c, k=k: sc_call(q, c, k)
+                                      for q, c, k in s["cases"]])
+
+    c = inp["icp"]
+    ispec = icp.IcpSpec(*c["spec"])
+
+    def icp_call(args):
+        r = icp.align(*args, ispec, mesh=mesh)
+        return (r.T.cpu().numpy(), int(r.iterations), bool(r.converged),
+                float(r.fitness))
+
+    out["results"]["icp"] = run("icp", [lambda a=to(a): icp_call(a) for a in c["cases"]])
+
+    p = inp["pgo"]
+    pgspec = pg.GraphSpec(*p["spec"])
+    graphs = [(to(poses), pg.GraphData(*to(graph))) for poses, graph in p["cases"]]
+    out["results"]["pgo"] = [
+        run(f"pgo {name}", [lambda g=g: pg.solve(g[0], g[1], pgspec, mesh=mesh).cpu().numpy()])[0]
+        for name, g in zip(p["names"], graphs)]
+
+    u = inp["superstep"]
+    uspec = sc.ScSpec(*u["spec"])
+
+    def superstep(a):
+        pose, iters, desc, cand, opt = sharded.slam_superstep(
+            mesh, *a, gspec, nspec, db, u["count"], uspec, *graphs[0], pgspec)
+        return (pose.cpu().numpy(), int(iters), desc.cpu().numpy(), cand.cpu().numpy(),
+                opt.cpu().numpy())
+
+    out["results"]["superstep"] = run("superstep", [lambda a=a: superstep(a)
+                                                    for a in aligns[:MESH_SUPERSTEPS]])
+    return out
+
+
+def _split_icp_against_step(src, smask, tgt, tmask, init, spec) -> int:
+    """`icp_partial` + `icp_solve` against `icp_step` on the same state, trip
+    by trip: state and transformed source bit-identical (a mesh of one rank
+    runs the split). Returns the trips."""
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, nn_kernel
+
+    dev = src.device
+    max_d2 = spec.max_corr_dist ** 2
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    st_a, st_b = (torch.zeros(icp_kernel.STATE_FLOATS, device=dev) for _ in range(2))
+    cur_a, cur_b = torch.empty_like(src), torch.empty_like(src)
+    icp_kernel.init(src, init, live, st_a, cur_a)
+    icp_kernel.init(src, init, live, st_b, cur_b)
+    trips = 0
+    while float(st_a[icp_kernel.STATE["live"]]) > 0.5:
+        idx, d2 = nn_kernel.nearest_neighbor(cur_a, tgt, tmask)
+        icp_kernel.step(src, smask, tgt, idx, d2, cur_a, st_a, max_d2, spec.trans_eps,
+                        spec.max_iterations)
+        s8 = icp_kernel.partial(src, smask, tgt, idx, d2, st_b, max_d2, 0)
+        s9 = icp_kernel.partial(src, smask, tgt, idx, d2, st_b, max_d2, 1, s8)
+        icp_kernel.solve(src, torch.cat([s8, s9]), st_b, cur_b, spec.trans_eps,
+                         spec.max_iterations)
+        if not (torch.equal(st_a, st_b) and torch.equal(cur_a, cur_b)):
+            raise AssertionError(f"mesh: icp_partial + icp_solve differ from icp_step at "
+                                 f"trip {trips}: {st_a.cpu().numpy()} against "
+                                 f"{st_b.cpu().numpy()}")
+        trips += 1
+    return trips
+
+
+def _mesh_entry_points(smi: str, rec: dict) -> dict:
+    """The new entry points against their plain versions at the shards'
+    shapes (D = 2 and 4 of the circuit's first align and first
+    verification), their times from CUDA-graph replays beside their bounds
+    and their plain versions' times, the split ICP step against icp_step bit
+    for bit, and the NN kernel's time and split at the shard's shapes."""
+    from xchu_slam_tpu_torch.ops import icp, ndt, ndt_deriv, voxel_map as vm
+    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel
+    from xchu_slam_tpu_torch.types import VoxelGrid
+
+    out = {}
+    (fin, origin, xyz, mask, guess, gspec, nspec), _res = rec["aligns"][0]
+    grid = VoxelGrid(origin=origin, stats=None, fin=fin)
+    d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    trial = guess + torch.tensor([0.03, -0.02, 0.01, 0.002, 0.001, -0.004], device=guess.device)
+    m = vm.NEIGHBOR_COUNT[nspec.neighbor_mode]
+    err, rows = 0.0, {}
+    for D in (2, 4):
+        n = xyz.shape[0] // D
+        x, k = xyz[:n].contiguous(), mask[:n].contiguous()
+        for ctx, pose in ((guess, guess), (guess, trial)):
+            nb = ndt_deriv.neighborhood(ctx, x, grid, gspec, nspec.neighbor_mode)
+            Lp, gp, Hp = ndt_deriv.ndt_value_grad_hess(pose, x, k, grid, gspec, d1, d2, nb=nb)
+            fit_p = torch.stack([t.to(torch.float32)
+                                 for t in ndt._fitness_sums(pose, x, k, nb)])
+            h = ndt_kernel.shard_pass(fin, origin, x, k, pose, ctx, gspec, nspec, d1, d2,
+                                      "hessian")
+            f = ndt_kernel.shard_pass(fin, origin, x, k, pose, ctx, gspec, nspec, d1, d2,
+                                      "fitness")
+            got = torch.cat([h[:1], -d2 * h[1:7], ndt._upper6(h[7:28]).reshape(36)])
+            want = torch.cat([Lp.reshape(1), gp, Hp.reshape(36)])
+            e = float((got - want).abs().max() / want.abs().max())
+            fe = float(((f[28:31] - fit_p).abs() / fit_p.abs().clamp(min=1)).max())
+            if not e <= NDT_PASS_TOL or not fe <= NDT_PASS_TOL:
+                raise AssertionError(f"ndt shard pass at {n} points: (L, g, H) off by {e:.3g} "
+                                     f"of the largest entry, fitness sums by {fe:.3g} (> "
+                                     f"{NDT_PASS_TOL})")
+            err = max(err, e, fe)
+        for kind in ("hessian", "gradient", "fitness"):
+            ms = _graph_ms(lambda: ndt_kernel.shard_pass(fin, origin, x, k, trial, guess, gspec,
+                                                         nspec, d1, d2, kind), calls=20)
+            flop = n * ndt_flop(m)[NDT_PASS_FLOP[kind]]
+            bytes_ms = 1e3 * (n * 12 + n + n * m * 40 + 24 * 4 + 32 * 4) / HBM_BYTES_PER_S
+            ops_ms = 1e3 * flop / FP32_FLOPS
+            rows[(D, kind)] = (ms, max(bytes_ms, ops_ms),
+                               "bytes" if bytes_ms > ops_ms else "operations")
+        plain_ms = _host_ms(lambda: ndt_deriv.ndt_value_grad_hess(
+            trial, x, k, grid, gspec, d1, d2,
+            nb=ndt_deriv.neighborhood(guess, x, grid, gspec, nspec.neighbor_mode)))
+        rows[(D, "plain")] = plain_ms
+        blocks, trips = ndt_kernel.plan(n, ndt_kernel.pass_max_blocks(0, nspec.neighbor_mode),
+                                        ndt_kernel.LANES[nspec.neighbor_mode])
+        print(f"mesh [{smi}]: ndt shard pass at {n} points (D = {D}; {blocks} blocks, "
+              f"{trips} trip): hessian {rows[(D, 'hessian')][0]:.5f} ms (bound "
+              f"{rows[(D, 'hessian')][1]:.6f} ms by {rows[(D, 'hessian')][2]}), gradient "
+              f"{rows[(D, 'gradient')][0]:.5f} ms, fitness {rows[(D, 'fitness')][0]:.5f} ms "
+              f"a launch from CUDA-graph replays; the plain Hessian pass {plain_ms:.3f} ms on "
+              f"the host's clock")
+    hb = rows[(4, "hessian")]
+    out["ndt_shard_pass"] = {"max_abs_err": err, "ms": hb[0], "plain_ms": rows[(4, "plain")],
+                             "bound_ms": hb[1], "bound_by": hb[2], "library_ms": None,
+                             "shape": [xyz.shape[0] // 4, m],
+                             "ms_by_kind_and_shard": {f"{kind} D={D}": rows[(D, kind)][0]
+                                                      for D in (2, 4) for kind in
+                                                      ("hessian", "gradient", "fitness")}}
+
+    (src, smask, tgt, tmask, init, spec), res = rec["verifications"][0]
+    trips = _split_icp_against_step(src, smask, tgt, tmask, init.to(torch.float32), spec)
+    print(f"mesh: icp_partial + icp_solve reproduce icp_step bit for bit over the first "
+          f"verification's {trips} trips (a mesh of one rank)")
+    max_d2 = spec.max_corr_dist ** 2
+    icp_rows, icp_err = {}, 0.0
+
+    def plain_sums(cur, k, idx, d2, s8=None):
+        """The shard's sums by PyTorch: `icp._moments`' passes before their
+        division, the second about the means of `s8` (its own first if None)."""
+        w = (k & (d2 < max_d2)).to(torch.float32)
+        nn = tgt[idx]
+        p8 = torch.cat([w.sum()[None], (cur * w[:, None]).sum(0), (nn * w[:, None]).sum(0),
+                        (d2 * w).sum()[None]])
+        s8 = p8 if s8 is None else s8
+        wsum = torch.clamp(s8[0], min=1.0)
+        p9 = ((nn - s8[4:7] / wsum).T @ ((cur - s8[1:4] / wsum) * w[:, None])).reshape(9)
+        return p8, p9
+
+    def plain_update(hs, st):
+        """T after the host's update from the 17 sums `hs` (align_ref's)."""
+        wsum = torch.clamp(hs[0], min=1.0)
+        R = icp.kabsch_ref(hs[8:17].reshape(3, 3) / wsum)
+        dT = torch.eye(4)
+        dT[:3, :3], dT[:3, 3] = R, hs[4:7] / wsum - R @ (hs[1:4] / wsum)
+        return dT @ st[:16].reshape(4, 4).cpu()
+
+    for D in (2, 4):
+        n = src.shape[0] // D
+        s, k = src[:n].contiguous(), smask[:n].contiguous()
+        st = torch.zeros(icp_kernel.STATE_FLOATS, device=src.device)
+        cur = torch.empty_like(s)
+        icp_kernel.init(s, init.to(torch.float32).contiguous(),
+                        torch.ones((), dtype=torch.bool, device=src.device), st, cur)
+        idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tmask)
+        s8 = icp_kernel.partial(s, k, tgt, idx, d2, st, max_d2, 0)
+        s9 = icp_kernel.partial(s, k, tgt, idx, d2, st, max_d2, 1, s8)
+        p8, p9 = plain_sums(cur, k, idx, d2, s8)
+        e = max(float(((s8 - p8).abs() / p8.abs().clamp(min=1)).max()),
+                float((s9 - p9).abs().max() / p9.abs().max()))
+        # the solve against the plain host update from the same 17 sums
+        sums = torch.cat([s8, s9])
+        st_s = st.clone()
+        icp_kernel.solve(s, sums, st_s, cur, spec.trans_eps, spec.max_iterations)
+        hs = sums.cpu()
+        T_want = plain_update(hs, st)
+        T_got = st_s[:16].reshape(4, 4).cpu()
+        e_solve = max(float((T_got[:3, :3] - T_want[:3, :3]).abs().max()),
+                      float((T_got[:3, 3] - T_want[:3, 3]).abs().max()) / _lever(s, k))
+        if not e <= ICP_TOL or not e_solve <= ICP_TOL:
+            raise AssertionError(f"icp split at {n} points: sums off by {e:.3g}, solve by "
+                                 f"{e_solve:.3g} (> {ICP_TOL})")
+        icp_err = max(icp_err, e, e_solve)
+        for name, fn in (("partial0", lambda: icp_kernel.partial(s, k, tgt, idx, d2, st,
+                                                                   max_d2, 0)),
+                         ("partial1", lambda: icp_kernel.partial(s, k, tgt, idx, d2, st,
+                                                                   max_d2, 1, s8)),
+                         ("solve", lambda: icp_kernel.solve(s, sums, st_s.clone(), cur.clone(),
+                                                            spec.trans_eps,
+                                                            spec.max_iterations))):
+            ms = _graph_ms(fn, calls=50)
+            bytes_ms = 1e3 * (n * ICP_SPLIT_BYTES_PT[name] + 4 * 17) / HBM_BYTES_PER_S
+            ops_ms = 1e3 * n * ICP_SPLIT_FLOP_PT[name] / FP32_FLOPS
+            icp_rows[(D, name)] = (ms, max(bytes_ms, ops_ms),
+                                   "bytes" if bytes_ms > ops_ms else "operations")
+        icp_rows[(D, "plain")] = _host_ms(lambda: plain_sums(cur, k, idx, d2))
+        icp_rows[(D, "plain_solve")] = _host_ms(lambda: plain_update(hs, st))
+        nn_ms = _graph_ms(lambda: nn_kernel.nearest_neighbor(cur, tgt, tmask), calls=50)
+        tiles, slices, sub_len = nn_kernel.plan(n, tgt.shape[0], nn_kernel._sm_count(0))
+        icp_rows[(D, "nn")] = nn_ms
+        print(f"mesh [{smi}]: at a shard of {n} of the verification's points (D = {D}): "
+              f"icp_partial stage 0 {icp_rows[(D, 'partial0')][0]:.5f} ms, stage 1 "
+              f"{icp_rows[(D, 'partial1')][0]:.5f} ms, icp_solve "
+              f"{icp_rows[(D, 'solve')][0]:.5f} ms a launch (bounds "
+              f"{icp_rows[(D, 'partial0')][1]:.6f} / {icp_rows[(D, 'partial1')][1]:.6f} / "
+              f"{icp_rows[(D, 'solve')][1]:.6f} ms); the plain moments "
+              f"{icp_rows[(D, 'plain')]:.3f} ms on the host's clock; the NN kernel "
+              f"{nn_ms:.5f} ms at {n} x {tgt.shape[0]} ({tiles} source tiles x {slices} "
+              f"slices of {sub_len} targets a warp: {tiles * slices} blocks)")
+    p0, p1, sv = (icp_rows[(4, k)] for k in ("partial0", "partial1", "solve"))
+    out["icp_partial"] = {"max_abs_err": icp_err, "ms": p0[0] + p1[0],
+                          "plain_ms": icp_rows[(4, "plain")], "bound_ms": p0[1] + p1[1],
+                          "bound_by": p0[2], "library_ms": None,
+                          "stage_ms": {f"{st} D={D}": icp_rows[(D, st)][0] for D in (2, 4)
+                                       for st in ("partial0", "partial1")},
+                          "shape": [src.shape[0] // 4, tgt.shape[0]]}
+    out["icp_solve"] = {"max_abs_err": icp_err, "ms": sv[0],
+                        "plain_ms": icp_rows[(4, "plain_solve")],
+                        "bound_ms": sv[1], "bound_by": sv[2], "library_ms": None,
+                        "ms_by_shard": {f"D={D}": icp_rows[(D, 'solve')][0] for D in (2, 4)},
+                        "split_trips_bit_equal": trips}
+    out["nn_shard_ms"] = {f"{src.shape[0] // D}x{tgt.shape[0]}": icp_rows[(D, "nn")]
+                          for D in (2, 4)}
+    return out
+
+
+def _mesh_inputs(rec: dict, path: str) -> dict:
+    """Save what every group replays (CPU tensors, one file) and return the
+    parent's single-device results on the card to hold the groups to."""
+    import pgo_cases
+    from xchu_slam_tpu_torch.models import pose_graph as pg
+    from xchu_slam_tpu_torch.ops import scancontext as sc
+
+    cpu = lambda t: t.detach().cpu()   # noqa: E731
+    pipe = rec["pipe"]
+    aligns = rec["aligns"]
+    gspec, nspec = aligns[0][0][5], aligns[0][0][6]
+    db, count = pipe.db.sc_db, pipe.db.count
+    scspec = rec["queries"][0][0][3]
+    if db.shape[0] != pipe.graph.kf_mask.shape[0]:
+        raise AssertionError("the descriptor database and the graph differ in capacity")
+    icpspec = pipe.icpspec
+    pgspec = pg.inloop_spec(pipe.gspec)
+    dev = db.device
+    # the circuit's final graph (its keyframes' odometry poses, every loop) and
+    # phase 4b's capacity graph
+    K = pipe.graph.kf_mask.shape[0]
+    poses_circuit = pipe.db.poses.clone()
+    p2048, g2048 = pgo_cases.chain_graph(K=K, L=pipe.graph.loop_i.shape[0], n_live=K,
+                                         n_loops=40, gps=True)
+    graphs = [("circuit", poses_circuit, pipe.graph),
+              ("capacity", torch.from_numpy(p2048).to(dev), pgo_cases.to_device(g2048, dev))]
+    want_pgo = [pg.solve(p, g, pgspec) for _n, p, g in graphs]
+    steps = []
+    for (fin, origin, xyz, mask, guess, _g, _n), res in aligns[:MESH_SUPERSTEPS]:
+        desc = sc.make_descriptor(xyz, mask, scspec)
+        eligible = torch.arange(db.shape[0], device=dev) < count - scspec.num_exclude_recent
+        dist, _shift = sc.distance_all_rotations(desc, db, eligible, scspec)
+        best = int(torch.argmin(dist))
+        steps.append((desc.cpu().numpy(), best, float(dist[best])))
+    torch.save({
+        "ndt": {"gspec": tuple(gspec), "nspec": tuple(nspec),
+                "cases": [tuple(cpu(t) for t in a[:5]) for a, _r in aligns]},
+        "sc": {"spec": tuple(scspec), "db": cpu(db),
+               "cases": [(cpu(q), c, k) for (q, c, k, _s), _r in rec["queries"]]},
+        "icp": {"spec": tuple(icpspec),
+                "cases": [tuple(cpu(t) for t in a[:5]) for a, _r in rec["verifications"]]},
+        "pgo": {"spec": tuple(pgspec), "names": [n for n, _p, _g in graphs],
+                "cases": [(cpu(p), tuple(cpu(t) for t in g)) for _n, p, g in graphs]},
+        "superstep": {"spec": tuple(scspec), "count": count},
+    }, path)
+    torch.cuda.synchronize()
+    return {"ndt": [(r.pose.cpu().numpy(), int(r.iterations)) for _a, r in aligns],
+            "sc": [sc.read_candidate(r) for _a, r in rec["queries"]],
+            "icp": [(a, r) for a, r in rec["verifications"]],
+            "pgo": {n: w.cpu().numpy() for (n, _p, _g), w in zip(graphs, want_pgo)},
+            "superstep": steps}
+
+
+def _check_group(name: str, ranks: list, want: dict) -> dict:
+    """A group's results against each other (bit for bit) and against the
+    parent's single-device results; returns the group's printed record."""
+    r0 = ranks[0]["results"]
+    for r, rk in enumerate(ranks[1:], 1):
+        for op, res in rk["results"].items():
+            for a, b in zip(res, r0[op]):
+                if not all(np.array_equal(np.asarray(x), np.asarray(y))
+                           for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                           b if isinstance(b, tuple) else (b,))):
+                    raise AssertionError(f"mesh {name}: rank {r}'s {op} differs from rank 0's")
+    one_rank = len(ranks) == 1
+    # NDT: phase 4's rule against the single-device kernel's aligns
+    same, dpose = 0, 0.0
+    for (pose, it), (wpose, wit) in zip(r0["ndt"], want["ndt"]):
+        same += it == wit
+        dpose = max(dpose, float(np.abs(pose - wpose).max()))
+    if dpose > NDT_POSE_TOL or same < MESH_SAME_ITERS * len(want["ndt"]):
+        raise AssertionError(f"mesh {name}: ndt |Δpose| {dpose:.3g} (> {NDT_POSE_TOL}?), the "
+                             f"same iteration count on {same} of {len(want['ndt'])}")
+    # Scan Context: the same candidate at every keyframe
+    for k, ((idx, found, dist), w) in enumerate(zip(r0["sc"], want["sc"])):
+        if idx != w.idx or found != w.found:
+            raise AssertionError(f"mesh {name}: sc query {k}: ({idx}, {found}) against "
+                                 f"({w.idx}, {w.found})")
+    # ICP: the same trip count and T to ICP_TOL (translation of the lever
+    # arm) on every verification; one rank runs icp_step's arithmetic and
+    # reproduces it bit for bit
+    icp_err = 0.0
+    for (T, it, conv, fit), (args, w) in zip(r0["icp"], want["icp"]):
+        wT = w.T.cpu().numpy()
+        e = max(float(np.abs(T[:3, :3] - wT[:3, :3]).max()),
+                float(np.abs(T[:3, 3] - wT[:3, 3]).max()) / _lever(args[0], args[1]))
+        icp_err = max(icp_err, e)
+        if it != int(w.iterations) or e > ICP_TOL \
+                or (one_rank and not (np.array_equal(T, wT) and conv == bool(w.converged))):
+            raise AssertionError(f"mesh {name}: icp {it} iterations against "
+                                 f"{int(w.iterations)}, |ΔT| {e:.3g}, bit-equal "
+                                 f"{np.array_equal(T, wT)} (one rank: {one_rank})")
+    pgo_err = {}
+    for n, got in zip(want["pgo"], r0["pgo"]):
+        pgo_err[n] = float(np.abs(got - want["pgo"][n]).max())
+        if pgo_err[n] > PGO_TOL:
+            raise AssertionError(f"mesh {name}: pgo {n} |Δpose| {pgo_err[n]:.3g} > {PGO_TOL}")
+    # slam_superstep against its components: the group's own align and
+    # solve bit for bit, make_descriptor bit for bit, the single-device
+    # retrieval's nearest entry (its distance to 1e-5)
+    for k, ((pose, it, desc, cand, opt), (wdesc, wbest, wdist)) in enumerate(
+            zip(r0["superstep"], want["superstep"])):
+        a_pose, a_it = r0["ndt"][k]
+        same_dist = abs(float(cand[0]) - wdist) <= 1e-5 if np.isfinite(wdist) \
+            else not np.isfinite(float(cand[0]))
+        if not (np.array_equal(pose, a_pose) and it == a_it and np.array_equal(desc, wdesc)
+                and np.array_equal(opt, r0["pgo"][0]) and int(cand[1]) == wbest
+                and same_dist):
+            raise AssertionError(f"mesh {name}: slam_superstep on scan {k} differs from its "
+                                 f"components: candidate {cand} against ({wdist}, {wbest})")
+    launches = ranks[0]["launches"]
+    total = {k: sum(v[k] for v in launches.values()) for k in (*MESH_KERNELS, "collectives",
+                                                                  "host_staged")}
+    missing = [k for k in MESH_KERNELS if total[k] < 1]
+    staged = total["host_staged"] > 0
+    if missing or staged != (ranks[0]["backend"] == "gloo" and ranks[0]["device"] != "cpu"):
+        raise AssertionError(f"mesh {name}: kernels not launched {missing}, host-staged "
+                             f"collectives {total['host_staged']}")
+    return {"ranks": len(ranks), "ms": ranks[0]["ms"], "launches_per_rank": launches,
+            "ndt_same_iterations": same, "ndt_max_dpose": dpose,
+            "sc_retrievals": len(want["sc"]), "sc_found": sum(int(f) for _i, f, _d in r0["sc"]),
+            "icp_verifications": len(want["icp"]), "icp_max_err": icp_err,
+            "pgo_max_dpose": pgo_err, "total": total}
+
+
+def phase_mesh(smi: str, rec: dict) -> dict:
+    """The mesh phase: the new entry points against their plain versions,
+    then rank groups through `parallel/distributed.launch` (gloo at D = 2
+    and 4 on card 0, NCCL at D = 1, and NCCL at D = min(4, cards) where
+    there are several cards) replaying the circuit's aligns, retrievals,
+    verifications and graphs, each held to the single-device results."""
+    from xchu_slam_tpu_torch.parallel import distributed
+
+    entry = _mesh_entry_points(smi, rec)
+    cards = torch.cuda.device_count()
+    groups = list(MESH_GROUPS)
+    if cards > 1:
+        groups.append(("nccl", min(4, cards)))
+    else:
+        print("mesh: NCCL over several cards not run: the machine has one card")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="xst_mesh_inputs_")
+    try:
+        path = os.path.join(tmp, "inputs.pt")
+        want = _mesh_inputs(rec, path)
+        records = {}
+        for backend, world in groups:
+            name = f"{backend} D={world}"
+            t0 = time.perf_counter()
+            ranks = distributed.launch(world, "chip_smoke:mesh_rank", (path,), backend=backend,
+                                       device="cuda", timeout_s=MESH_GROUP_TIMEOUT,
+                                       path=(_HERE,))
+            for rk in ranks:
+                rk["backend"] = backend
+            r = records[name] = _check_group(name, ranks, want)
+            r["seconds"] = time.perf_counter() - t0
+            ms = " ".join(f"{op} {v:.3f}" for op, v in r["ms"].items())
+            print(f"mesh [{smi}] {name}: ms an op (CUDA events, rank 0): {ms}; launches per "
+                  f"rank {json.dumps(r['launches_per_rank'])}; ndt same iterations "
+                  f"{r['ndt_same_iterations']}/{len(want['ndt'])}, max |Δpose| "
+                  f"{r['ndt_max_dpose']:.3g}; sc {r['sc_retrievals']} retrievals, "
+                  f"{r['sc_found']} found, every candidate equal; icp "
+                  f"{r['icp_verifications']} verifications, the same trip counts, max |ΔT| "
+                  f"{r['icp_max_err']:.3g}; pgo "
+                  f"{json.dumps(r['pgo_max_dpose'])}; ranks bit-identical; "
+                  f"{r['seconds']:.1f} s")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh: {len(records)} groups in {time.perf_counter() - t_phase:.1f} s")
+    return {"entry": entry, "groups": records}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -2645,7 +3193,9 @@ def main() -> int:
     if "--sources-only" in sys.argv[1:]:
         phase_sources(smi)
         return 0
-    only_device = "--device-only" in sys.argv[1:] or "--extras-only" in sys.argv[1:]
+    mesh_only = "--mesh-only" in sys.argv[1:]
+    only_device = ("--device-only" in sys.argv[1:] or "--extras-only" in sys.argv[1:]
+                   or mesh_only)
     rec = None if only_device else phase_kernel()
     if "--kernel-only" in sys.argv[1:]:
         return 0
@@ -2660,14 +3210,27 @@ def main() -> int:
         phase_pgo_jacobi(smi, pgo_rec["floor"])
         phase_mode_circuits()
         return 0
-    launches, host_summary = phase_main()
+    # the mesh phase runs in the whole run and with --mesh-only
+    run_mesh = mesh_only or not only_device
+    record = {} if run_mesh else None
+    launches, host_summary = phase_main(record)
+    mesh = phase_mesh(smi, record) if run_mesh else None
+    del record
+    if mesh_only:
+        return 0
     if "--extras-only" in sys.argv[1:]:
         phase_extras(smi, launches, host_summary)
         return 0
     if "--device-only" in sys.argv[1:]:
         phase_device_session(smi, phase_device_engine(host_summary))
         return 0
-    by_path = {"main": launches, **phase_session()}
+    # the mesh groups' launches a rank (the single-device kernels' keys too)
+    mesh_paths = {f"mesh {name}": {"nn": g["total"]["nn"], "ndt": 0, "pgo": g["total"]["pgo"],
+                                   "icp_step": 0, "guess": 0, "icp_live_trips": 0,
+                                   **{k: g["total"][k] for k in ("ndt_pass", "icp_partial",
+                                                                 "icp_solve")}}
+                  for name, g in mesh["groups"].items()}
+    by_path = {"main": launches, **mesh_paths, **phase_session()}
     phase_determinism()
     dev = phase_device_engine(host_summary)
     by_path.update(dev["paths"])
@@ -2695,6 +3258,7 @@ def main() -> int:
                 "source": "xchu_slam_tpu_torch/csrc/nn_kernel.cu",
                 "replaces": "xchu_slam_tpu/ops/pallas/nn_kernel.py:29",
                 "launches": launches["nn"], "launches_by_path": per_path("nn"), **rec,
+                "shard_ms": mesh["entry"]["nn_shard_ms"],
                 "ptxas": {k: v for k, v in ptxas.items() if k in ("first version", "merge",
                                                                     "scan")}},
                {"name": "ndt_kernel", "route": "cuda",
@@ -2720,6 +3284,21 @@ def main() -> int:
                 "live_trips_by_path": per_path("icp_live_trips"), **icp_rec,
                 "ptxas": {k: ptxas[k] for k in ("icp step", "icp step first version", "icp init",
                                                  "icp fitness")}},
+               *({"name": name, "route": "cuda", "source": f"xchu_slam_tpu_torch/csrc/{src}",
+                  "replaces": replaces, "launches": mesh_paths["mesh gloo D=2"][key],
+                  "launches_by_path": {k: v[key] for k, v in mesh_paths.items()},
+                  **mesh["entry"][name], "ptxas": {k: ptxas[k] for k in tags}}
+                 for name, src, key, tags, replaces in (
+                     ("ndt_shard_pass", "ndt_kernel.cu", "ndt_pass",
+                      ("ndt pass", "ndt pass 1", "ndt pass 27"),
+                      "none: the passes of xchu_slam_tpu/ops/ndt.py:574 (align with a mesh "
+                      "axis), reduced by shard_allsum, that the reference leaves to XLA"),
+                     ("icp_partial", "icp_kernel.cu", "icp_partial", ("icp partial",),
+                      "none: the moment sums of xchu_slam_tpu/ops/icp.py:114-129 (align "
+                      "with a mesh axis) that the reference leaves to XLA"),
+                     ("icp_solve", "icp_kernel.cu", "icp_solve", ("icp solve",),
+                      "none: xchu_slam_tpu/ops/icp.py:130-173 (the update and stop tests "
+                      "after the reduction) that the reference leaves to XLA"))),
                {"name": "guess_kernel", "route": "cuda",
                 "source": "xchu_slam_tpu_torch/csrc/guess_kernel.cu",
                 "replaces": "none: xchu_slam_tpu/models/device_pipeline.py:341-369 (_ext_guess: "

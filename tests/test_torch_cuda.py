@@ -13,7 +13,10 @@ kernel against its plain version, Part A with sensor windows under
 card and batched odometry against single steps; the NDT kernel in each
 mode (ls_mode × neighbor_mode) against `align_ref` in that mode, the
 block-Jacobi PGO kernel against `solve_ref`, and the device engine in a
-non-default mode under `set_sync_debug_mode("error")`. Marked `cuda`;
+non-default mode under `set_sync_debug_mode("error")`; the mesh's entry
+points: the NDT shard pass against `ndt_deriv`'s pass in each neighbour
+mode, `icp_partial` + `icp_solve` against `icp_step` bit for bit, and a
+mesh of one rank against the single-device routes. Marked `cuda`;
 without a card the tests skip (the check runs inside the fixture, never at
 import). On the card:
 
@@ -852,3 +855,130 @@ def test_batch_step_members_equal_single_steps(cuda):
             singles[b], one = todom.step(singles[b], f.xyz, f.mask, ospec, on_device=True)
             assert torch.equal(out.pose[b], one.pose)
             assert int(out.iterations[b]) == int(one.iterations)
+
+
+# --------------------------------------------- the mesh's entry points -- #
+
+@pytest.mark.parametrize("neighbor_mode", ["direct1", "direct7", "direct26", "kdtree"])
+@pytest.mark.parametrize("n", [4096, 1000])
+def test_ndt_shard_pass_matches_plain_version(cuda, neighbor_mode, n):
+    """The NDT kernel's shard pass against `ndt_deriv`'s pass on the same
+    shard, at two pose pairs (the pass evaluated where its neighbourhood was
+    gathered, and a line-search trial away from it), in each kind: (L, g, H)
+    and (L, g) within 1e-5 of the largest entry, the fitness counts exact and
+    Σ min d² within 1e-5 relative (the sums run in another order)."""
+    spec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(n + 7), n, cuda, "some")
+    nspec = ndt.NdtSpec(neighbor_mode=neighbor_mode)
+    d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    step = torch.tensor([0.03, -0.02, 0.01, 0.002, 0.001, -0.004], device=cuda)
+    before = ndt_kernel.launches
+    for ctx, pose in ((guess, guess), (guess, guess + step)):
+        nb = ndt_deriv.neighborhood(ctx, src, grid, spec, neighbor_mode)
+        Lp, gp, Hp = ndt_deriv.ndt_value_grad_hess(pose, src, mask, grid, spec, d1, d2, nb=nb)
+        fit_p = torch.stack([t.to(torch.float32) for t in ndt._fitness_sums(pose, src, mask,
+                                                                            nb)])
+        passes = ndt_kernel.pass_launches
+        tot = {kind: ndt_kernel.shard_pass(grid.fin, grid.origin, src, mask, pose, ctx, spec,
+                                           nspec, d1, d2, kind)
+               for kind in ("hessian", "gradient", "fitness")}
+        torch.cuda.synchronize()
+        assert ndt_kernel.pass_launches == passes + 3
+        h = tot["hessian"]
+        got = torch.cat([h[:1], -d2 * h[1:7], ndt._upper6(h[7:28]).reshape(36)])
+        want = torch.cat([Lp.reshape(1), gp, Hp.reshape(36)])
+        assert float(want.abs().max()) > 0
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+        gr = tot["gradient"]
+        assert float((gr[:1] - Lp).abs().max()) <= 1e-5 * float(want.abs().max())
+        assert float((-d2 * gr[1:7] - gp).abs().max()) <= 1e-5 * float(want.abs().max())
+        for kind in ("gradient", "fitness"):
+            fit = tot[kind][28:31]
+            assert float(fit[0]) == float(fit_p[0]) and float(fit[2]) == float(fit_p[2])
+            torch.testing.assert_close(fit[1], fit_p[1], rtol=1e-5, atol=0)
+    assert ndt_kernel.launches == before        # the shard pass is counted apart
+
+
+@pytest.mark.parametrize("n", [4096, 2048, 1000, 5000])
+def test_icp_split_reproduces_icp_step_bit_for_bit(cuda, n):
+    """`icp_kernel.partial` (stage 0, stage 1 about its own sums) and
+    `icp_kernel.solve`, which a mesh of one rank runs, against `icp_kernel.step`
+    on the same state: the state and the transformed source equal bit for
+    bit after every trip (5000 points run the step's loop past the points it
+    keeps in registers)."""
+    src, smask, tgt, tmask, init = icp_cases.scene(cuda, n=n)
+    spec = icp.IcpSpec()
+    max_d2 = spec.max_corr_dist ** 2
+    live = torch.ones((), dtype=torch.bool, device=cuda)
+    st_a, st_b = (torch.zeros(icp_kernel.STATE_FLOATS, device=cuda) for _ in range(2))
+    cur_a, cur_b = torch.empty_like(src), torch.empty_like(src)
+    icp_kernel.init(src, init, live, st_a, cur_a)
+    icp_kernel.init(src, init, live, st_b, cur_b)
+    trips = 0
+    while float(st_a[icp_kernel.STATE["live"]]) > 0.5:
+        idx, d2 = nn_kernel.nearest_neighbor(cur_a, tgt, tmask)
+        icp_kernel.step(src, smask, tgt, idx, d2, cur_a, st_a, max_d2, spec.trans_eps,
+                        spec.max_iterations)
+        s8 = icp_kernel.partial(src, smask, tgt, idx, d2, st_b, max_d2, 0)
+        s9 = icp_kernel.partial(src, smask, tgt, idx, d2, st_b, max_d2, 1, s8)
+        icp_kernel.solve(src, torch.cat([s8, s9]), st_b, cur_b, spec.trans_eps,
+                         spec.max_iterations)
+        torch.cuda.synchronize()
+        assert torch.equal(st_a, st_b) and torch.equal(cur_a, cur_b), trips
+        trips += 1
+    assert trips >= 2
+
+
+@pytest.fixture
+def mesh1(cuda, tmp_path):
+    """A group of one rank on the card (gloo), formed in this process."""
+    from xchu_slam_tpu_torch.parallel import distributed
+
+    mesh = distributed.initialize("gloo", "file://" + str(tmp_path / "store"), 1, 0, cuda)
+    try:
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_mesh_of_one_rank_matches_the_single_device_route(cuda, mesh1):
+    """A mesh of one rank on the card against the single-device routes on
+    the same inputs: ICP's transform, trip count and converged flag bit for
+    bit (its split step is icp_step's arithmetic and a one-rank sum adds
+    nothing), the fitness to 1e-5 relative (another block sum); NDT's pose
+    within 1e-4 with the same iteration count (the shard pass's sums and
+    the host's control against the kernel's own); the pose graph within
+    1e-4; Scan Context retrieval equal."""
+    from xchu_slam_tpu_torch.ops import scancontext as sc
+    from xchu_slam_tpu_torch.utils import collectives
+
+    args = icp_cases.scene(cuda)
+    spec = icp.IcpSpec()
+    staged = collectives.host_staged
+    one = icp.align(*args, spec)
+    got = icp.align(*args, spec, mesh=mesh1)
+    assert torch.equal(got.T, one.T) and int(got.iterations) == int(one.iterations)
+    assert bool(got.converged) == bool(one.converged)
+    torch.testing.assert_close(got.fitness, one.fitness, rtol=1e-5, atol=0)
+    assert collectives.host_staged > staged          # gloo carried the card's tensors
+
+    nspec = ndt.NdtSpec()
+    gspec, grid, src, mask, guess = _ndt_scene(np.random.default_rng(11), 8192, cuda)
+    a = ndt.align(grid, src, mask, guess, gspec, nspec)
+    b = ndt.align(grid, src, mask, guess, gspec, nspec, mesh=mesh1)
+    assert int(a.iterations) == int(b.iterations)
+    torch.testing.assert_close(b.pose, a.pose, rtol=0, atol=1e-4)
+
+    poses, graph = pgo_cases.chain_graph(K=2048, L=256, n_live=163, n_loops=9, gps=True)
+    p_d, g_d = torch.from_numpy(poses).to(cuda), pgo_cases.to_device(graph, cuda)
+    gs = tpg.inloop_spec(tpg.spec_from_config(tconfig.default_config().pgo))._replace(
+        odom_info_t=1e3, odom_info_r=1e3)
+    torch.testing.assert_close(tpg.solve(p_d, g_d, gs, mesh=mesh1), tpg.solve(p_d, g_d, gs),
+                               rtol=0, atol=1e-4)
+
+    spec_sc = sc.ScSpec()
+    rng = np.random.default_rng(5)
+    db = torch.from_numpy(rng.uniform(0, 2, (64, 20, 60)).astype(np.float32)).to(cuda)
+    q = torch.roll(db[9], 4, dims=1)
+    w = sc.detect_loop_on_device(q, db, 60, spec_sc)
+    g = sc.detect_loop_on_device(q, db, 60, spec_sc, mesh=mesh1)
+    assert int(g.idx) == int(w.idx) == 9 and bool(g.found) == bool(w.found)

@@ -210,8 +210,9 @@ PORT_MODULES = [
     "ops.ndt_deriv",
     "ops.scancontext", "ops.voxel_map", "ops.cuda._build", "ops.cuda.guess_kernel",
     "ops.cuda.icp_kernel", "ops.cuda.ndt_kernel", "ops.cuda.nn_kernel", "ops.cuda.pgo_kernel",
-    "utils.checkpoint", "utils.linalg", "utils.metrics", "utils.profiling",
-    "utils.scatter", "utils.se3", "utils.sim",
+    "parallel.distributed", "parallel.sharded",
+    "utils.checkpoint", "utils.collectives", "utils.linalg", "utils.metrics",
+    "utils.profiling", "utils.scatter", "utils.se3", "utils.sim",
 ]
 
 

@@ -50,8 +50,10 @@ saved session's map, `info` prints versions, devices and the default config.
 
 Every subcommand that computes takes `--device` (default `cuda`, an error
 without a card; `cpu` runs the kernels' plain versions). Not ported, and so
-refused by name: `--mesh` (`run-sim`, `run-kitti`) and `--sync-every`;
-`--continue-session` and `--render-procs` need `--engine device`.
+refused by name: `--mesh` (`run-sim`, `run-kitti`: the sharded ops are in
+`parallel/`, the mesh device engine that would run a session on them is
+not) and `--sync-every`; `--continue-session` and `--render-procs` need
+`--engine device`.
 """
 
 from __future__ import annotations
@@ -824,9 +826,12 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     if args.cmd in ("run-sim", "run-kitti"):
-        for flag in ("mesh", "sync_every"):
-            if getattr(args, flag, None):
-                p.error(f"--{flag.replace('_', '-')} is not ported yet")
+        if getattr(args, "mesh", None):
+            p.error("--mesh is not ported yet: the sharded ops are "
+                    "(xchu_slam_tpu_torch.parallel), the mesh device engine that runs a "
+                    "session on them is not")
+        if getattr(args, "sync_every", None):
+            p.error("--sync-every is not ported yet")
     if args.cmd == "run-sim":
         if args.continue_session and args.engine != "device":
             p.error("--continue-session requires --engine device")

@@ -216,6 +216,113 @@ __device__ int horn_quaternion(const float* M, float (&q)[4]) {
   return sweep;
 }
 
+// One point's share of a step's first pass: the weight, the transformed
+// source c = T·s and the correspondence t into Σw, Σw·c, Σw·t, Σw·d².
+__device__ __forceinline__ void first_moments(const float* T, const float* s, const float* t,
+                                              float w, float d2, float (&acc)[8]) {
+  float c[3];
+  transform(T, s, c);
+  acc[0] += w;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    acc[1 + a] = fmaf(c[a], w, acc[1 + a]);
+    acc[4 + a] = fmaf(t[a], w, acc[4 + a]);
+  }
+  acc[7] = fmaf(d2, w, acc[7]);
+}
+
+// One point's share of the centred cross-covariance Σ w (t − μt)(c − μs)ᵀ.
+__device__ __forceinline__ void centred_moments(const float* T, const float* s, const float* t,
+                                                float w, const float* mu_s, const float* mu_t,
+                                                float (&m)[9]) {
+  float c[3], xs[3], xt[3];
+  transform(T, s, c);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    xs[a] = (c[a] - mu_s[a]) * w;
+    xt[a] = t[a] - mu_t[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) m[3 * a + b] = fmaf(xt[a], xs[b], m[3 * a + b]);
+  }
+}
+
+// The first pass over the points this thread reads from memory: i = first,
+// first + kStepThreads, ... < n.
+__device__ __forceinline__ void first_pass(const float* T, const float* src,
+                                           const unsigned char* src_mask, int n,
+                                           const float* tgt, const int* idx, const float* d2,
+                                           float max_d2, int first, float (&acc)[8]) {
+  for (int i = first; i < n; i += kStepThreads) {
+    const float w = (src_mask[i] && d2[i] < max_d2) ? 1.f : 0.f;
+    first_moments(T, src + 3 * i, tgt + 3 * idx[i], w, d2[i], acc);
+  }
+}
+
+// The centred pass over the same points.
+__device__ __forceinline__ void centred_pass(const float* T, const float* src,
+                                             const unsigned char* src_mask, int n,
+                                             const float* tgt, const int* idx, const float* d2,
+                                             float max_d2, const float* mu_s, const float* mu_t,
+                                             int first, float (&m)[9]) {
+  for (int i = first; i < n; i += kStepThreads) {
+    const float w = (src_mask[i] && d2[i] < max_d2) ? 1.f : 0.f;
+    centred_moments(T, src + 3 * i, tgt + 3 * idx[i], w, mu_s, mu_t, m);
+  }
+}
+
+// A step's update after the rotation's quaternion q (one thread): R and
+// the translation from the means, T ← dT · T into Tn, then the stop tests
+// and the state into st. `prev` holds the iterations and the last error.
+__device__ __forceinline__ void update_state(const float (&q)[4], const float* mu_s,
+                                             const float* mu_t, float err, const float* T,
+                                             const float* prev, float* Tn, float* st,
+                                             float trans_eps, int max_iterations) {
+  const float w = q[0], x = q[1], y = q[2], z = q[3];
+  float R[9];
+  R[0] = 1.f - 2.f * (y * y + z * z);
+  R[1] = 2.f * (x * y - w * z);
+  R[2] = 2.f * (x * z + w * y);
+  R[3] = 2.f * (x * y + w * z);
+  R[4] = 1.f - 2.f * (x * x + z * z);
+  R[5] = 2.f * (y * z - w * x);
+  R[6] = 2.f * (x * z - w * y);
+  R[7] = 2.f * (y * z + w * x);
+  R[8] = 1.f - 2.f * (x * x + y * y);
+  float tv[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    tv[a] = mu_t[a] - (R[3 * a] * mu_s[0] + R[3 * a + 1] * mu_s[1] + R[3 * a + 2] * mu_s[2]);
+  // T ← dT · T
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float v = R[3 * a] * T[b] + R[3 * a + 1] * T[4 + b] + R[3 * a + 2] * T[8 + b];
+      if (b == 3) v += tv[a];
+      Tn[4 * a + b] = v;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) Tn[12 + b] = T[12 + b];
+  const float trans_delta2 = tv[0] * tv[0] + tv[1] * tv[1] + tv[2] * tv[2];
+  const float cos_theta = 0.5f * (R[0] + R[4] + R[8] - 1.f);
+  const float rot_delta2 = 2.f * (1.f - fminf(fmaxf(cos_theta, -1.f), 1.f));
+  const bool conv_transform = trans_delta2 < trans_eps && rot_delta2 < trans_eps;
+  const bool conv_plateau = fabsf(prev[1] - err) < trans_eps;
+  const bool settled = trans_delta2 < 1e-4f && rot_delta2 < 1e-4f;
+  const bool conv = conv_transform || (conv_plateau && settled);
+  const float it = prev[0] + 1.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) st[kT + e] = Tn[e];
+  st[kIt] = it;
+  st[kConv] = conv ? 1.f : 0.f;
+  st[kPrevErr] = err;
+  st[kLive] = (!conv && it < static_cast<float>(max_iterations)) ? 1.f : 0.f;
+}
+
 // State from the initial guess; cur = init_T · src.
 __global__ void __launch_bounds__(kThreads)
 icp_init_kernel(const float* __restrict__ src, int n, const float* __restrict__ init_T,
@@ -280,31 +387,12 @@ icp_step_kernel(const float* __restrict__ src, const unsigned char* __restrict__
   for (int u = 0; u < kKeep; ++u) {
     if (tid + u * kStepThreads < n) {
       const float w = (pw[u] > 0.5f && pd[u] < max_d2) ? 1.f : 0.f;
-      float c[3];
-      transform(sT, ps[u], c);   // = cur[i], the bits the last transform wrote
       pw[u] = w;
-      acc[0] += w;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        acc[1 + a] = fmaf(c[a], w, acc[1 + a]);
-        acc[4 + a] = fmaf(pt[u][a], w, acc[4 + a]);
-      }
-      acc[7] = fmaf(pd[u], w, acc[7]);
+      // T·s = cur[i], the bits the last transform wrote
+      first_moments(sT, ps[u], pt[u], w, pd[u], acc);
     }
   }
-  for (int i = tid + kKeep * kStepThreads; i < n; i += kStepThreads) {
-    const float w = (src_mask[i] && d2[i] < max_d2) ? 1.f : 0.f;
-    const float* t = tgt + 3 * idx[i];
-    float c[3];
-    transform(sT, src + 3 * i, c);
-    acc[0] += w;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      acc[1 + a] = fmaf(c[a], w, acc[1 + a]);
-      acc[4 + a] = fmaf(t[a], w, acc[4 + a]);
-    }
-    acc[7] = fmaf(d2[i], w, acc[7]);
-  }
+  first_pass(sT, src, src_mask, n, tgt, idx, d2, max_d2, tid + kKeep * kStepThreads, acc);
   TICK(kTPass1);
   float sums[8];
   block_sums<8, kStepWarps>(acc, red, sums);
@@ -322,37 +410,10 @@ icp_step_kernel(const float* __restrict__ src, const unsigned char* __restrict__
   float m[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int u = 0; u < kKeep; ++u) {
-    if (tid + u * kStepThreads < n) {
-      float c[3], xs[3], xt[3];
-      transform(sT, ps[u], c);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        xs[a] = (c[a] - mu_s[a]) * pw[u];
-        xt[a] = pt[u][a] - mu_t[a];
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-#pragma unroll
-        for (int b = 0; b < 3; ++b) m[3 * a + b] = fmaf(xt[a], xs[b], m[3 * a + b]);
-      }
-    }
+    if (tid + u * kStepThreads < n) centred_moments(sT, ps[u], pt[u], pw[u], mu_s, mu_t, m);
   }
-  for (int i = tid + kKeep * kStepThreads; i < n; i += kStepThreads) {
-    const float w = (src_mask[i] && d2[i] < max_d2) ? 1.f : 0.f;
-    const float* t = tgt + 3 * idx[i];
-    float c[3], xs[3], xt[3];
-    transform(sT, src + 3 * i, c);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      xs[a] = (c[a] - mu_s[a]) * w;
-      xt[a] = t[a] - mu_t[a];
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b) m[3 * a + b] = fmaf(xt[a], xs[b], m[3 * a + b]);
-    }
-  }
+  centred_pass(sT, src, src_mask, n, tgt, idx, d2, max_d2, mu_s, mu_t,
+               tid + kKeep * kStepThreads, m);
   TICK(kTPass2);
   float M[9];
   block_sums<9, kStepWarps>(m, red, M);
@@ -365,50 +426,8 @@ icp_step_kernel(const float* __restrict__ src, const unsigned char* __restrict__
     const int sweeps = horn_quaternion(M, q);
     TICK(kTEigen);
     TICK_SET(kTSweeps, sweeps);
-    if (tid == 0) {
-      const float w = q[0], x = q[1], y = q[2], z = q[3];
-      float R[9];
-      R[0] = 1.f - 2.f * (y * y + z * z);
-      R[1] = 2.f * (x * y - w * z);
-      R[2] = 2.f * (x * z + w * y);
-      R[3] = 2.f * (x * y + w * z);
-      R[4] = 1.f - 2.f * (x * x + z * z);
-      R[5] = 2.f * (y * z - w * x);
-      R[6] = 2.f * (x * z - w * y);
-      R[7] = 2.f * (y * z + w * x);
-      R[8] = 1.f - 2.f * (x * x + y * y);
-      float tv[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        tv[a] = mu_t[a] - (R[3 * a] * mu_s[0] + R[3 * a + 1] * mu_s[1] + R[3 * a + 2] * mu_s[2]);
-      // T ← dT · T
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          float v = R[3 * a] * sT[b] + R[3 * a + 1] * sT[4 + b] + R[3 * a + 2] * sT[8 + b];
-          if (b == 3) v += tv[a];
-          Tn[4 * a + b] = v;
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) Tn[12 + b] = sT[12 + b];
-      const float err = sums[7] / wsum;
-      const float trans_delta2 = tv[0] * tv[0] + tv[1] * tv[1] + tv[2] * tv[2];
-      const float cos_theta = 0.5f * (R[0] + R[4] + R[8] - 1.f);
-      const float rot_delta2 = 2.f * (1.f - fminf(fmaxf(cos_theta, -1.f), 1.f));
-      const bool conv_transform = trans_delta2 < trans_eps && rot_delta2 < trans_eps;
-      const bool conv_plateau = fabsf(prev[1] - err) < trans_eps;
-      const bool settled = trans_delta2 < 1e-4f && rot_delta2 < 1e-4f;
-      const bool conv = conv_transform || (conv_plateau && settled);
-      const float it = prev[0] + 1.f;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) st[kT + e] = Tn[e];
-      st[kIt] = it;
-      st[kConv] = conv ? 1.f : 0.f;
-      st[kPrevErr] = err;
-      st[kLive] = (!conv && it < static_cast<float>(max_iterations)) ? 1.f : 0.f;
-    }
+    if (tid == 0)
+      update_state(q, mu_s, mu_t, sums[7] / wsum, sT, prev, Tn, st, trans_eps, max_iterations);
   }
   TICK(kTUpdate);
   __syncthreads();
@@ -421,6 +440,86 @@ icp_step_kernel(const float* __restrict__ src, const unsigned char* __restrict__
   for (int i = tid + kKeep * kStepThreads; i < n; i += kStepThreads)
     transform(Tn, src + 3 * i, cur + 3 * i);
   TICK(kTTransform);
+}
+
+// ---- icp_step split at its reductions, for a sharded verification ---- //
+//
+// With the source sharded over a mesh of ranks (ops/icp.py::align with
+// `mesh`), each reduction of icp_step becomes a collective between ranks, so
+// the step is cut where it reduces. icp_step centres its cross-covariance in
+// two passes (the means first), so a trip has two cuts: icp_partial stage 0
+// writes the shard's 8 first-pass sums (Σw, Σw·s, Σw·t, Σw·d²), stage 1
+// writes the shard's 9 centred sums Σ w (t − μt)(s − μs)ᵀ about the means of
+// the reduced 8; icp_solve takes the reduced 17 and does the rest of the
+// step: the Kabsch rotation, the update, the stop tests and the shard's next
+// transformed source. Each does icp_step's arithmetic in icp_step's order
+// (the same thread a point, the same block sums), so that a mesh of one
+// rank, whose reductions add nothing, reproduces icp_step's state and `cur`
+// bit for bit. Stage 0 at the final transform also gives the fitness sums.
+__global__ void __launch_bounds__(kStepThreads)
+icp_partial_kernel(const float* __restrict__ src, const unsigned char* __restrict__ src_mask,
+                   int n, const float* __restrict__ tgt, const int* __restrict__ idx,
+                   const float* __restrict__ d2, const float* __restrict__ st,
+                   const float* __restrict__ sums_in, float* __restrict__ out, float max_d2,
+                   int stage) {
+  __shared__ float red[(kStepWarps + 1) * 9];
+  __shared__ float sT[16];
+  const int tid = threadIdx.x;
+  if (tid < 16) sT[tid] = st[kT + tid];
+  __syncthreads();
+  if (stage == 0) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    first_pass(sT, src, src_mask, n, tgt, idx, d2, max_d2, tid, acc);
+    float sums[8];
+    block_sums<8, kStepWarps>(acc, red, sums);
+    if (tid < 8) out[tid] = sums[tid];
+    return;
+  }
+  const float wsum = fmaxf(sums_in[0], 1.f);
+  float mu_s[3], mu_t[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    mu_s[a] = sums_in[1 + a] / wsum;
+    mu_t[a] = sums_in[4 + a] / wsum;
+  }
+  float m[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  centred_pass(sT, src, src_mask, n, tgt, idx, d2, max_d2, mu_s, mu_t, tid, m);
+  float M[9];
+  block_sums<9, kStepWarps>(m, red, M);
+  if (tid < 9) out[8 + tid] = M[tid];
+}
+
+// The rest of icp_step from the reduced 17 sums: the rotation, T ← dT·T,
+// the stop tests into st, and cur ← T·src for the shard. (With the default
+// bounds ptxas spills 16 bytes around the calls of the IEEE division's slow
+// path; one block an SM leaves it the registers not to.)
+__global__ void __launch_bounds__(kStepThreads, 1)
+icp_solve_kernel(const float* __restrict__ src, int n, const float* __restrict__ sums,
+                 float* __restrict__ cur, float* __restrict__ st, float trans_eps,
+                 int max_iterations) {
+  __shared__ float sT[16], Tn[16], prev[2];
+  const int tid = threadIdx.x;
+  if (tid < 16) sT[tid] = st[kT + tid];
+  if (tid == 16) prev[0] = st[kIt];
+  if (tid == 17) prev[1] = st[kPrevErr];
+  __syncthreads();
+  if (tid < 32) {
+    const float wsum = fmaxf(sums[0], 1.f);
+    float mu_s[3], mu_t[3], M[9];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      mu_s[a] = sums[1 + a] / wsum;
+      mu_t[a] = sums[4 + a] / wsum;
+    }
+#pragma unroll
+    for (int e = 0; e < 9; ++e) M[e] = sums[8 + e] / wsum;
+    float q[4];
+    horn_quaternion(M, q);
+    if (tid == 0)
+      update_state(q, mu_s, mu_t, sums[7] / wsum, sT, prev, Tn, st, trans_eps, max_iterations);
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kStepThreads) transform(Tn, src + 3 * i, cur + 3 * i);
 }
 
 // What a step waits for beyond its launch and barriers: mode 0 an empty
@@ -497,6 +596,29 @@ extern "C" int icp_step_launch(const float* src, const unsigned char* src_mask, 
                                int max_iterations, void* stream) {
   icp_step_kernel<<<1, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       src, src_mask, n, tgt, idx, d2, cur, st, max_d2, trans_eps, max_iterations);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shard's first-pass sums (stage 0: 8 floats to out[0..7]) or centred
+// sums about the means of the reduced `sums_in` (stage 1: 9 floats to
+// out[8..16]) of one sharded ICP iteration; T is read from st.
+extern "C" int icp_partial_launch(const float* src, const unsigned char* src_mask, int n,
+                                  const float* tgt, const int* idx, const float* d2,
+                                  const float* st, const float* sums_in, float* out,
+                                  float max_d2, int stage, void* stream) {
+  if (stage != 0 && stage != 1) return static_cast<int>(cudaErrorInvalidValue);
+  icp_partial_kernel<<<1, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, src_mask, n, tgt, idx, d2, st, sums_in, out, max_d2, stage);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rest of one sharded ICP iteration from the reduced 17 sums: st updated,
+// cur [n,3] ← T·src for the shard.
+extern "C" int icp_solve_launch(const float* src, int n, const float* sums, float* cur,
+                                float* st, float trans_eps, int max_iterations,
+                                void* stream) {
+  icp_solve_kernel<<<1, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, n, sums, cur, st, trans_eps, max_iterations);
   return static_cast<int>(cudaGetLastError());
 }
 

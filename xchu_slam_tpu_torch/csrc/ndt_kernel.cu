@@ -314,8 +314,9 @@ __device__ __forceinline__ float* row_cache(Shared<kM>& sh) {
 
 // One pass over the pairs: per-lane accumulators, block partial, grid barrier,
 // fixed-order total in sh.tot. kind 0: L, g, H; 1: L, g and the fitness sums
-// (matched count, Σ min d², mask count); 2: the fitness sums alone.
-template <int kM, int kind>
+// (matched count, Σ min d², mask count); 2: the fitness sums alone. kFresh
+// (the shard pass) gathers every pass and keeps no rows.
+template <int kM, int kind, bool kFresh = false>
 __device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& buf,
                                      cg::grid_group& grid) {
   using Nb = Neighbours<kM>;
@@ -372,7 +373,7 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& bu
     // at the point's voxel under the iteration's pose
     float c0, c1, c2, xx, xy, xz, yy, yz, zz;
     bool on;
-    if (kept && kind != 0) {
+    if (kept && kind != 0 && !kFresh) {
       c0 = row[0]; c1 = row[Nb::kRowStride]; c2 = row[2 * Nb::kRowStride];
       xx = row[3 * Nb::kRowStride]; xy = row[4 * Nb::kRowStride];
       xz = row[5 * Nb::kRowStride]; yy = row[6 * Nb::kRowStride];
@@ -408,7 +409,7 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& bu
         }
       }
       xx = r1.y; xy = r2.x; xz = r2.y; yy = r3.x; yz = r3.y; zz = r4.x;
-      if (kept) {
+      if (kept && !kFresh) {
         row[0] = c0; row[Nb::kRowStride] = c1; row[2 * Nb::kRowStride] = c2;
         row[3 * Nb::kRowStride] = xx; row[4 * Nb::kRowStride] = xy;
         row[5 * Nb::kRowStride] = xz; row[6 * Nb::kRowStride] = yy;
@@ -913,6 +914,55 @@ ndt_align_kernel(const NdtParams p) {
   }
 }
 
+// ---- the shard pass of a sharded align ---- //
+
+// One pass over a shard's pairs, for an align whose points are sharded over a
+// mesh of ranks (ops/ndt.py::align with `mesh`): there the Newton and
+// line-search control runs on the host from the sums that every rank reduces
+// in the same order, so the kernel evaluates one pass and stops. `poses`
+// (p.init_pose) holds two poses: the pose the pass evaluates at (0-5) and the
+// pose the neighbourhood is gathered at (6-11), the pose the Newton iteration
+// started at, as the align kernel's line-search trials and the plain version
+// (`newton_align`) keep it. `kind` 0: L, g, H; 1: L, g and the fitness sums;
+// 2: the fitness sums alone. Every pass gathers afresh (no rows are kept
+// between launches); the block partials are summed in the align kernel's
+// fixed order, and block 0 writes the kRow sums to p.out.
+template <int kM>
+__global__ void __launch_bounds__(kThreads, 1)
+ndt_pass_kernel(const NdtParams p, int kind) {
+  using Nb = Neighbours<kM>;
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Shared<kM> sh;
+  const int tid = threadIdx.x;
+  int buf = 0;
+  if (tid < 32) {
+    float eval[6], ctx[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) { eval[k] = p.init_pose[k]; ctx[k] = p.init_pose[6 + k]; }
+    publish(sh, eval, ctx);
+  }
+  if (tid >= 32 && tid < 35) sh.origin[tid - 32] = p.origin[tid - 32];
+  const long long stride = (long long)gridDim.x * kThreads;
+  if ((long long)p.n * Nb::kLanes <= stride * Nb::kCacheTrips && tid >= 64) {
+    for (int j = tid - 64; j < Nb::kPoints; j += kThreads - 64) {
+      const int trip = j / Nb::kPointsPerTrip;
+      const int i = (int)(((long long)blockIdx.x * kThreads + trip * stride) / Nb::kLanes)
+                    + j % Nb::kPointsPerTrip;
+      float4 q = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (i < p.n) {
+        q.x = __ldg(p.src + 3 * i); q.y = __ldg(p.src + 3 * i + 1); q.z = __ldg(p.src + 3 * i + 2);
+        q.w = __ldg(p.mask + i) ? 1.0f : 0.0f;
+      }
+      sh.point[j] = q;
+    }
+  }
+  __syncthreads();
+  if (kind == 0) pass<kM, 0, true>(p, sh, buf, grid);
+  else if (kind == 1) pass<kM, 1, true>(p, sh, buf, grid);
+  else pass<kM, 2, true>(p, sh, buf, grid);
+  if (blockIdx.x == 0 && tid < kRow) p.out[tid] = sh.tot[tid];
+}
+
 // ---- probes: what an align waits for, each alone ---- //
 
 // `syncs` grid-wide barriers and nothing else (a cooperative launch).
@@ -1009,6 +1059,14 @@ AlignKernel pick(int neighbours, int ls, int* dynamic_bytes) {
   return k;
 }
 
+using PassKernel = void (*)(NdtParams, int);
+
+PassKernel pick_pass(int neighbours) {
+  return neighbours == 1 ? ndt_pass_kernel<1>
+       : neighbours == 7 ? ndt_pass_kernel<7>
+       : neighbours == 27 ? ndt_pass_kernel<27> : nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1064,6 +1122,53 @@ int ndt_align_launch(const void* src, const void* mask, const void* fin,
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(k), dim3(blocks), dim3(kThreads), args,
       dynamic_bytes, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the shard pass for `neighbours` voxels a point that the device
+// holds at once (0 on an error, or where it cannot launch cooperatively).
+int ndt_pass_max_blocks(int device, int neighbours) {
+  int coop = 0, sms = 0, per_sm = 0;
+  const PassKernel k = pick_pass(neighbours);
+  if (k == nullptr
+      || cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) != cudaSuccess
+      || !coop
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reinterpret_cast<const void*>(k),
+                                                       kThreads, 0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// One shard pass (see ndt_pass_kernel) on `stream`: `poses` holds the pose
+// of the pass and the pose of the neighbourhood (12 floats), `out` receives
+// 32 sums, `partial` holds blocks·32 floats; `kind` 0 (L, g, H), 1 (L, g,
+// fitness) or 2 (fitness). `blocks` must not exceed ndt_pass_max_blocks().
+// Returns the CUDA error code of the launch (0 = success).
+int ndt_pass_launch(const void* src, const void* mask, const void* fin, const void* origin,
+                    const void* poses, void* out, void* partial, int n, int gx, int gy,
+                    int gz, float res, float d1, float s, float two_s, float four_s2,
+                    int kind, int blocks, int neighbours, int kdtree, float res2,
+                    void* stream) {
+  const PassKernel k = pick_pass(neighbours);
+  if (k == nullptr || kind < 0 || kind > 2 || (kdtree && neighbours != 27))
+    return static_cast<int>(cudaErrorInvalidValue);
+  NdtParams p = {};
+  p.src = static_cast<const float*>(src);
+  p.mask = static_cast<const unsigned char*>(mask);
+  p.fin = static_cast<const float*>(fin);
+  p.origin = static_cast<const float*>(origin);
+  p.init_pose = static_cast<const float*>(poses);
+  p.out = static_cast<float*>(out);
+  p.partial = static_cast<float*>(partial);
+  p.n = n; p.gx = gx; p.gy = gy; p.gz = gz;
+  p.res = res; p.d1 = d1; p.s = s; p.two_s = two_s; p.four_s2 = four_s2;
+  p.kdtree = kdtree; p.res2 = res2;
+  void* args[] = {&p, &kind};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(k), dim3(blocks), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from xchu_slam_tpu_torch.ops.cuda import pgo_kernel
-from xchu_slam_tpu_torch.utils import se3
+from xchu_slam_tpu_torch.utils import collectives, se3
 from xchu_slam_tpu_torch.utils.scatter import index_add
 
 
@@ -259,34 +259,50 @@ class _System(NamedTuple):
     gz: torch.Tensor       # [K] altitude information
 
 
-def _gn_system(Ts, graph: GraphData, spec: GraphSpec) -> _System:
+def _to_rows(x, rows: slice, K: int):
+    """x [E,...] for rows `rows` of a [K,...] array, as the [K,...] array
+    that is 0 elsewhere (x itself when the rows are all K)."""
+    if rows.stop - rows.start == K:
+        return x
+    out = x.new_zeros((K, *x.shape[1:]))
+    out[rows] = x
+    return out
+
+
+def _gn_partial(Ts, graph: GraphData, spec: GraphSpec, rows: slice, loops: slice) -> _System:
+    """The part of a Gauss-Newton system that the factors of between / GPS
+    rows `rows` and loop slots `loops` give: (g, blocks, U) summed over
+    those factors alone (node 0, the damping and U[1] not yet set), and the
+    factors' own blocks. Between row k is the edge (k−1, k) for k =
+    clip(k, 1, K−1), and row 0's duplicate of edge (0, 1) has pair weight 0,
+    so every factor counts once over any split of the rows
+    (`xchu_slam_tpu/models/pose_graph.py::sharded_gn_solve`)."""
     K = Ts.shape[0]
     dev = Ts.device
     odom_info = torch.cat([torch.full((3,), spec.odom_info_t, device=dev),
                            torch.full((3,), spec.odom_info_r, device=dev)])
     kf = graph.kf_mask
     pairmask = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
-                          kf[:-1] & kf[1:]])
-    ke = torch.clamp(torch.arange(K, device=dev), 1, K - 1)
-    li, lj, lT = graph.loop_i, graph.loop_j, graph.loop_T
-    gz = torch.where(graph.gps_mask & kf, spec.gps_info_z, 0.0)      # [K]
-    wp = pairmask.to(torch.float32)                                   # [K]
-    mask0 = torch.ones((K, 1), device=dev)
-    mask0[0].fill_(0.0)
-    eye6 = torch.eye(6, device=dev)
+                          kf[:-1] & kf[1:]])[rows]
+    ke = torch.clamp(torch.arange(rows.start, rows.stop, device=dev), 1, K - 1)
+    kg = torch.arange(rows.start, rows.stop, device=dev)
+    li, lj, lT = graph.loop_i[loops], graph.loop_j[loops], graph.loop_T[loops]
+    gz = torch.where(graph.gps_mask[rows] & kf[rows], spec.gps_info_z, 0.0)   # [E]
+    wp = pairmask.to(torch.float32)                                            # [E]
 
     def gps6(x3):
         return torch.cat([x3, torch.zeros_like(x3)], -1)
 
-    r_o = _between_residual(Ts[ke - 1], Ts[ke], graph.between_T)
+    r_o = _between_residual(Ts[ke - 1], Ts[ke], graph.between_T[rows])
     r_l = _between_residual(Ts[li], Ts[lj], lT)
-    w_lin = torch.where(graph.loop_mask, torch.clamp(graph.loop_info, min=0.0), 0.0)
+    loop_mask, loop_info = graph.loop_mask[loops], graph.loop_info[loops]
+    w_lin = torch.where(loop_mask, torch.clamp(loop_info, min=0.0), 0.0)
     wl = w_lin * _cauchy_weights(r_l * torch.sqrt(w_lin)[:, None], spec.cauchy_k)
 
-    Ji, Jj = _edge_jacobians(Ts, ke - 1, ke, graph.between_T)
+    Ji, Jj = _edge_jacobians(Ts, ke - 1, ke, graph.between_T[rows])
     Jli, Jlj = _edge_jacobians(Ts, li, lj, lT)
-    A = Ts[:, 2, :3]          # GPS altitude row: dz/dρ = R[2,:]
-    r_g = Ts[:, 2, 3] - graph.gps_alt
+    A = Ts[kg, 2, :3]         # GPS altitude row: dz/dρ = R[2,:]
+    r_g = Ts[kg, 2, 3] - graph.gps_alt[rows]
 
     # gradient g = JᵀW r
     wro = r_o * odom_info[None, :] * wp[:, None]
@@ -296,26 +312,42 @@ def _gn_system(Ts, graph: GraphData, spec: GraphSpec) -> _System:
     index_add(g, ke, _bmtv(Jj, wro))
     index_add(g, li, _bmtv(Jli, wrl))
     index_add(g, lj, _bmtv(Jlj, wrl))
-    g = g + gps6((gz * r_g)[:, None] * A)
+    g = g + _to_rows(gps6((gz * r_g)[:, None] * A), rows, K)
 
     # 6×6 diagonal blocks and chain couplings from the same Jacobians
-    Wo = odom_info.expand(K, 6)
+    Wo = odom_info.expand(ke.shape[0], 6)
     blocks = torch.zeros((K, 6, 6), device=dev)
     index_add(blocks, ke - 1, _jtwj(Ji, Wo, Ji) * wp[:, None, None])
     index_add(blocks, ke, _jtwj(Jj, Wo, Jj) * wp[:, None, None])
     index_add(blocks, li, Jli.transpose(1, 2) @ Jli * wl[:, None, None])
     index_add(blocks, lj, Jlj.transpose(1, 2) @ Jlj * wl[:, None, None])
-    blocks = blocks + gz[:, None, None] * torch.nn.functional.pad(
-        A[:, :, None] * A[:, None, :], (0, 3, 0, 3))
-    # chain-exact preconditioner M = H_chain + diag(loop/GPS/damping);
-    # U[1] = 0 keeps the gauge-fixed node 0 isolated
+    blocks = blocks + _to_rows(gz[:, None, None] * torch.nn.functional.pad(
+        A[:, :, None] * A[:, None, :], (0, 3, 0, 3)), rows, K)
+    # chain-exact preconditioner M = H_chain + diag(loop/GPS/damping)
     U = torch.zeros((K, 6, 6), device=dev)
     index_add(U, ke, _jtwj(Ji, Wo, Jj) * wp[:, None, None])
+    return _System(g, blocks, U, Ji, Jj, Jli, Jlj, wl, A, odom_info, wp, gz)
+
+
+def _gn_finish(s: _System) -> _System:
+    """The whole system from the factors' summed (g, blocks, U): node 0
+    zeroed in g and set to I in blocks, the 1e-6·I damping, U[1] = 0 (which
+    keeps the gauge-fixed node 0 isolated)."""
+    g, blocks, U = s.g, s.blocks, s.U
+    K = g.shape[0]
+    mask0 = torch.ones((K, 1), device=g.device)
+    mask0[0].fill_(0.0)
+    eye6 = torch.eye(6, device=g.device)
     g = g * mask0
     blocks[0] = eye6
     blocks = blocks + 1e-6 * eye6
     U[1].fill_(0.0)
-    return _System(g, blocks, U, Ji, Jj, Jli, Jlj, wl, A, odom_info, wp, gz)
+    return s._replace(g=g, blocks=blocks, U=U)
+
+
+def _gn_system(Ts, graph: GraphData, spec: GraphSpec) -> _System:
+    K, L = Ts.shape[0], graph.loop_i.shape[0]
+    return _gn_finish(_gn_partial(Ts, graph, spec, slice(0, K), slice(0, L)))
 
 
 def _hvp(sys_: _System, graph: GraphData, v):
@@ -459,8 +491,51 @@ class _GnGraph:
 _gn_graphs: dict = {}
 
 
+def sharded_gn_solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
+                     mesh) -> torch.Tensor:
+    """The Gauss-Newton solve with the factors sharded over `mesh` (poses
+    and factor store replicated): rank r assembles the system of between /
+    GPS rows [r·K/D, (r+1)·K/D) and loop slots [r·L/D, (r+1)·L/D)
+    (`_gn_partial`). Each Gauss-Newton iteration is one collective pair:
+    (g, blocks, U) summed by one packed `shard_allsum`, and the factors' own
+    blocks, which the Hessian-vector product reads (the chain's Ji, Jj, wp,
+    the loops' Jli, Jlj, wl, GPS's A, gz: each factor on one rank), gathered
+    and concatenated by one `shard_allgather`. Every rank then solves the
+    same whole system: `_pcg_ref` on the CPU, one launch of the unchanged
+    PGO kernel on the card. (The reference reduces the Hessian-vector
+    product once per CG iteration instead: the same mathematics summed in
+    another order.) Returns the optimized [K,6], keyframes outside kf_mask
+    at their input poses."""
+    _check_spec(spec)
+    K, L = poses6.shape[0], graph.loop_i.shape[0]
+    rows = mesh.shard(K, "keyframe slots (max_keyframes)")
+    loops = mesh.shard(L, "loop slots (max_loops)")
+    dev = poses6.device
+    mask0 = torch.ones((K, 1), device=dev)
+    mask0[0].fill_(0.0)
+    run = torch.ones((), dtype=torch.bool, device=dev)
+    Ts = se3.pose_to_matrix(poses6)
+    for _ in range(spec.gn_iterations):
+        part = _gn_partial(Ts, graph, spec, rows, loops)
+        g, blocks, U = collectives.shard_allsum((part.g, part.blocks, part.U), mesh)
+        Ji, Jj, wp, Jli, Jlj, wl, A, gz = collectives.shard_allgather(
+            (part.Ji, part.Jj, part.wp, part.Jli, part.Jlj, part.wl, part.A, part.gz), mesh)
+        s = _gn_finish(_System(g, blocks, U, Ji, Jj, Jli, Jlj, wl, A, part.odom_info, wp, gz))
+        if dev.type == "cpu":
+            x = _pcg_ref(s, graph, spec)
+        else:
+            x, _iters = pgo_kernel.cg(
+                s.blocks.contiguous(), s.U.contiguous(), s.g.contiguous(),
+                s.Ji.contiguous(), s.Jj.contiguous(), s.odom_info, s.wp.contiguous(),
+                s.Jli.contiguous(), s.Jlj.contiguous(), graph.loop_i, graph.loop_j,
+                s.wl.contiguous(), s.A.contiguous(), s.gz.contiguous(), graph.kf_mask, run,
+                spec.cg_tol, spec.cg_iterations, precond=spec.precond)
+        Ts = torch.matmul(Ts, se3.se3_exp(x * mask0))
+    return torch.where(graph.kf_mask[:, None], se3.matrix_to_pose(Ts), poses6)
+
+
 def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
-          run: torch.Tensor | None = None) -> torch.Tensor:
+          run: torch.Tensor | None = None, mesh=None) -> torch.Tensor:
     """Optimize all keyframe poses. poses6 [K,6] → optimized [K,6];
     keyframes outside kf_mask keep their input poses, and so do all when
     `run` (a 0-d bool tensor on the poses' device) is false.
@@ -470,7 +545,14 @@ def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
     store shape and spec) `gn_iterations` times: the system assembled in
     PyTorch, a fixed number of launches, and solved by one launch of
     `csrc/pgo_kernel.cu` (the spec's preconditioner's factor and the PCG,
-    the stop test on the card). No host synchronisation."""
+    the stop test on the card). No host synchronisation. With a `mesh`
+    (`parallel/distributed.py`) the factors are sharded over its ranks
+    (`sharded_gn_solve`; `run` is read back) and every rank returns the same
+    poses."""
+    if mesh is not None:
+        if run is not None and not bool(run):
+            return poses6
+        return sharded_gn_solve(poses6, graph, spec, mesh)
     if poses6.device.type == "cpu":
         return solve_ref(poses6, graph, spec, run)
     _check_spec(spec)

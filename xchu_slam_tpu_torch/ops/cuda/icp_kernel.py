@@ -11,6 +11,15 @@ go to PyTorch's current stream (the capturing stream under a CUDA graph
 capture). The library is compiled by nvcc from the repository's source at
 first use.
 
+For a verification whose source is sharded over a mesh of ranks
+(`ops/icp.py::align` with `mesh`), `partial` and `solve` are `step` cut at its
+reductions: `partial` stage 0 gives the shard's 8 first-pass sums, stage 1
+its 9 centred sums about the means of the reduced 8, and `solve` does the
+rest of the step from the reduced 17 (the rotation, the update, the stop
+tests, the shard's next `cur`), in `step`'s arithmetic, so that a mesh of one
+rank reproduces `step` bit for bit. Their plain versions are
+`ops/icp.py::_shard_moments` and the host update of `align_ref`.
+
 The state is float32[24] on the card (`STATE` names its slots). The step
 kernel's first version (`csrc/icp_kernel_first.cu`, `_step_first`, the same
 state) stays as the yardstick the redesign is timed against; only
@@ -39,6 +48,11 @@ STATE = {"T": slice(0, 16), "iterations": 16, "converged": 17, "prev_err": 18,
 # CUDA graph launches nothing: whoever captures takes it off the count again
 # and adds what each replay launches (`ops/icp.py::_IcpGraph`)
 launches = 0
+# launches of the split step's two entries (`partial`, `solve`), counted apart
+partial_launches = 0
+solve_launches = 0
+PARTIAL_FLOATS = (8, 9)        # the sums of stage 0 and of stage 1
+SUMS = 17
 
 
 def build() -> tuple[Path, float, str]:
@@ -73,6 +87,10 @@ def _library() -> ctypes.CDLL:
     lib.icp_step_launch.argtypes = _STEP_ARGTYPES
     lib.icp_step_launch.restype = i32
     lib.icp_fitness_launch.argtypes = [ptr, i32, ptr, ptr, f32, ptr]
+    lib.icp_partial_launch.argtypes = [ptr, ptr, i32] + [ptr] * 6 + [f32, i32, ptr]
+    lib.icp_partial_launch.restype = i32
+    lib.icp_solve_launch.argtypes = [ptr, i32, ptr, ptr, ptr, f32, i32, ptr]
+    lib.icp_solve_launch.restype = i32
     lib.icp_fitness_launch.restype = i32
     lib.icp_probe_launch.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.icp_probe_launch.restype = i32
@@ -156,6 +174,50 @@ def fitness(src_mask, d2, st, max_d2: float) -> None:
         raise ValueError("bad shapes for icp_kernel.fitness")
     _rc(_library().icp_fitness_launch(src_mask.data_ptr(), n, d2.data_ptr(), st.data_ptr(),
                                       max_d2, _build.raw_stream(dev.index)), "fitness")
+
+
+def partial(src, src_mask, tgt, idx, d2, st, max_d2: float, stage: int,
+            sums=None) -> torch.Tensor:
+    """The shard's sums of one sharded iteration at st's transform, a new
+    float32 tensor on the card: stage 0 the 8 first-pass sums (Σw, Σw·s [3],
+    Σw·t [3], Σw·d²), stage 1 the 9 centred sums Σ w (t − μt)(s − μs)ᵀ about
+    the means of `sums` (the reduced 8). Counted in `partial_launches`."""
+    global partial_launches
+    if stage not in (0, 1):
+        raise ValueError(f"stage must be 0 or 1, got {stage}")
+    if sums is None:
+        if stage == 1:
+            raise ValueError("stage 1 needs the reduced sums of stage 0")
+        sums = st
+    dev = _check(src=src, src_mask=src_mask, tgt=tgt, idx=idx, d2=d2, st=st, sums=sums)
+    n = src.shape[0]
+    if src.shape != (n, 3) or src_mask.shape != (n,) or idx.shape != (n,) \
+            or d2.shape != (n,) or tgt.ndim != 2 or tgt.shape[1] != 3 \
+            or st.shape != (STATE_FLOATS,) or (stage == 1 and sums.numel() < 8):
+        raise ValueError("bad shapes for icp_kernel.partial")
+    out = torch.empty(SUMS, dtype=torch.float32, device=dev)
+    _rc(_library().icp_partial_launch(src.data_ptr(), src_mask.data_ptr(), n, tgt.data_ptr(),
+                                      idx.data_ptr(), d2.data_ptr(), st.data_ptr(),
+                                      sums.data_ptr(), out.data_ptr(), max_d2, stage,
+                                      _build.raw_stream(dev.index)), "partial")
+    partial_launches += 1
+    return out[:8] if stage == 0 else out[8:]
+
+
+def solve(src, sums, st, cur, trans_eps: float, max_iterations: int) -> None:
+    """The rest of one sharded iteration from the reduced 17 sums (stage 0's
+    8, then stage 1's 9): st updated (transform, counters, stop tests, live
+    flag) and cur [n,3] ← T·src for the shard. Counted in `solve_launches`."""
+    global solve_launches
+    dev = _check(src=src, sums=sums, st=st, cur=cur)
+    n = src.shape[0]
+    if src.shape != (n, 3) or cur.shape != (n, 3) or sums.shape != (SUMS,) \
+            or st.shape != (STATE_FLOATS,):
+        raise ValueError("bad shapes for icp_kernel.solve")
+    _rc(_library().icp_solve_launch(src.data_ptr(), n, sums.data_ptr(), cur.data_ptr(),
+                                    st.data_ptr(), trans_eps, max_iterations,
+                                    _build.raw_stream(dev.index)), "solve")
+    solve_launches += 1
 
 
 PROBES = {"launch": 0, "eigen": 1}

@@ -12,6 +12,13 @@ PyTorch's current stream (the capturing stream under a CUDA graph capture).
 One cooperative launch is one whole align: `align_record` returns the
 kernel's 64-float record on the card (`RECORD` names its slots).
 `hessian_pass` runs the kernel's single-pass mode: (L, g, H) at a pose.
+`shard_pass` launches the source's second kernel, the pass of a sharded
+align (`ops/ndt.py::align` with a mesh), whose Newton and line-search control
+runs on the host from the sums every rank reduces: one pass over a shard's
+pairs at an evaluation pose on the neighbourhood gathered at a second pose,
+its 32 fixed-order sums (the 28 of (L, g, H) or (L, g), and the fitness
+sums at 28-30). Its plain version is `ops/ndt_deriv.py`'s pass on the
+shard.
 The kernel has one instantiation per neighbourhood size and line search
 (`NdtSpec.neighbor_mode` × `ls_mode`: DIRECT1, DIRECT7 or the 27-cube of
 DIRECT26 / KDTREE, × backtrack, mt_exact, ref_clamped); the spec picks it.
@@ -63,6 +70,9 @@ RECORD = {"pose": slice(0, 6), "iterations": 6, "converged": 7, "score": 8,
 # nothing: whoever captures takes it off the count again and adds what each
 # replay launches (`DeviceSlamPipeline._capture`, `_run_part_a`)
 launches = 0
+# launches of the shard pass (`shard_pass`), counted apart
+pass_launches = 0
+PASS_KINDS = {"hessian": 0, "gradient": 1, "fitness": 2}
 
 
 def build() -> tuple[Path, float, str]:
@@ -80,6 +90,10 @@ def _library() -> ctypes.CDLL:
     lib.ndt_align_launch.restype = i32
     lib.ndt_max_blocks.argtypes = [i32] * 3
     lib.ndt_max_blocks.restype = i32
+    lib.ndt_pass_launch.argtypes = [ptr] * 7 + [i32] * 4 + [f32] * 5 + [i32] * 4 + [f32, ptr]
+    lib.ndt_pass_launch.restype = i32
+    lib.ndt_pass_max_blocks.argtypes = [i32] * 2
+    lib.ndt_pass_max_blocks.restype = i32
     lib.ndt_probe_max_clusters.argtypes = [i32, i32]
     lib.ndt_probe_max_clusters.restype = i32
     lib.ndt_probe_launch.argtypes = [i32] * 4 + [ptr] * 2 + [f32] * 2 + [ptr]
@@ -120,6 +134,16 @@ def max_blocks(device_index: int, neighbor_mode: str = "direct7",
                                       LINE_SEARCHES[ls_mode])
     if n < 1:
         raise RuntimeError("the device cannot launch the NDT kernel cooperatively")
+    return n
+
+
+@functools.lru_cache(maxsize=8)
+def pass_max_blocks(device_index: int, neighbor_mode: str = "direct7") -> int:
+    """Blocks of the shard pass for the mode that the device holds at once."""
+    with torch.cuda.device(device_index):
+        n = _library().ndt_pass_max_blocks(device_index, NEIGHBOURS[neighbor_mode])
+    if n < 1:
+        raise RuntimeError("the device cannot launch the NDT shard pass cooperatively")
     return n
 
 
@@ -197,6 +221,42 @@ def hessian_pass(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: floa
     through the kernel's single-pass mode. Not counted in `launches`."""
     out = _launch(fin, origin, src, mask, pose, gspec, nspec, d1, d2, mode=1)
     return out[RECORD["L"]], out[RECORD["g"]], out[RECORD["H"]].reshape(6, 6)
+
+
+def shard_pass(fin, origin, src, mask, pose, ctx_pose, gspec, nspec, d1: float, d2: float,
+               kind: str) -> torch.Tensor:
+    """One pass of a sharded align over `src` (this rank's shard): the pairs
+    evaluated at `pose` on the neighbourhood gathered at `ctx_pose`, both
+    float32[6] on the card. Returns its 32 fixed-order sums, float32[32] on
+    the card: for `kind` "hessian" L, Σc·a6 (g / 2s) and the upper triangle
+    of H (0-27); "gradient" L and Σc·a6 (0-6) and the fitness sums; "fitness"
+    the fitness sums alone (28: matched points, 29: Σ min d², 30: points).
+    Counted in `pass_launches`."""
+    global pass_launches
+    _check(fin, origin, src, mask, pose, gspec)
+    if ctx_pose.shape != (6,) or ctx_pose.device != pose.device \
+            or ctx_pose.dtype != torch.float32:
+        raise ValueError("ctx_pose must be float32[6] on the pose's device")
+    check_modes(nspec)
+    dev = src.device
+    nb = nspec.neighbor_mode
+    blocks, _trips = plan(src.shape[0], pass_max_blocks(dev.index, nb), LANES[nb])
+    poses = torch.cat([pose, ctx_pose])
+    out = torch.empty(ROW, dtype=torch.float32, device=dev)
+    partial = torch.empty(blocks * ROW, dtype=torch.float32, device=dev)
+    s = -0.5 * d2
+    with torch.cuda.device(dev):
+        rc = _library().ndt_pass_launch(
+            src.data_ptr(), mask.data_ptr(), fin.data_ptr(), origin.data_ptr(),
+            poses.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            src.shape[0], gspec.gx, gspec.gy, gspec.gz,
+            gspec.resolution, d1, s, 2.0 * s, 4.0 * s * s,
+            PASS_KINDS[kind], blocks, NEIGHBOURS[nb], int(nb == "kdtree"),
+            gspec.resolution ** 2, _build.raw_stream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"ndt_kernel shard pass launch failed: CUDA error {rc}")
+    pass_launches += 1
+    return out
 
 
 PROBES = {"grid": 0, "cluster": 1, "chase": 2, "control": 3}

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from xchu_slam_tpu_torch.ops.cuda import icp_kernel, nn_kernel
-from xchu_slam_tpu_torch.utils import se3
+from xchu_slam_tpu_torch.utils import collectives, se3
 
 
 class IcpSpec(NamedTuple):
@@ -104,18 +104,32 @@ def kabsch_ref(M: torch.Tensor) -> torch.Tensor:
     return U @ S @ Vt
 
 
-def align_ref(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
-              live: torch.Tensor | None = None) -> IcpResult:
-    """The plain version of `align`: the moments on the inputs' device, the
-    update and the tests on the host, one readback an iteration."""
+def _shard_moments(cur, src_mask, tgt, tgt_mask, max_d2, mesh):
+    """`_moments` with the source sharded over `mesh`: the shard's first-pass
+    sums (Σw, Σw·s, Σw·t, Σw·d², in icp_step's order) reduced, then its
+    centred cross-covariance about those means reduced: two packed
+    collectives. The same 17 floats on every rank (wsum is clamped at 1)."""
+    nn, d2 = _nearest(cur, tgt, tgt_mask)
+    w = (src_mask & (d2 < max_d2)).to(torch.float32)
+    s8 = collectives.shard_allsum(
+        torch.cat([torch.sum(w)[None], torch.sum(cur * w[:, None], 0),
+                   torch.sum(nn * w[:, None], 0), torch.sum(d2 * w)[None]]), mesh)
+    wsum = torch.clamp(s8[0], min=1.0)
+    mu_s, mu_t = s8[1:4] / wsum, s8[4:7] / wsum
+    M = collectives.shard_allsum(torch.matmul((nn - mu_t).T, (cur - mu_s) * w[:, None]), mesh)
+    return torch.cat([wsum[None], mu_s, mu_t, M.reshape(9), s8[7:8]])
+
+
+def _host_loop(moments, fitness_sums, src, init_T, spec: IcpSpec, run: bool) -> IcpResult:
+    """The plain loop: `moments(cur)` gives an iteration's 17 floats (wsum,
+    μ_s, μ_t, M, Σ w·d²), the update and the tests run on the host in
+    float32, as the reference computes them; `fitness_sums(cur)` gives
+    (Σ w·d², Σ w) at the final transform."""
     dev = src.device
-    max_d2 = spec.max_corr_dist ** 2
     T = init_T.detach().to("cpu", torch.float32)
-    run = True if live is None else bool(live)
     it, conv, prev_err = 0, False, torch.tensor(math.inf)
     while run and not conv and it < spec.max_iterations:
-        cur = se3.transform_points(T.to(dev), src)
-        m = _moments(cur, src_mask, tgt, tgt_mask, max_d2).cpu()
+        m = moments(se3.transform_points(T.to(dev), src)).cpu()
         wsum, mu_s, mu_t = m[0], m[1:4], m[4:7]
         R = kabsch_ref(m[7:16].reshape(3, 3) / wsum)
         t = mu_t - R @ mu_s
@@ -139,14 +153,80 @@ def align_ref(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
     fitness = torch.zeros((), dtype=torch.float32)
     if run:
         # final fitness at the converged transform
-        cur = se3.transform_points(T_dev, src)
-        _nn, d2 = _nearest(cur, tgt, tgt_mask)
-        w = (src_mask & (d2 < max_d2)).to(torch.float32)
-        num_den = torch.stack([torch.sum(d2 * w), torch.sum(w)]).cpu()
+        num_den = fitness_sums(se3.transform_points(T_dev, src)).cpu()
         fitness = num_den[0] / torch.clamp(num_den[1], min=1.0)
     return IcpResult(T=T_dev, fitness=fitness.to(dev),
                      iterations=torch.tensor(it, dtype=torch.int32, device=dev),
                      converged=torch.tensor(conv, device=dev))
+
+
+def _fitness_num_den(cur, src_mask, tgt, tgt_mask, max_d2):
+    _nn, d2 = _nearest(cur, tgt, tgt_mask)
+    w = (src_mask & (d2 < max_d2)).to(torch.float32)
+    return torch.stack([torch.sum(d2 * w), torch.sum(w)])
+
+
+def align_ref(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
+              live: torch.Tensor | None = None) -> IcpResult:
+    """The plain version of `align`: the moments on the inputs' device, the
+    update and the tests on the host, one readback an iteration."""
+    max_d2 = spec.max_corr_dist ** 2
+    return _host_loop(lambda cur: _moments(cur, src_mask, tgt, tgt_mask, max_d2),
+                      lambda cur: _fitness_num_den(cur, src_mask, tgt, tgt_mask, max_d2),
+                      src, init_T, spec, True if live is None else bool(live))
+
+
+def _align_sharded_cuda(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec, run, mesh):
+    """The sharded verification on the card, a host loop of trips (a gloo
+    collective cannot sit inside a CUDA graph): the NN kernel on the shard,
+    `icp_kernel.partial` stage 0, a reduction, stage 1, a reduction,
+    `icp_kernel.solve`; the live flag, identical on every rank, read once a
+    trip. The fitness sums are stage 0's at the final transform."""
+    dev = src.device
+    max_d2 = spec.max_corr_dist ** 2
+    slot = icp_kernel.STATE
+    st = torch.empty(icp_kernel.STATE_FLOATS, dtype=torch.float32, device=dev)
+    cur = torch.empty_like(src)
+    icp_kernel.init(src, init_T.to(torch.float32).contiguous(), run, st, cur)
+    for _ in range(spec.max_iterations):
+        if not bool(st[slot["live"]] > 0.5):
+            break
+        idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tgt_mask)
+        s8 = collectives.shard_allsum(
+            icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 0), mesh)
+        s9 = collectives.shard_allsum(
+            icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 1, s8), mesh)
+        icp_kernel.solve(src, torch.cat([s8, s9]), st, cur, spec.trans_eps,
+                         spec.max_iterations)
+    fitness = torch.zeros((), dtype=torch.float32, device=dev)
+    if bool(st[slot["live0"]] > 0.5):
+        idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tgt_mask)
+        s8 = collectives.shard_allsum(
+            icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 0), mesh)
+        fitness = s8[7] / torch.clamp(s8[0], min=1.0)
+    return IcpResult(T=st[slot["T"]].reshape(4, 4).clone(), fitness=fitness,
+                     iterations=st[slot["iterations"]].to(torch.int32),
+                     converged=st[slot["converged"]] > 0.5)
+
+
+def _align_sharded(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec, live, mesh):
+    """`align` with the source sharded over `mesh` and the target replicated:
+    each rank searches its shard's correspondences, the moment sums meet in
+    two packed collectives a trip (the means, then the cross-covariance
+    centred on them, as icp_step centres), and every rank takes the same
+    update and stop decisions from the same bits."""
+    sl = mesh.shard(src.shape[0], "source points")
+    src_l, mask_l = src[sl].contiguous(), src_mask[sl].contiguous()
+    dev = src.device
+    if dev.type != "cpu":
+        run = torch.ones((), dtype=torch.bool, device=dev) if live is None else live
+        return _align_sharded_cuda(src_l, mask_l, tgt, tgt_mask, init_T, spec, run, mesh)
+    max_d2 = spec.max_corr_dist ** 2
+    return _host_loop(
+        lambda cur: _shard_moments(cur, mask_l, tgt, tgt_mask, max_d2, mesh),
+        lambda cur: collectives.shard_allsum(
+            _fitness_num_den(cur, mask_l, tgt, tgt_mask, max_d2), mesh),
+        src_l, init_T, spec, True if live is None else bool(live))
 
 
 class _IcpGraph:
@@ -221,11 +301,16 @@ def _graph(n: int, m: int, spec: IcpSpec, dev: torch.device) -> _IcpGraph:
 
 
 def align(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
-          live: torch.Tensor | None = None) -> IcpResult:
+          live: torch.Tensor | None = None, mesh=None) -> IcpResult:
     """ICP aligning `src` [N,3] onto `tgt` [M,3]; init_T is a [4,4] guess.
     All tensors on one device; `live` (0-d bool) false makes it a no-op.
     CUDA tensors replay the verification's CUDA graph and read nothing
-    back; CPU tensors take `align_ref`."""
+    back; CPU tensors take `align_ref`. With a `mesh`
+    (`parallel/distributed.py`; the tensors replicated on every rank) the
+    source is sharded over its ranks (`_align_sharded`) and every rank
+    returns the same result."""
+    if mesh is not None:
+        return _align_sharded(src, src_mask, tgt, tgt_mask, init_T, spec, live, mesh)
     dev = src.device
     if dev.type == "cpu":
         return align_ref(src, src_mask, tgt, tgt_mask, init_T, spec, live)

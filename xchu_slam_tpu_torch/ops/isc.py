@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from xchu_slam_tpu_torch.utils import collectives
+
 
 class IscSpec(NamedTuple):
     num_ring: int = 60
@@ -148,14 +150,32 @@ class DeviceIscLoop(NamedTuple):
     found: torch.Tensor   # bool
 
 
+def _gated_scores(query, db, lo: int, hi: int, positions, travel, cur: int, spec: IscSpec):
+    """(geometry + intensity score, -inf where a gate or a threshold fails;
+    best shift) of the entries lo..hi-1 against the query keyframe `cur`."""
+    db_l = db[lo:hi]
+    d_travel = travel[cur] - travel[lo:hi]
+    pos_dist = torch.linalg.norm(positions[lo:hi] - positions[cur][None], dim=-1)
+    gate = (d_travel > spec.skip_neighbor_distance) \
+        & (pos_dist < d_travel * spec.inflation_covariance)
+    geo, shift = geometry_scores(query, db_l, spec)
+    inten = intensity_scores(query, db_l, shift, spec)
+    ok = gate & (geo > spec.geometry_thresh) & (inten > spec.intensity_thresh)
+    return torch.where(ok, geo + inten, -torch.inf), shift
+
+
 def detect_loop_on_device(query, db, db_count: int, positions, travel, spec: IscSpec,
-                          cur: int | None = None) -> DeviceIscLoop:
+                          cur: int | None = None, mesh=None) -> DeviceIscLoop:
     """Best gated two-stage ISC loop for the query keyframe `cur` (default
     `db_count-1`, the newest) among the keyframes before it, as tensors on
     the device.
 
     positions: [K_max, 3] keyframe positions; travel: [K_max] cumulative
-    travel."""
+    travel. With a `mesh` (`parallel/distributed.py`), the database is
+    sharded over its ranks: each scores the rows of its K/D slice that lie
+    before `cur`, the per-rank best (total, index, shift) meet in one
+    all-gather and the first maximum in rank order wins, as the
+    single-device argmax picks the lower index."""
     cur = db_count - 1 if cur is None else cur
     dev = db.device
     if cur <= 0:
@@ -163,29 +183,35 @@ def detect_loop_on_device(query, db, db_count: int, positions, travel, spec: Isc
         return DeviceIscLoop(idx=torch.full((), -1, dtype=torch.int64, device=dev),
                              score=zero, yaw=zero.clone(),
                              found=torch.zeros((), dtype=torch.bool, device=dev))
-    db_l = db[:cur]
-    d_travel = travel[cur] - travel[:cur]
-    pos_dist = torch.linalg.norm(positions[:cur] - positions[cur][None], dim=-1)
-    gate = (d_travel > spec.skip_neighbor_distance) \
-        & (pos_dist < d_travel * spec.inflation_covariance)
-    geo, shift = geometry_scores(query, db_l, spec)
-    inten = intensity_scores(query, db_l, shift, spec)
-    ok = gate & (geo > spec.geometry_thresh) & (inten > spec.intensity_thresh)
-    total = torch.where(ok, geo + inten, -torch.inf)
-    li = torch.argmax(total).reshape(1)
-    best_total = total.gather(0, li)[0]
+    if mesh is None:
+        total, shift = _gated_scores(query, db, 0, cur, positions, travel, cur, spec)
+        li = torch.argmax(total).reshape(1)
+        best_total = total.gather(0, li)[0]
+        best, best_shift = li[0], shift.gather(0, li)[0].to(torch.float32)
+    else:
+        sl = mesh.shard(db.shape[0], "database capacity (max_keyframes)")
+        lo, hi = sl.start, min(sl.stop, cur)
+        if hi > lo:
+            total, shift = _gated_scores(query, db, lo, hi, positions, travel, cur, spec)
+            li = torch.argmax(total).reshape(1)
+            local = torch.stack([total.gather(0, li)[0], (li[0] + lo).to(torch.float32),
+                                 shift.gather(0, li)[0].to(torch.float32)])
+        else:       # no row of this shard lies before the query
+            local = torch.tensor([-math.inf, 0.0, 0.0], device=dev)
+        rows = collectives.shard_allgather(local[None], mesh)           # [D, 3]
+        best_total, best, best_shift = rows[torch.argmax(rows[:, 0])]
+        best = best.to(torch.int64)
     found = torch.isfinite(best_total)
-    best_shift = shift.gather(0, li)[0].to(torch.float32)
     yaw = best_shift * (2.0 * math.pi / spec.num_sector)
     yaw = torch.atan2(torch.sin(yaw), torch.cos(yaw))
-    return DeviceIscLoop(idx=torch.where(found, li[0], -1),
+    return DeviceIscLoop(idx=torch.where(found, best, -1),
                          score=torch.where(found, best_total, 0.0), yaw=yaw, found=found)
 
 
 def detect_loop(query, db, db_count: int, positions, travel, spec: IscSpec,
-                cur: int | None = None) -> IscLoop:
+                cur: int | None = None, mesh=None) -> IscLoop:
     """`detect_loop_on_device`, read back to the host once."""
-    c = detect_loop_on_device(query, db, db_count, positions, travel, spec, cur)
+    c = detect_loop_on_device(query, db, db_count, positions, travel, spec, cur, mesh)
     idx, score, yaw, found = torch.stack(
         [c.idx.to(torch.float32), c.score, c.yaw, c.found.to(torch.float32)]).cpu().tolist()
     return IscLoop(idx=int(idx), score=score, yaw=yaw, found=found > 0.5)

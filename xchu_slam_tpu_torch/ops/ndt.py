@@ -36,7 +36,7 @@ import torch
 
 from xchu_slam_tpu_torch.ops import ndt_deriv, voxel_map as vm
 from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
-from xchu_slam_tpu_torch.utils import se3
+from xchu_slam_tpu_torch.utils import collectives, se3
 
 
 class NdtSpec(NamedTuple):
@@ -100,21 +100,30 @@ def check_spec(nspec: NdtSpec) -> None:
     ndt_kernel.check_modes(nspec)
 
 
-def _fitness(pose, src_xyz, src_mask, nb):
-    """Matched fraction + mean squared distance to the nearest valid voxel
-    mean of the neighbourhood (a min over its M voxels), gathered ≤ one
-    line-search step from `pose`."""
+def _fitness_sums(pose, src_xyz, src_mask, nb):
+    """(matched points, Σ squared distance to the nearest valid voxel mean of
+    the neighbourhood over them, points): the sums `_fitness` divides, which
+    a sharded align reduces over its mesh first."""
     pts = se3.rotate_translate(pose, src_xyz)
     mean_w, _, vvalid = nb
     d2_ = torch.sum((pts[:, None, :] - mean_w) ** 2, -1)
     d2_ = torch.where(vvalid, d2_, torch.inf)
     dmin = torch.min(d2_, dim=1).values
     matched = src_mask & torch.isfinite(dmin)
-    n_match = matched.sum()
-    sum_d = torch.sum(torch.where(matched, dmin, 0.0))
+    return matched.sum(), torch.sum(torch.where(matched, dmin, 0.0)), src_mask.sum()
+
+
+def _fitness_of(n_match, sum_d, n_mask):
     fitness = sum_d / torch.clamp(n_match, min=1)
-    frac = n_match / torch.clamp(src_mask.sum(), min=1)
+    frac = n_match / torch.clamp(n_mask, min=1)
     return frac, fitness
+
+
+def _fitness(pose, src_xyz, src_mask, nb):
+    """Matched fraction + mean squared distance to the nearest valid voxel
+    mean of the neighbourhood (a min over its M voxels), gathered ≤ one
+    line-search step from `pose`."""
+    return _fitness_of(*_fitness_sums(pose, src_xyz, src_mask, nb))
 
 
 def _chol_solve6(A, b):
@@ -407,13 +416,83 @@ def align_ref(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
                        score=phi_fin.to(dev), matched_frac=frac, fitness=fitness)
 
 
+def _upper6(tot):
+    """The symmetric 6×6 from its row-major upper triangle [21]."""
+    iu = torch.triu_indices(6, 6, device=tot.device)
+    H = torch.zeros((6, 6), dtype=tot.dtype, device=tot.device)
+    H[iu[0], iu[1]] = tot
+    H[iu[1], iu[0]] = tot
+    return H
+
+
+def _align_sharded(grid, src_xyz, src_mask, init_pose, gspec, nspec, mesh) -> AlignResult:
+    """`align` with the source points sharded over `mesh`: each rank runs the
+    passes on its rows, the pass's sums meet in one packed `shard_allsum`, and
+    every rank takes the same Newton and line-search decisions from the same
+    bits (`newton_align`, on the host). A CPU rank runs `ops/ndt_deriv.py`'s
+    pass on its shard; a CUDA rank the kernel's shard pass
+    (`ndt_kernel.shard_pass`), which sums in its own fixed order."""
+    sl = mesh.shard(src_xyz.shape[0], "source points")
+    xyz, mask = src_xyz[sl], src_mask[sl]
+    d1, d2 = gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    reduce_ = lambda x: collectives.shard_allsum(x, mesh)  # noqa: E731
+    if xyz.device.type == "cpu":
+        def prepare(p):
+            return ndt_deriv.neighborhood(p, xyz, grid, gspec, nspec.neighbor_mode)
+
+        def vgh(p, nb):
+            return reduce_(ndt_deriv.ndt_value_grad_hess(p, xyz, mask, grid, gspec, d1, d2,
+                                                         nb=nb))
+
+        def vg(p, nb):
+            L, g, _ = ndt_deriv.ndt_value_grad_hess(p, xyz, mask, grid, gspec, d1, d2,
+                                                    want_hess=False, nb=nb)
+            return reduce_((L, g))
+
+        def fit(p, nb):
+            return _fitness_sums(p, xyz, mask, nb)
+    else:
+        two_s = -d2
+
+        def kernel_pass(p, ctx, kind):
+            return ndt_kernel.shard_pass(grid.fin, grid.origin, xyz, mask, p, ctx, gspec,
+                                         nspec, d1, d2, kind)
+
+        def prepare(p):
+            return p.clone()            # the pose the pass gathers at
+
+        def vgh(p, ctx):
+            tot = reduce_(kernel_pass(p, ctx, "hessian")[:ndt_kernel.ACC])
+            return tot[0], two_s * tot[1:7], _upper6(tot[7:])
+
+        def vg(p, ctx):
+            tot = reduce_(kernel_pass(p, ctx, "gradient")[:7])
+            return tot[0], two_s * tot[1:7]
+
+        def fit(p, ctx):
+            return kernel_pass(p, ctx, "fitness")[28:31]
+
+    pose, iters, converged, ctx_fin, phi_fin = newton_align(vgh, vg, prepare, init_pose, nspec)
+    dev = init_pose.device
+    pose = pose.to(dev)
+    frac, fitness = _fitness_of(*reduce_(fit(pose, ctx_fin)))
+    return AlignResult(pose=pose,
+                       iterations=torch.tensor(iters, dtype=torch.int32, device=dev),
+                       converged=torch.tensor(converged, device=dev),
+                       score=phi_fin.to(dev), matched_frac=frac, fitness=fitness)
+
+
 def align(grid, src_xyz, src_mask, init_pose, gspec: vm.GridSpec,
-          nspec: NdtSpec) -> AlignResult:
+          nspec: NdtSpec, mesh=None) -> AlignResult:
     """NDT alignment of `src_xyz` [N,3] (mask [N]) onto `grid`, starting at
     `init_pose` [6]; all tensors on the grid's device, which picks the route:
     CUDA tensors launch the kernel (it decides the trip counts, nothing is
     read back, and it raises where it cannot launch), CPU tensors take
-    `align_ref`."""
+    `align_ref`. With a `mesh` (`parallel/distributed.py`; the tensors
+    replicated on every rank) the points are sharded over its ranks
+    (`_align_sharded`) and every rank returns the same result."""
+    if mesh is not None:
+        return _align_sharded(grid, src_xyz, src_mask, init_pose, gspec, nspec, mesh)
     if src_xyz.device.type == "cpu":
         return align_ref(grid, src_xyz, src_mask, init_pose, gspec, nspec)
     d1, d2 = gauss_constants(nspec.outlier_ratio, nspec.resolution)

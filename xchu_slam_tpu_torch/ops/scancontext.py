@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from xchu_slam_tpu_torch.utils import collectives
+
 
 class ScSpec(NamedTuple):
     num_ring: int = 20
@@ -39,8 +41,12 @@ def spec_from_config(sc_cfg) -> ScSpec:
     )
 
 
-def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, spec: ScSpec) -> torch.Tensor:
-    """Polar max-height image [R, S]; empty bins are 0."""
+def descriptor_partial(xyz: torch.Tensor, mask: torch.Tensor, spec: ScSpec) -> torch.Tensor:
+    """Scatter-max polar height image [R, S] with empty bins at -inf. The
+    partial form composes across shards: bin each rank's points, take the
+    elementwise max over the mesh (`utils/collectives.py::shard_allmax`),
+    then clean with `finalize_descriptor` (`parallel/sharded.py::
+    slam_superstep`)."""
     r = torch.linalg.norm(xyz[:, :2], dim=-1)
     theta = torch.atan2(xyz[:, 1], xyz[:, 0]) + math.pi  # [0, 2π)
     ring = torch.floor(r / spec.max_radius * spec.num_ring).to(torch.int32)
@@ -52,8 +58,17 @@ def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, spec: ScSpec) -> torc
     z = torch.where(ok, xyz[:, 2] + spec.lidar_height, -torch.inf)
     img = torch.full((nbin + 1,), -torch.inf, dtype=torch.float32, device=xyz.device)
     img = img.scatter_reduce(0, flat, z, reduce="amax", include_self=True)
-    img = img[:-1].reshape(spec.num_ring, spec.num_sector)
+    return img[:-1].reshape(spec.num_ring, spec.num_sector)
+
+
+def finalize_descriptor(img: torch.Tensor) -> torch.Tensor:
+    """Empty bins (-inf) to 0."""
     return torch.where(torch.isfinite(img), img, 0.0)
+
+
+def make_descriptor(xyz: torch.Tensor, mask: torch.Tensor, spec: ScSpec) -> torch.Tensor:
+    """Polar max-height image [R, S]; empty bins are 0."""
+    return finalize_descriptor(descriptor_partial(xyz, mask, spec))
 
 
 def ring_key(desc: torch.Tensor) -> torch.Tensor:
@@ -155,18 +170,44 @@ def read_candidate(c: DeviceCandidate) -> LoopCandidate:
     return LoopCandidate(idx=int(idx), dist=dist, yaw=yaw, found=found > 0.5)
 
 
+def best_on_mesh(query, db, newest_eligible: int, spec: ScSpec, mesh) -> torch.Tensor:
+    """(dist, index, shift) as float32 [3] on every rank: the nearest of the
+    first `newest_eligible` entries over all shifts, with the database
+    sharded over the mesh's ranks (each scores its K/D rows). The per-rank
+    minima meet in one all-gather and the first minimum in rank order wins,
+    so ties break as the single-device argmin breaks them (the lower
+    index)."""
+    sl = mesh.shard(db.shape[0], "database capacity (max_keyframes)")
+    idxs = torch.arange(sl.start, sl.stop, device=db.device)
+    dist, shift = distance_all_rotations(query, db[sl], idxs < newest_eligible, spec)
+    li = torch.argmin(dist).reshape(1)
+    local = torch.stack([dist.gather(0, li)[0], idxs.gather(0, li)[0].to(torch.float32),
+                         shift.gather(0, li)[0].to(torch.float32)])
+    rows = collectives.shard_allgather(local[None], mesh)              # [D, 3]
+    return rows[torch.argmin(rows[:, 0])]
+
+
 def detect_loop_on_device(query, db, db_count: int, spec: ScSpec,
-                          cur: int | None = None) -> DeviceCandidate:
+                          cur: int | None = None, mesh=None) -> DeviceCandidate:
     """Best loop candidate for `query` among the entries at least
     `num_exclude_recent` keyframes older than the query keyframe `cur`
-    (default `db_count-1`), as tensors on the device."""
+    (default `db_count-1`), as tensors on the device. With a `mesh`
+    (`parallel/distributed.py`), the database is sharded over its ranks
+    (`best_on_mesh`) and every rank returns the same candidate."""
     cur = db_count - 1 if cur is None else cur
-    return _best_candidate_on_device(query, db, cur + 1 - spec.num_exclude_recent, spec)
+    newest = cur + 1 - spec.num_exclude_recent
+    if mesh is None:
+        return _best_candidate_on_device(query, db, newest, spec)
+    best_dist, best, best_shift = best_on_mesh(query, db, newest, spec, mesh)
+    found = torch.isfinite(best_dist) & (best_dist < spec.dist_thresh)
+    return DeviceCandidate(idx=torch.where(found, best.to(torch.int64), -1), dist=best_dist,
+                           yaw=shift_yaw(best_shift, spec.num_sector), found=found)
 
 
-def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None) -> LoopCandidate:
+def detect_loop(query, db, db_count: int, spec: ScSpec, cur: int | None = None,
+                mesh=None) -> LoopCandidate:
     """`detect_loop_on_device`, read back to the host once."""
-    return read_candidate(detect_loop_on_device(query, db, db_count, spec, cur))
+    return read_candidate(detect_loop_on_device(query, db, db_count, spec, cur, mesh))
 
 
 def detect_loop_between_sessions(query, db, db_count: int, spec: ScSpec) -> LoopCandidate:
