@@ -59,6 +59,31 @@ Phases, each printing one line (any failure raises and exits non-zero):
               launched on every group. Prints ms an op (CUDA events), the
               launches a rank of each kernel and the collectives and
               host-staged collectives of each op
+  5c. mesh_engine  the mesh device engine (`DeviceSlamPipeline(mesh=)`)
+              through the CLI's functions at run-sim's width, each run a
+              group of ranks (`cli.run_on_mesh`: fresh interpreters, gloo
+              with the ranks on card 0 where the machine has fewer cards
+              than ranks), held to phase 8's single-device run of the
+              circuit, run here first: (a) `run-sim --engine device --chunk
+              16 --mesh 2 --checkpoint-every 200 --out <tmp>` on the circuit
+              (ranks agree, keyframes within ±2 of phase 8's, loops ≥ 1,
+              aligned ATE < 1.0 m, the export read back), then its
+              checkpoint resumed on the mesh for 2 chunks (rows bit-identical
+              on both ranks); (b) NCCL D = 1 through `DeviceSlamPipeline(mesh=)`
+              on the first 64 scans (rows within 1e-4 of phase 8's); (c)
+              `--loop-method isc --imu --wheel --gps` at D = 2 (loops ≥ 1, a
+              guess launch a scan on every rank); (d) `--continue-session` of
+              (a)'s checkpoint at D = 2 over 96 scans (relocalized within 2
+              m, ≥ 20 new keyframes); (e) the first 32 scans at D = 4
+              (keyframes within ±2 of phase 8's); (f) `run-kitti --engine
+              device --mesh 2` on 32 HDL-64-density files (native reader,
+              ATE < 1.0 m). Every rank of every run launches the NDT
+              kernel's shard pass on every align and never the align
+              kernel, the PGO kernel, and where it verified a loop the NN
+              kernel, icp_partial and icp_solve. Prints each run's launches
+              a rank, host synchronisations (sync debug mode "warn"),
+              collectives and host-staged collectives a scan, scans/s and
+              stage seconds beside phase 8's
   6. session  the sensor-aided mapping session through the CLI's functions,
               in a temporary directory: `run-sim` on the same circuit with
               ISC loops, IMU + wheel + GPS inputs and a checkpoint every 200
@@ -192,14 +217,14 @@ icp_step and every accepted loop the PGO kernel; phases 8 and 9 run the whole
 circuit, Part B included, under `set_sync_debug_mode("error")` with one
 readback a chunk, and check `chunk_readbacks` of `run-sim --engine device`.
 Then one JSON line of kernel records (all five kernels and the mesh's three
-entry points, with the launches of each path; the NDT and PGO entries with
-their modes' records, the NN kernel's with its time at the shards' shapes)
-and, last, the
+entry points, with the launches of each path, 5c's runs among them (rank
+0's); the NDT and PGO entries with their modes' records, the NN kernel's
+with its time at the shards' shapes) and, last, the
 result line. `--kernel-only` stops after phase 3, `--kernels-only` after
 phase 4d, `--modes-only` runs phases 1-4d and 10, `--device-only` runs
 phases 1, 2, 5, 8 and 9, `--sources-only` runs phases 1, 2 and 11,
-`--extras-only` runs phases 1, 2, 5 and 12, `--mesh-only` phases 1, 2, 5 and
-5b; none of the seven prints a result line.
+`--extras-only` runs phases 1, 2, 5 and 12, `--mesh-only` phases 1, 2, 5,
+5b and 5c; none of the seven prints a result line.
 """
 
 from __future__ import annotations
@@ -1139,7 +1164,7 @@ def phase_main(record: dict | None = None) -> tuple[dict, dict]:
     keeps what the mesh phase replays: the first MESH_ALIGNS aligns' inputs
     and results, every Scan Context retrieval's query and result, the
     verifications, and the pipeline (clones on the card, no readback)."""
-    from xchu_slam_tpu_torch.cli import run_sim
+    from xchu_slam_tpu_torch.cli import pose_hash, run_sim
     from xchu_slam_tpu_torch.ops import icp, ndt, scancontext as sc
 
     calls, align = [], icp.align
@@ -1151,15 +1176,15 @@ def phase_main(record: dict | None = None) -> tuple[dict, dict]:
                       res))
         return res
 
-    def recording_ndt(grid, xyz, mask, guess, gspec, nspec):
-        res = ndt_align(grid, xyz, mask, guess, gspec, nspec)
+    def recording_ndt(grid, xyz, mask, guess, gspec, nspec, mesh=None):
+        res = ndt_align(grid, xyz, mask, guess, gspec, nspec, mesh=mesh)
         if len(aligns) < MESH_ALIGNS:
             aligns.append(((grid.fin.clone(), grid.origin.clone(), xyz.clone(), mask.clone(),
                             guess.clone(), gspec, nspec), res))
         return res
 
-    def recording_detect(query, db, db_count, spec, cur=None):
-        res = detect(query, db, db_count, spec, cur)
+    def recording_detect(query, db, db_count, spec, cur=None, mesh=None):
+        res = detect(query, db, db_count, spec, cur, mesh)
         queries.append(((query.clone(), db_count, cur, spec), res))
         return res
 
@@ -1180,7 +1205,7 @@ def phase_main(record: dict | None = None) -> tuple[dict, dict]:
     _, _, kf_opt = pipe.keyframe_trajectory()
     _check_loop_kernels("main", counts, pipe.icp_verifications, summary["loops"],
                         _inloop_gn(pipe))
-    summary.update(pose_hash=_pose_hash(pipe),
+    summary.update(pose_hash=pose_hash(pipe),
                    icp_verifications=pipe.icp_verifications, nn_launches=launches,
                    ndt_launches=counts["ndt"], pgo_launches=counts["pgo"],
                    icp_step_launches=counts["icp_step"],
@@ -2081,20 +2106,10 @@ KITTI_WRITERS = 6
 SOURCES_TIMEOUT_S = 600
 
 
-def _pose_hash(pipe) -> str:
-    """A hash of every pose of a run: the odometry and both keyframe
-    trajectories."""
-    import hashlib
-
-    _stamps, kf_odo, kf_opt = pipe.keyframe_trajectory()
-    return hashlib.sha256(pipe.odometry_trajectory().tobytes() + kf_odo.tobytes()
-                          + kf_opt.tobytes()).hexdigest()[:16]
-
-
-def _write_kitti(root: str) -> dict:
+def _write_kitti(root: str, n_scans: int = KITTI_SCANS) -> dict:
     """The closed circuit at HDL-64 density as KITTI velodyne `.bin` files
-    (rendered by forked workers) and its KITTI pose file (a row a scan,
-    camera frame)."""
+    (its first `n_scans`, rendered by forked workers) and its KITTI pose
+    file (a row a scan, camera frame)."""
     from xchu_slam_tpu_torch.cli import _gt_in_map_frame
     from xchu_slam_tpu_torch.io import kitti
     from xchu_slam_tpu_torch.io.procsource import ProcessScanSource
@@ -2104,21 +2119,21 @@ def _write_kitti(root: str) -> dict:
     world = sim.make_world(SEED, extent=KITTI_RADIUS * 2.5, n_buildings=KITTI_BUILDINGS,
                            n_pillars=3 * KITTI_BUILDINGS, ground_pts=2_500_000,
                            wall_pts_per_face=12_000)
-    gt = sim.loop_trajectory(n_scans=KITTI_SCANS, radius=KITTI_RADIUS, speed=1.0)
+    gt = sim.loop_trajectory(n_scans=n_scans, radius=KITTI_RADIUS, speed=1.0)
     vdir = os.path.join(root, "velodyne")
     os.makedirs(vdir)
     points = []
     scans = sim.RenderedScans(world, gt, seed=SEED, n_points=KITTI_POINTS,
                               index=sim.WorldIndex(world), max_range=KITTI_RANGE)
     with ProcessScanSource(scans, workers=KITTI_WRITERS, readahead=8 * KITTI_WRITERS) as src:
-        for k in range(KITTI_SCANS):
+        for k in range(n_scans):
             xyz, inten = src[k]
             np.c_[xyz, inten].tofile(os.path.join(vdir, f"{k:06d}.bin"))
             points.append(len(xyz))
     gt_cam = kitti.velo_to_cam(_gt_in_map_frame(gt))
     np.savetxt(os.path.join(root, "gt_kitti.txt"), gt_cam[:, :3, :4].reshape(-1, 12))
     return {"velodyne_dir": vdir, "gt": os.path.join(root, "gt_kitti.txt"),
-            "scans": KITTI_SCANS, "points_min": int(min(points)),
+            "scans": n_scans, "points_min": int(min(points)),
             "points_mean": round(float(np.mean(points)), 1),
             "seconds": round(time.perf_counter() - t0, 2)}
 
@@ -2147,7 +2162,7 @@ def sources_child(runs: list) -> None:
             continue
         pipe, summary = res
         summary.pop("artifacts", None)
-        rec = {"summary": summary, "launches": counts, "pose_hash": _pose_hash(pipe),
+        rec = {"summary": summary, "launches": counts, "pose_hash": cli.pose_hash(pipe),
                "icp_verifications": pipe.icp_verifications, "inloop_gn": _inloop_gn(pipe)}
         if seen:
             ch = seen[0]
@@ -2226,11 +2241,10 @@ def phase_sources(smi: str) -> dict:
     paths = {}
     dev = {"kind": "run_sim", "scans": SCANS, "radius": RADIUS, "seed": SEED,
            "device": "cuda", "engine": "device", "chunk": 16}
-    # in turns: staging threads, workers, workers, threads
+    # staging threads, then workers (two turns: the whole run's time limit)
     procs_run = {**dev, "render_procs": SOURCES_PROCS}
     ab = [_sources_call(name, [run])[0] for name, run in (
-        ("device", dev), ("device --render-procs", procs_run),
-        ("device --render-procs", procs_run), ("device", dev))]
+        ("device", dev), ("device --render-procs", procs_run))]
     for turn, rec in enumerate(ab):
         side = "procs" if rec["summary"].get("render_procs") else "threads"
         _check_source_run(f"device ({side}, turn {turn + 1})", rec, SCANS, ate=0.10)
@@ -2384,7 +2398,7 @@ def _ground_against_cpu(scans: list, cfg) -> dict:
 def _extras_ground(smi: str, main_counts: dict, main_summary: dict):
     """(a) `filter.detect_ground` through the host engine on the circuit.
     Returns (record, launches, pipeline, scan index of each verification)."""
-    from xchu_slam_tpu_torch.cli import run_sim, sim_config
+    from xchu_slam_tpu_torch.cli import pose_hash, run_sim, sim_config
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.ops import icp
 
@@ -2426,7 +2440,7 @@ def _extras_ground(smi: str, main_counts: dict, main_summary: dict):
            "min_normal_z_valid": float(nz[valid].min()),
            "ground_ms_per_scan": round(ms, 5), "scans_per_sec": summary["scans_per_sec"],
            "main_scans_per_sec": main_summary["scans_per_sec"],
-           "pose_hash": _pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
+           "pose_hash": pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
            "keyframes": summary["keyframes"], "loops": summary["loops"],
            "ate_rmse_m": summary["ate_rmse_m"],
            "nn_launches": counts["nn"], "ndt_launches": counts["ndt"]}
@@ -2459,7 +2473,7 @@ def _extras_async(smi: str, main_counts: dict, main_summary: dict, verify_at: li
     job waited for (poses equal to the main path's), and (e) inside that run
     a `device_trace` over the TRACE_SCANS scans around the first
     verification."""
-    from xchu_slam_tpu_torch.cli import run_sim
+    from xchu_slam_tpu_torch.cli import pose_hash, run_sim
     from xchu_slam_tpu_torch.models.async_worker import AsyncLoopWorker
     from xchu_slam_tpu_torch.utils.profiling import TRACE_FILE, device_trace
 
@@ -2508,7 +2522,7 @@ def _extras_async(smi: str, main_counts: dict, main_summary: dict, verify_at: li
             stack.pop().__exit__(None, None, None)
     path = os.path.join(trace_dir, TRACE_FILE)
     rec["waiting"] = {"loops": summary["loops"], "ate_rmse_m": summary["ate_rmse_m"],
-                      "pose_hash": _pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
+                      "pose_hash": pose_hash(pipe), "main_pose_hash": main_summary["pose_hash"],
                       "nn_launches": waiting["nn"], "main_nn_launches": main_counts["nn"]}
     trace = {"scans": list(range(start, start + TRACE_SCANS)), "first_verification": first,
              "bytes": os.path.getsize(path), **_trace_kernels(path)}
@@ -3167,6 +3181,244 @@ def phase_mesh(smi: str, rec: dict) -> dict:
     return {"entry": entry, "groups": records}
 
 
+MESH_ENGINE_D1_SCANS = 64     # (b): NCCL D = 1 through DeviceSlamPipeline(mesh=)
+MESH_ENGINE_D4_SCANS = 32     # (e): the SC circuit's first scans at gloo D = 4
+MESH_ENGINE_CONT_SCANS = 96   # (d): the continued session
+MESH_ENGINE_KITTI_SCANS = 32  # (f): run-kitti's HDL-64-density files
+MESH_ENGINE_TOL = 1e-4        # m and rad: (b)'s rows against phase 8's
+MESH_ENGINE_KF = 2            # keyframes within ±2 of phase 8's
+MESH_ENGINE_TIMEOUT = 600     # s, a launched group of the chip's own rank bodies
+
+
+def _mesh_engine_feed(pipe, first: int, n_scans: int, device) -> None:
+    """Feed the circuit's scans [first, first + n_scans) to `pipe` in chunks
+    of DEV_CHUNK, staged on `device`, with the stamps run-sim gives them."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io.prefetch import DeviceChunkPrefetcher
+    from xchu_slam_tpu_torch.utils import sim
+
+    gt_stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    lazy = sim.RenderedScans(world, gt, seed=SEED, n_points=24_000)
+    scans = [lazy[i] for i in range(first, first + n_scans)]
+    base = first
+    with DeviceChunkPrefetcher(scans, capacity=pipe.cfg.filter.max_raw_points, chunk=DEV_CHUNK,
+                               depth=2, threads=2, device=device) as pf:
+        for clouds, n_real in pf:
+            idx = np.minimum(base + np.arange(DEV_CHUNK), SCANS - 1)
+            pipe.process_chunk(clouds, gt_stamps[idx], n_real)
+            base += n_real
+
+
+def mesh_engine_rank(mesh, n_scans: int) -> dict:
+    """One rank of phase 5c (b): the circuit's first `n_scans` through
+    `DeviceSlamPipeline(mesh=)` at run-sim's width; its per-scan odometry,
+    kernel launches, collectives and host synchronisations."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+    from xchu_slam_tpu_torch.utils.profiling import count_host_syncs
+
+    pipe = DeviceSlamPipeline(cli.sim_config(), log_capacity=8192, mesh=mesh)
+    t0 = time.perf_counter()
+    with count_host_syncs() as syncs:
+        _mesh_engine_feed(pipe, 0, n_scans, mesh.device)
+        pipe.finalize()
+    torch.cuda.synchronize()
+    return {"odometry": pipe.odometry_trajectory(), "seconds": time.perf_counter() - t0,
+            "stage_seconds": dict(pipe.stage_seconds),
+            "counters": {**cli.rank_counters(pipe), "host_syncs": syncs["syncs"]}}
+
+
+def mesh_resume_rank(mesh, ckpt: str, chunks: int) -> dict:
+    """One rank of phase 5c (a)'s resume: the mesh run's checkpoint restored
+    on this rank (`load_checkpoint(mesh=)`) and fed `chunks` chunks."""
+    from xchu_slam_tpu_torch.utils import checkpoint
+
+    again = checkpoint.load_checkpoint(ckpt, mesh=mesh)
+    saved = again._scans_fed
+    _mesh_engine_feed(again, saved, chunks * DEV_CHUNK, mesh.device)
+    again.finalize()
+    return {"saved": saved, "odometry": again.odometry_trajectory()}
+
+
+def _mesh_engine_path(counters: dict) -> dict:
+    """A rank's launches as the kernels line's paths hold them."""
+    return {"nn": counters["nn"], "ndt": counters["ndt"], "pgo": counters["pgo"],
+            "icp_step": counters["icp_step"], "guess": counters["guess"], "icp_live_trips": 0,
+            **{k: counters[k] for k in ("ndt_pass", "icp_partial", "icp_solve")}}
+
+
+def _check_mesh_engine_run(name: str, smi: str, summary: dict, ranks: list, aligns: int,
+                           ref: dict, seconds: float) -> dict:
+    """Print a mesh run (every rank's launches, host synchronisations and
+    collectives a scan, scans/s and stage seconds beside phase 8's) and
+    check its kernels on every rank: the NDT kernel's shard pass on every
+    align and the single-device align kernel never, and where the rank
+    verified a loop the NN kernel, icp_partial and icp_solve; the PGO kernel
+    on every rank (the final solve). Returns rank 0's launches."""
+    scans = summary["scans"]
+    counters = [r["counters"] for r in ranks]
+    line = {k: summary.get(k) for k in ("scans", "keyframes", "loops", "ate_rmse_m",
+                                        "scans_per_sec", "stream_scans_per_sec", "reader")}
+    line.update(mesh=summary["mesh"], backend=summary["backend"],
+                ranks_agree=summary["ranks_agree"], pose_hash=summary["pose_hash"],
+                launches_per_rank=[{k: c[k] for k in ("nn", "ndt", "ndt_pass", "icp_step",
+                                                      "icp_partial", "icp_solve", "pgo",
+                                                      "guess")} for c in counters],
+                verifications_per_rank=[c["icp_verifications"] for c in counters],
+                host_syncs_per_scan=[None if c["host_syncs"] is None
+                                     else round(c["host_syncs"] / scans, 2) for c in counters],
+                collectives_per_scan=[round(c["collectives"] / scans, 2) for c in counters],
+                host_staged_per_scan=[round(c["host_staged"] / scans, 2) for c in counters],
+                chunk_readbacks=[c["chunk_readbacks"] for c in counters],
+                chunk_attribution=summary.get("chunk_attribution"),
+                stage_seconds=summary.get("stage_seconds"),
+                phase8_scans_per_sec=ref["scans_per_sec"],
+                phase8_stage_seconds=ref["stage_seconds"], seconds=round(seconds, 1))
+    print(f"mesh_engine [{smi}] {name}: " + json.dumps(line))
+    for r, c in enumerate(counters):
+        if c["ndt_pass"] < aligns or c["ndt"] != 0:
+            raise AssertionError(f"mesh_engine {name}: rank {r} made {c['ndt_pass']} shard "
+                                 f"passes over {aligns} aligns and {c['ndt']} align launches")
+        if c["icp_verifications"] and min(c["nn"], c["icp_partial"], c["icp_solve"]) < 1:
+            raise AssertionError(f"mesh_engine {name}: rank {r} verified "
+                                 f"{c['icp_verifications']} loops with launches {c}")
+        if c["pgo"] < 1:
+            raise AssertionError(f"mesh_engine {name}: rank {r} launched no PGO kernel")
+    if not summary["ranks_agree"]:
+        raise AssertionError(f"mesh_engine {name}: the ranks disagree")
+    return _mesh_engine_path(counters[0])
+
+
+def phase_mesh_engine(smi: str) -> dict:
+    """The mesh device engine (`DeviceSlamPipeline(mesh=)`) through the
+    CLI's functions at run-sim's width, each run a group of ranks started by
+    `cli.run_on_mesh` (fresh interpreters; gloo with the ranks sharing card
+    0 where the machine has fewer cards than ranks, NCCL a card a rank
+    otherwise), held to phase 8's single-device run of the circuit (run
+    here first). Returns the launches of every run's rank 0 by path."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    (pipe, single), _counts = _count_launches(lambda: cli.run_sim(
+        SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK))
+    single_odo = pipe.odometry_trajectory()
+    kf64 = sum(1 for r in pipe.odom_log[:MESH_ENGINE_D4_SCANS] if r["keyframe"])
+    ref = {k: single[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
+                                  "stage_seconds")}
+    print(f"mesh_engine [{smi}]: phase 8's run (run-sim --engine device --chunk 16, one "
+          f"device) " + json.dumps(ref))
+    del pipe
+    torch.cuda.empty_cache()
+    gt_rel = cli._gt_in_map_frame(cli._sim_world_and_traj(SCANS, RADIUS, SEED)[1])
+    paths = {}
+    base = dict(radius=RADIUS, seed=SEED, device="cuda", engine="device", chunk=DEV_CHUNK)
+
+    def run(name, world, command="run-sim", **kw):
+        t0 = time.perf_counter()
+        summary, ranks = cli.run_on_mesh(command, kw, world)
+        aligns = summary["scans"] - 1
+        paths[f"mesh_engine {name}"] = _check_mesh_engine_run(
+            name, smi, summary, ranks, aligns, ref, time.perf_counter() - t0)
+        return summary, ranks
+
+    with tempfile.TemporaryDirectory(prefix="xchu_mesh_engine_") as tmp:
+        # (a) the circuit at D = 2 with checkpoints and the export
+        out = os.path.join(tmp, "run")
+        a, ranks = run("run-sim D=2", 2, scans=SCANS, checkpoint_every=CHECKPOINT_EVERY,
+                       out=out, **base)
+        paths_a = a.pop("artifacts")
+        if abs(a["keyframes"] - ref["keyframes"]) > MESH_ENGINE_KF or a["loops"] < 1 \
+                or not a["ate_rmse_m"] < 1.0:
+            raise AssertionError(f"mesh_engine run-sim D=2: {a['keyframes']} keyframes "
+                                 f"(phase 8: {ref['keyframes']}), {a['loops']} loops, aligned "
+                                 f"ATE {a['ate_rmse_m']} m (phase 8: {ref['ate_rmse_m']} m)")
+        stamps, est = kitti.read_tum(paths_a["odom_tum"])
+        with open(paths_a["odom_log"]) as f:
+            log_rows = sum(1 for _ in f)
+        if len(stamps) != a["keyframes"] or not np.isfinite(est).all() or log_rows != SCANS:
+            raise AssertionError("mesh_engine run-sim D=2: --out does not hold the run")
+        print(f"mesh_engine: D=2 --out read back (rank 0 wrote it): odom_tum {len(stamps)} "
+              f"rows, odom_log {log_rows} rows, {len(paths_a)} files; aligned ATE "
+              f"{a['ate_rmse_m']} m beside phase 8's {ref['ate_rmse_m']} m")
+        odo_a = ranks[0]["odometry"]
+        ckpt = os.path.join(out, "checkpoint.npz")
+        t0 = time.perf_counter()
+        backend, dev = cli._mesh_transport(2, "cuda")
+        resumed = distributed.launch(2, "chip_smoke:mesh_resume_rank", (ckpt, RESUME_CHUNKS),
+                                     backend=backend, device=dev,
+                                     timeout_s=MESH_ENGINE_TIMEOUT, path=(_HERE,))
+        lo = resumed[0]["saved"]
+        hi = lo + RESUME_CHUNKS * DEV_CHUNK
+        for r, res in enumerate(resumed):
+            if not np.array_equal(res["odometry"][lo:hi], odo_a[lo:hi]):
+                raise AssertionError(f"mesh_engine: rank {r}'s resumed rows {lo}-{hi - 1} "
+                                     "differ from the uninterrupted mesh run's")
+        print(f"mesh_engine: D=2 checkpoint of scan {lo} resumed on the mesh for "
+              f"{RESUME_CHUNKS} chunks, rows {lo}-{hi - 1} bit-identical to the "
+              f"uninterrupted run's on both ranks ({time.perf_counter() - t0:.1f} s)")
+
+        # (b) NCCL D = 1 through DeviceSlamPipeline(mesh=), against phase 8's rows
+        t0 = time.perf_counter()
+        one = distributed.launch(1, "chip_smoke:mesh_engine_rank", (MESH_ENGINE_D1_SCANS,),
+                                 backend="nccl", device="cuda",
+                                 timeout_s=MESH_ENGINE_TIMEOUT, path=(_HERE,))[0]
+        err = float(np.abs(one["odometry"] - single_odo[:MESH_ENGINE_D1_SCANS]).max())
+        c = one["counters"]
+        paths["mesh_engine library nccl D=1"] = _mesh_engine_path(c)
+        print(f"mesh_engine [{smi}] library nccl D=1: {MESH_ENGINE_D1_SCANS} scans, max "
+              f"|Δrow| against phase 8's {err:.3g}; launches {json.dumps(c)}; host syncs "
+              f"{c['host_syncs'] / MESH_ENGINE_D1_SCANS:.2f} and collectives "
+              f"{c['collectives'] / MESH_ENGINE_D1_SCANS:.2f} a scan; "
+              f"{MESH_ENGINE_D1_SCANS / one['seconds']:.2f} scans/s, stage seconds "
+              f"{json.dumps({k: round(v, 3) for k, v in one['stage_seconds'].items()})} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not err <= MESH_ENGINE_TOL or c["ndt_pass"] < MESH_ENGINE_D1_SCANS - 1 \
+                or c["ndt"] != 0:
+            raise AssertionError(f"mesh_engine library nccl D=1: max |Δrow| {err}, "
+                                 f"launches {c}")
+
+        # (c) ISC with the IMU and wheel guesses and GPS factors at D = 2
+        isc, ranks = run("run-sim isc imu wheel gps D=2", 2, scans=SCANS, loop_method="isc",
+                         imu=True, wheel=True, gps=True, **base)
+        guess = [r["counters"]["guess"] for r in ranks]
+        if isc["loops"] < 1 or min(guess) < SCANS - 1:
+            raise AssertionError(f"mesh_engine isc D=2: {isc['loops']} loops, guess "
+                                 f"launches {guess}")
+
+        # (d) the session continued from (a)'s checkpoint at D = 2
+        cont, ranks = run("run-sim --continue-session D=2", 2, scans=MESH_ENGINE_CONT_SCANS,
+                          continue_from=ckpt, **base)
+        reloc = float(np.linalg.norm(ranks[0]["continuation"]["reloc_pose"][:3]
+                                     - gt_rel[0, :3, 3]))
+        new_kf = cont["continuation"]["new_keyframes"]
+        print(f"mesh_engine: continued on the mesh: relocalized {reloc:.4f} m from the "
+              f"truth, {new_kf} new keyframes, {cont['loops']} loops")
+        if not reloc < RELOC_TOL_M or new_kf < MIN_NEW_KEYFRAMES:
+            raise AssertionError(f"mesh_engine continue D=2: relocalized {reloc} m, "
+                                 f"{new_kf} new keyframes")
+
+    # (e) the SC circuit's first scans at D = 4
+    e, _ranks = run("run-sim D=4", 4, scans=MESH_ENGINE_D4_SCANS, **base)
+    if abs(e["keyframes"] - kf64) > MESH_ENGINE_KF:
+        raise AssertionError(f"mesh_engine D=4: {e['keyframes']} keyframes over "
+                             f"{MESH_ENGINE_D4_SCANS} scans, phase 8's {kf64}")
+
+    # (f) run-kitti on HDL-64-density files at D = 2
+    with tempfile.TemporaryDirectory(prefix="xchu_mesh_kitti_") as tmp:
+        files = _sources_call("mesh kitti files", [{"kind": "write_kitti", "root": tmp,
+                                                    "n_scans": MESH_ENGINE_KITTI_SCANS}])[0]
+        k, _ranks = run("run-kitti D=2", 2, command="run-kitti",
+                        velodyne_dir=files["velodyne_dir"], gt=files["gt"],
+                        out=os.path.join(tmp, "out"), engine="device", device="cuda")
+        if k["reader"] != "native" or k["keyframes"] < 2 or not k["ate_rmse_m"] < 1.0:
+            raise AssertionError(f"mesh_engine run-kitti D=2: {k}")
+    seconds = time.perf_counter() - t_phase
+    print(f"mesh_engine: {len(paths)} runs in {seconds:.1f} s")
+    return {"paths": paths, "seconds": seconds}
+
+
 def phase_determinism() -> None:
     from xchu_slam_tpu_torch.cli import run_sim
 
@@ -3216,6 +3468,7 @@ def main() -> int:
     launches, host_summary = phase_main(record)
     mesh = phase_mesh(smi, record) if run_mesh else None
     del record
+    engine = phase_mesh_engine(smi) if run_mesh else None
     if mesh_only:
         return 0
     if "--extras-only" in sys.argv[1:]:
@@ -3230,6 +3483,8 @@ def main() -> int:
                                    **{k: g["total"][k] for k in ("ndt_pass", "icp_partial",
                                                                  "icp_solve")}}
                   for name, g in mesh["groups"].items()}
+    # the mesh engine's runs: rank 0's launches
+    mesh_paths.update(engine["paths"])
     by_path = {"main": launches, **mesh_paths, **phase_session()}
     phase_determinism()
     dev = phase_device_engine(host_summary)
@@ -3285,7 +3540,8 @@ def main() -> int:
                 "ptxas": {k: ptxas[k] for k in ("icp step", "icp step first version", "icp init",
                                                  "icp fitness")}},
                *({"name": name, "route": "cuda", "source": f"xchu_slam_tpu_torch/csrc/{src}",
-                  "replaces": replaces, "launches": mesh_paths["mesh gloo D=2"][key],
+                  "replaces": replaces,
+                  "launches": mesh_paths["mesh_engine run-sim D=2"][key],
                   "launches_by_path": {k: v[key] for k, v in mesh_paths.items()},
                   **mesh["entry"][name], "ptxas": {k: ptxas[k] for k in tags}}
                  for name, src, key, tags, replaces in (

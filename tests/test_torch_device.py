@@ -470,20 +470,23 @@ def test_cli_device_engine_end_to_end(tmp_path, capsys):
     assert len((tmp_path / "odom_tum.txt").read_text().splitlines()) == summary["keyframes"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--render-procs", "-1"],
+@pytest.mark.parametrize("flags", [["--mesh", "2", "--engine", "host"],
+                                   ["--render-procs", "-1"],
                                    ["--sync-every", "4"], ["--chunk", "0"],
                                    ["--prefetch-threads", "0"]])
 def test_cli_rejects_unported_flags_of_the_device_engine(flags, capsys):
-    """The reference's run-sim flags the port has not taken (`--mesh`,
-    `--sync-every`) are refused by name, and so are counts out of range of
-    those it has taken (`--imu`, `--wheel`, `--checkpoint-every` and
-    `--continue-session` are taken since the device engine's session was
-    ported, tests/test_torch_device_sensors.py; `--render-procs`,
-    `--realism` and `--trajectory` since the scan sources were,
-    tests/test_torch_procsource.py and tests/test_torch_sim_realism.py)."""
+    """The reference's run-sim flag the port has not taken (`--sync-every`)
+    is refused by name, and so are `--mesh` with the host engine (the mesh
+    engine is the device engine; tests/test_torch_mesh_engine.py runs it)
+    and counts out of range of the flags it has taken (`--imu`, `--wheel`,
+    `--checkpoint-every` and `--continue-session` are taken since the device
+    engine's session was ported, tests/test_torch_device_sensors.py;
+    `--render-procs`, `--realism` and `--trajectory` since the scan sources
+    were, tests/test_torch_procsource.py and tests/test_torch_sim_realism.py)."""
     with pytest.raises(SystemExit) as err:
         cli.main(["run-sim", "--scans", "4", "--device", "cpu", "--engine", "device",
                   *flags])
     assert err.value.code == 2
-    want = "not ported yet" if flags[0] in ("--mesh", "--sync-every") else "must be >= "
+    want = {"--mesh": "--mesh needs --engine device",
+            "--sync-every": "not ported yet"}.get(flags[0], "must be >= ")
     assert want in capsys.readouterr().err

@@ -268,11 +268,12 @@ def test_cli_takes_the_device_engine_flags(flags, monkeypatch):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--continue-session", "x.npz"], "requires --engine device"),
-    (["--engine", "device", "--mesh", "2"], "not ported yet"),
+    (["--engine", "device", "--sync-every", "2"], "not ported yet"),
 ])
 def test_cli_refusals_after_the_port(argv, msg, capsys):
     """`--continue-session` with the host engine is an error, as in the
-    reference; `--mesh` is still refused."""
+    reference; `--sync-every` is still refused (`--mesh` runs since the mesh
+    engine was ported: tests/test_torch_mesh_engine.py)."""
     with pytest.raises(SystemExit) as err:
         cli.main(["run-sim", "--scans", "4", "--device", "cpu", *argv])
     assert err.value.code == 2 and msg in capsys.readouterr().err

@@ -379,7 +379,8 @@ def test_cli_help(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run-sim", "--engine", "device", "--mesh", "2"], ["run-sim", "--mesh", "4"],
+    ["run-sim", "--engine", "device", "--mesh", "2", "--render-procs", "2"],
+    ["run-sim", "--mesh", "4"],
     ["run-sim", "--continue-session", "x.npz"],
     ["run-sim", "--engine", "host", "--render-procs", "2"],
     ["run-sim", "--sync-every", "4"], ["run-sim", "--loop-method", "kdtree"],
@@ -388,9 +389,10 @@ def test_cli_help(argv, capsys):
 def test_cli_rejects_what_is_not_ported(argv, capsys):
     """A flag of the reference CLI that is not ported is an argparse error,
     not accepted and ignored; so is `--continue-session` with the host
-    engine, as in the reference, and `--render-procs` with the host engine,
+    engine, as in the reference, `--render-procs` with the host engine,
     which draws every scan from one shared generator (the reference ignores
-    it there)."""
+    it there), `--mesh` with the host engine (the reference ignores it
+    there too) and `--mesh` with `--render-procs`."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2

@@ -16,7 +16,10 @@ the circuit twice (the first run holds the cold start: CUDA context, lazy
 kernel loading, the nvcc build; the second is warm). Prints one JSON line per
 process, one with the rates per side and, last, whether the two sides'
 results are bit-identical (a hash of the odometry and optimised keyframe
-poses beside keyframes, loops and ATE). Every side must agree with
+poses beside keyframes, loops and ATE) and made the same kernel launches
+(each wrapper's count, set to 0 before a run). Each row also carries
+`chip_smoke.py`'s pose hash (the odometry, and both keyframe trajectories).
+Every side must agree with
 itself in all its turns (keyframes, loops, ATE): two trees may align with
 another arithmetic, and the two engines see scans with different noise (the
 device engine renders each from a generator of its own). The card's name and
@@ -34,14 +37,22 @@ import sys
 CODE = """
 import hashlib, json, sys
 from xchu_slam_tpu_torch.cli import run_sim
+from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+KERNELS = {{"nn": nn_kernel, "ndt": ndt_kernel, "pgo": pgo_kernel, "icp_step": icp_kernel}}
 out = []
 for _ in range(2):
+    for mod in KERNELS.values():
+        mod.launches = 0
     pipe, s = run_sim({scans}, 55.0, 0, "cuda"{engine})
     row = {{k: s[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
                               "stage_seconds") if k in s}}
+    row["launches"] = {{k: mod.launches for k, mod in KERNELS.items()}}
     # the poses themselves: the odometry and the optimised keyframes, bit for bit
     row["poses_sha256"] = hashlib.sha256(pipe.odometry_trajectory().tobytes()
                                          + pipe.keyframe_trajectory()[2].tobytes()).hexdigest()[:16]
+    _st, kf_odo, kf_opt = pipe.keyframe_trajectory()
+    row["pose_hash"] = hashlib.sha256(pipe.odometry_trajectory().tobytes() + kf_odo.tobytes()
+                                      + kf_opt.tobytes()).hexdigest()[:16]
     out.append(row)
 print("AB " + json.dumps(out))
 """
@@ -84,7 +95,7 @@ def main() -> int:
 
     def results(names):
         return {json.dumps({k: r[k] for k in ("keyframes", "loops", "ate_rmse_m",
-                                              "poses_sha256")})
+                                              "poses_sha256", "pose_hash", "launches")})
                 for name in names for both in runs[name] for r in both}
 
     for names in ([name] for name in sides):
@@ -94,7 +105,8 @@ def main() -> int:
         "cold_scans_per_sec": [c["scans_per_sec"] for c, _ in pairs],
         "warm_scans_per_sec": [w["scans_per_sec"] for _, w in pairs]}
         for name, pairs in runs.items()}))
-    print(json.dumps({"poses_bit_identical_across_sides": len(results(list(sides))) == 1}))
+    print(json.dumps({"poses_and_launches_identical_across_sides":
+                      len(results(list(sides))) == 1}))
     return 0
 
 

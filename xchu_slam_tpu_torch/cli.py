@@ -16,6 +16,8 @@
                                              --render-procs 3 --out out/traj
   python -m xchu_slam_tpu_torch.cli run-kitti --velodyne-dir .../velodyne --gt 00.txt \\
                                              --out out/kitti00
+  python -m xchu_slam_tpu_torch.cli run-sim  --engine device --mesh 2 --out out/mesh
+  torchrun --nproc-per-node 4 -m xchu_slam_tpu_torch.cli run-sim --engine device --mesh 4
   python -m xchu_slam_tpu_torch.cli info
 
 `run-sim` runs the synthetic squircle circuit (or, with `--trajectory`, a
@@ -48,17 +50,30 @@ the host engine pipelines one scan (`defer_sync`) unless `--no-defer-sync`.
 `eval` compares two trajectory files, `localize` places fresh scans in a
 saved session's map, `info` prints versions, devices and the default config.
 
+`--mesh N` (`run-sim`, `run-kitti`; N of 0 or 1 is the single-device
+engine) runs the device engine as one session over N ranks
+(`DeviceSlamPipeline(mesh=)`: the state replicated, the hot ops sharded).
+The CLI starts N ranks through `parallel/distributed.launch`, each a fresh
+interpreter that renders (or reads) its own scans and runs the whole session
+with its `Mesh`: NCCL, a card a rank, where `--device cuda` sees N cards;
+else gloo, every rank on card 0 with each collective staged through pinned
+host memory; gloo on `--device cpu`. Under `torchrun` (its variables set)
+the CLI joins that group instead, and N must equal its world size. Rank 0
+alone writes `--out`, the export and the checkpoints; the summary is rank
+0's, with `"mesh"`, `"backend"` and `"ranks_agree"` (a hash of every pose,
+equal on every rank, or the run fails).
+
 Every subcommand that computes takes `--device` (default `cuda`, an error
-without a card; `cpu` runs the kernels' plain versions). Not ported, and so
-refused by name: `--mesh` (`run-sim`, `run-kitti`: the sharded ops are in
-`parallel/`, the mesh device engine that would run a session on them is
-not) and `--sync-every`; `--continue-session` and `--render-procs` need
-`--engine device`.
+without a card; `cpu` runs the kernels' plain versions). Refused by name:
+`--sync-every` (not ported), `--mesh` with `--engine host` or with
+`--render-procs` (a rank's group touches CUDA before the workers could
+fork); `--continue-session` and `--render-procs` need `--engine device`.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -332,7 +347,7 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
             prefetch_threads: int = 2, continue_from: str | None = None,
             realism: bool = False, trajectory: str | None = None,
-            render_procs: int = 0):
+            render_procs: int = 0, mesh=None):
     """Run the circuit, or the TUM `trajectory`, through the host or the
     device engine. Returns (pipeline, summary dict). With `out`, the run's
     artifacts are written there. `timers` (a `StageTimers` for `device`)
@@ -352,7 +367,12 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     continuation, and the summary covers the continued keyframes.
 
     The render workers are forked before anything here touches CUDA, and
-    closed when the run ends, however it ends."""
+    closed when the run ends, however it ends.
+
+    With `mesh` (this rank's `parallel.distributed.Mesh`; every rank of the
+    group calls this with the same arguments) the device engine runs the
+    session over the mesh on the mesh's device (`device` is then ignored),
+    each rank rendering its own scans; rank 0 alone writes `out`."""
     from xchu_slam_tpu_torch.io.export import save_run
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.utils import metrics, se3, sim
@@ -367,6 +387,14 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     if render_procs and engine != "device":
         raise ValueError("render_procs requires the device engine: the host engine "
                          "draws every scan from one shared generator")
+    if mesh is not None:
+        if engine != "device":
+            raise ValueError("a mesh runs the device engine only")
+        if render_procs:
+            raise ValueError("render_procs with a mesh: a rank's group has touched CUDA "
+                             "before its render workers could fork")
+        device = str(mesh.device)
+    writer = mesh is None or mesh.rank == 0
     gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed, trajectory)
     index = _world_index(world, trajectory)
     sensor = dynamics = None
@@ -400,7 +428,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             xyz0, inten0 = lazy[0]   # the raw source: the workers' scan 0 goes unread
             with timers.time("continue"):
                 cont = continue_session(continue_from, xyz0, inten0, stamp=float(gt_stamps[0]),
-                                        log_capacity=max(n_scans, 8192), device=device)
+                                        log_capacity=max(n_scans, 8192), device=device,
+                                        mesh=mesh)
             if overrides or imu or wheel or gps or loop_method != "sc":
                 print("warning: --continue-session runs under the checkpoint's config; "
                       "the CLI's config flags (--set/--imu/--wheel/--gps/--loop-method) "
@@ -411,7 +440,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
                   f"{cont.continuation['old_keyframes']} saved keyframes)", file=sys.stderr)
         sensor_windows, gps_alts = _sim_feeds(cfg, gt, gt_stamps, rng)
         if out:
-            os.makedirs(out, exist_ok=True)
+            if writer:
+                os.makedirs(out, exist_ok=True)
         elif checkpoint_every:
             raise ValueError("checkpoint_every needs an output directory")
 
@@ -420,7 +450,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
 
             pipe = cont if cont is not None else DeviceSlamPipeline(
-                cfg, kf_points=4096, log_capacity=max(n_scans, 8192), device=device)
+                cfg, kf_points=4096, log_capacity=max(n_scans, 8192), device=device,
+                mesh=mesh)
             t0 = time.perf_counter()
             chunks = _run_device_engine(pipe, lazy if source is None else source, gt_stamps,
                                         gps_alts, cfg, chunk, prefetch_depth, prefetch_threads,
@@ -437,7 +468,7 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
         wall = time.perf_counter() - t0
 
         paths = None
-        if out:
+        if out and writer:
             with timers.time("save"):
                 # camera-frame TUM export, so that `eval --est odom_tum.txt
                 # --gt <camera-frame GT file>` compares directly
@@ -491,24 +522,27 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
 def cmd_run_sim(args):
     from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
+    kwargs = dict(scans=args.scans, radius=args.radius, seed=args.seed, device=args.device,
+                  overrides=args.set, loop_method=args.loop_method, imu=args.imu,
+                  wheel=args.wheel, gps=args.gps, out=args.out,
+                  checkpoint_every=args.checkpoint_every, verbose=args.verbose,
+                  engine=args.engine, chunk=args.chunk, prefetch_depth=args.prefetch_depth,
+                  prefetch_threads=args.prefetch_threads,
+                  continue_from=args.continue_session, realism=args.realism,
+                  trajectory=args.trajectory, render_procs=args.render_procs)
+    if args.mesh > 1:
+        _cmd_on_mesh("run-sim", kwargs, args.mesh)
+        return
     timers = StageTimers(args.device)
-    _pipe, summary = run_sim(args.scans, args.radius, args.seed, args.device,
-                            args.set, loop_method=args.loop_method,
-                            imu=args.imu, wheel=args.wheel, gps=args.gps,
-                            out=args.out, checkpoint_every=args.checkpoint_every,
-                            verbose=args.verbose, timers=timers,
-                            engine=args.engine, chunk=args.chunk,
-                            prefetch_depth=args.prefetch_depth,
-                            prefetch_threads=args.prefetch_threads,
-                            continue_from=args.continue_session, realism=args.realism,
-                            trajectory=args.trajectory, render_procs=args.render_procs)
+    _pipe, summary = run_sim(**kwargs, timers=timers)
     print(json.dumps(summary, indent=2))
     print(timers.report(), file=sys.stderr)
 
 
 def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
               max_scans: int = 0, engine: str = "host", defer_sync: bool = True,
-              verbose: bool = False, overrides=(), device: str = "cuda", timers=None):
+              verbose: bool = False, overrides=(), device: str = "cuda", timers=None,
+              mesh=None):
     """Run the velodyne `.bin` scans of a directory (in name order, the
     first `max_scans` where it is not 0; scan i stamped 0.1·i) at the
     default config with `overrides`, through the host engine (scans staged
@@ -517,7 +551,11 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     are read by `io/native_loader.py` at `filter.max_raw_points`. Writes the
     camera-frame export to `out`; with a KITTI pose file `gt` (one row a
     scan, camera frame) the summary adds the keyframes' ATE. Returns
-    (pipeline, summary); the summary names the reader that ran."""
+    (pipeline, summary); the summary names the reader that ran. With `mesh`
+    (this rank's `parallel.distributed.Mesh`, every rank calling this with
+    the same arguments) the device engine runs over the mesh on the mesh's
+    device, each rank reading the scans itself; rank 0 alone writes `out`
+    (and so alone reports the ATE)."""
     from xchu_slam_tpu_torch.config import default_config
     from xchu_slam_tpu_torch.io import kitti, native_loader
     from xchu_slam_tpu_torch.io.export import save_run
@@ -526,6 +564,11 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     from xchu_slam_tpu_torch.utils import metrics
     from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
+    if mesh is not None:
+        if engine != "device":
+            raise ValueError("a mesh runs the device engine only")
+        device = str(mesh.device)
+    writer = mesh is None or mesh.rank == 0
     _check_device(device)
     if engine not in ("host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -550,7 +593,7 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
         from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
 
         pipe = DeviceSlamPipeline(cfg, kf_points=4096, log_capacity=max(len(files), 8192),
-                                  device=device)
+                                  device=device, mesh=mesh)
         t0 = time.perf_counter()
         chunks = _run_device_engine(pipe, scans, stamps, None, cfg, 16, 2, 2, device,
                                     timers, verbose)
@@ -568,8 +611,10 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     with timers.time("finalize"):
         pipe.finalize()
     wall = time.perf_counter() - t0
-    with timers.time("save"):
-        paths = save_run(pipe, out, to_camera_frame=True)
+    paths = None
+    if writer:
+        with timers.time("save"):
+            paths = save_run(pipe, out, to_camera_frame=True)
     summary = {
         "scans": len(files),
         "keyframes": pipe.kf_count,
@@ -580,7 +625,7 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     }
     if engine == "host":
         summary["defer_sync"] = defer_sync
-    if gt:
+    if gt and paths is not None:
         gt_poses = kitti.read_kitti_poses(gt)
         st, poses = kitti.read_tum(paths["odom_tum"])
         # a keyframe row carries its scan's stamp: index the per-scan rows
@@ -589,19 +634,172 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
                                                        gt_poses[idx][:, :3, 3]), 4)
     if chunks is not None:
         summary.update(_chunk_attribution(chunks, pipe, len(files)))
-    summary["artifacts"] = paths
+    if paths is not None:
+        summary["artifacts"] = paths
     return pipe, summary
 
 
 def cmd_run_kitti(args):
     from xchu_slam_tpu_torch.utils.profiling import StageTimers
 
+    kwargs = dict(velodyne_dir=args.velodyne_dir, gt=args.gt, out=args.out,
+                  max_scans=args.max_scans, engine=args.engine,
+                  defer_sync=not args.no_defer_sync, verbose=args.verbose,
+                  overrides=args.set, device=args.device)
+    if args.mesh > 1:
+        _cmd_on_mesh("run-kitti", kwargs, args.mesh)
+        return
     timers = StageTimers(args.device)
-    _pipe, summary = run_kitti(args.velodyne_dir, args.gt, args.out, args.max_scans,
-                               args.engine, not args.no_defer_sync, args.verbose, args.set,
-                               args.device, timers)
+    _pipe, summary = run_kitti(**kwargs, timers=timers)
     print(json.dumps(summary, indent=2))
     print(timers.report(), file=sys.stderr)
+
+
+# ------------------------------------------------------------------ meshes -- #
+# a launched group's bound: start-up, then per scan (two gloo ranks sharing
+# one card run ~14 scans/s at run-sim's width; a CPU rank far slower)
+MESH_TIMEOUT_S = 120.0
+MESH_TIMEOUT_PER_SCAN_S = 3.0
+
+
+def _mesh_transport(world: int, device: str) -> tuple[str, str]:
+    """(backend, device) of a group of `world` ranks: NCCL, a card a rank,
+    where a CUDA device sees `world` cards; else gloo, on card 0 for a CUDA
+    device (each collective staged through pinned host memory) or on the
+    CPU."""
+    if str(device).startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda: no CUDA device is available")
+        return ("nccl" if world <= torch.cuda.device_count() else "gloo"), "cuda"
+    return "gloo", str(device)
+
+
+def _mesh_scans(command: str, kwargs: dict) -> int:
+    """How many scans a run of `command` feeds (for its group's bound)."""
+    if command == "run-kitti":
+        from xchu_slam_tpu_torch.io import kitti
+
+        n = len(kitti.list_velodyne_dir(kwargs["velodyne_dir"]))
+        return min(n, kwargs["max_scans"]) if kwargs.get("max_scans") else n
+    if kwargs.get("scans"):
+        return kwargs["scans"]
+    if kwargs.get("trajectory"):
+        with open(kwargs["trajectory"]) as f:
+            return sum(1 for line in f if line.strip() and not line.startswith("#"))
+    return 400
+
+
+def pose_hash(pipe) -> str:
+    """A hash of every pose a finished pipeline holds: the per-scan odometry
+    rows and the keyframes' odometric and optimized poses."""
+    _stamps, kf_odo, kf_opt = pipe.keyframe_trajectory()
+    return hashlib.sha256(pipe.odometry_trajectory().tobytes() + kf_odo.tobytes()
+                          + kf_opt.tobytes()).hexdigest()[:16]
+
+
+def rank_counters(pipe) -> dict:
+    """This process's kernel launches (each wrapper's count), collectives and
+    host-staged collectives, and the device engine `pipe`'s chunk readbacks
+    and ICP verifications."""
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                             pgo_kernel)
+    from xchu_slam_tpu_torch.utils import collectives
+
+    return {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches,
+            "ndt_pass": ndt_kernel.pass_launches, "icp_step": icp_kernel.launches,
+            "icp_partial": icp_kernel.partial_launches,
+            "icp_solve": icp_kernel.solve_launches, "pgo": pgo_kernel.launches,
+            "guess": guess_kernel.launches, "collectives": collectives.collectives,
+            "host_staged": collectives.host_staged,
+            "chunk_readbacks": pipe.chunk_readbacks,
+            "icp_verifications": pipe.icp_verifications}
+
+
+def mesh_rank(mesh, command: str, kwargs: dict) -> dict:
+    """One rank of `command` ("run-sim" or "run-kitti") over `mesh`: the
+    whole run with this rank's mesh. Returns its summary, its pose hash and
+    per-scan odometry, a continuation's record, its counters
+    (`rank_counters`, and on a CUDA device the host synchronisations
+    PyTorch made, `count_host_syncs`) and its stage timers' report."""
+    from xchu_slam_tpu_torch.utils.profiling import StageTimers, count_host_syncs
+
+    fn = {"run-sim": run_sim, "run-kitti": run_kitti}[command]
+    timers = StageTimers(mesh.device)
+    with count_host_syncs(mesh.device.type == "cuda") as syncs:
+        pipe, summary = fn(**kwargs, timers=timers, mesh=mesh)
+    return {"rank": mesh.rank, "summary": summary, "pose_hash": pose_hash(pipe),
+            "odometry": pipe.odometry_trajectory(),
+            "continuation": getattr(pipe, "continuation", None),
+            "counters": {**rank_counters(pipe), "host_syncs": syncs["syncs"]},
+            "timers": timers.report()}
+
+
+def _mesh_summary(summary: dict, hashes: list, backend: str) -> dict:
+    """Rank 0's `summary` with the group's size, backend and whether every
+    rank ended with rank 0's poses (`hashes`, rank 0's first); a rank that
+    did not is an error."""
+    bad = [r for r, h in enumerate(hashes) if h != hashes[0]]
+    if bad:
+        raise RuntimeError(f"mesh of {len(hashes)}: ranks {bad} ended with other poses than "
+                           f"rank 0 (pose hashes {hashes})")
+    return {**summary, "mesh": len(hashes), "backend": backend, "ranks_agree": True,
+            "pose_hash": hashes[0]}
+
+
+def run_on_mesh(command: str, kwargs: dict, world: int):
+    """Run `command` ("run-sim" or "run-kitti", with the keyword arguments
+    of `run_sim` / `run_kitti`; `kwargs["device"]` picks the transport, see
+    `_mesh_transport`) on a group of `world` ranks started by
+    `parallel/distributed.launch`, bounded by MESH_TIMEOUT_S +
+    MESH_TIMEOUT_PER_SCAN_S a scan. Returns (the summary, every rank's
+    result as `mesh_rank` returns it)."""
+    from xchu_slam_tpu_torch.parallel import distributed
+
+    backend, device = _mesh_transport(world, kwargs.get("device", "cuda"))
+    timeout = MESH_TIMEOUT_S + MESH_TIMEOUT_PER_SCAN_S * _mesh_scans(command, kwargs)
+    ranks = distributed.launch(world, "xchu_slam_tpu_torch.cli:mesh_rank", (command, kwargs),
+                               backend=backend, device=device, timeout_s=timeout)
+    return _mesh_summary(ranks[0]["summary"], [r["pose_hash"] for r in ranks], backend), ranks
+
+
+def _join_torchrun(command: str, kwargs: dict, world: int) -> None:
+    """This process's rank of a group that torchrun started: join it, run
+    the whole session over it, compare every rank's pose hash in one
+    collective; rank 0 prints the summary."""
+    from xchu_slam_tpu_torch.parallel import distributed
+    from xchu_slam_tpu_torch.utils import collectives
+
+    backend, device = _mesh_transport(world, kwargs.get("device", "cuda"))
+    size = int(os.environ["WORLD_SIZE"])
+    if size != world:
+        raise SystemExit(f"--mesh {world}: torchrun started {size} ranks")
+    if device == "cuda":
+        device = None if backend == "nccl" else "cuda:0"
+    mesh = distributed.initialize(backend, device=device,
+                                  timeout_s=distributed.GROUP_TIMEOUT_S)
+    try:
+        mine = mesh_rank(mesh, command, kwargs)
+        bits = torch.from_numpy(np.frombuffer(bytes.fromhex(mine["pose_hash"]), np.int32)
+                                .copy()).to(mesh.device)
+        every = collectives.shard_allgather(bits[None], mesh).cpu().numpy()
+        summary = _mesh_summary(mine["summary"], [row.tobytes().hex() for row in every],
+                                backend)
+    finally:
+        torch.distributed.destroy_process_group()
+    if mesh.rank == 0:
+        print(json.dumps(summary, indent=2))
+        print(mine["timers"], file=sys.stderr)
+
+
+def _cmd_on_mesh(command: str, kwargs: dict, world: int) -> None:
+    """`--mesh N` with N > 1: join torchrun's group where its variables are
+    set, else launch N ranks; print rank 0's summary and timers."""
+    if os.environ.get("WORLD_SIZE"):
+        _join_torchrun(command, kwargs, world)
+        return
+    summary, ranks = run_on_mesh(command, kwargs, world)
+    print(json.dumps(summary, indent=2))
+    print(ranks[0]["timers"], file=sys.stderr)
 
 
 def localize_sim(session: str, queries: int = 12, scans: int = 0,
@@ -760,10 +958,13 @@ def main(argv=None):
                     help="render the scans in N forked worker processes, started "
                     "before the run's first CUDA call (--engine device; 0 = in the "
                     "staging threads)")
-    # flags of the reference's run-sim that are named, so that they are
-    # refused by name
-    for flag in ("--mesh", "--sync-every"):
-        ps.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ps.add_argument("--mesh", type=int, default=0,
+                    help="run the device engine as one session over N ranks: state "
+                    "replicated, NDT points / SC and ISC database / ICP correspondences "
+                    "/ pose-graph factors sharded (0 or 1 = single device)")
+    # a flag of the reference's run-sim that is named, so that it is refused
+    # by name
+    ps.add_argument("--sync-every", default=None, help=argparse.SUPPRESS)
     _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -780,7 +981,9 @@ def main(argv=None):
                     help="the host engine waits for each scan's results before "
                     "the next scan")
     pk.add_argument("--verbose", action="store_true")
-    pk.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    pk.add_argument("--mesh", type=int, default=0,
+                    help="run the device engine as one session over N ranks (0 or 1 = "
+                    "single device; needs --engine device)")
     _add_device(pk)
     pk.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -826,10 +1029,10 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     if args.cmd in ("run-sim", "run-kitti"):
-        if getattr(args, "mesh", None):
-            p.error("--mesh is not ported yet: the sharded ops are "
-                    "(xchu_slam_tpu_torch.parallel), the mesh device engine that runs a "
-                    "session on them is not")
+        if args.mesh < 0:
+            p.error("--mesh must be >= 0")
+        if args.mesh > 1 and args.engine != "device":
+            p.error("--mesh needs --engine device: the host engine runs on one device")
         if getattr(args, "sync_every", None):
             p.error("--sync-every is not ported yet")
     if args.cmd == "run-sim":
@@ -840,6 +1043,9 @@ def main(argv=None):
                     "every scan from one shared generator")
         if args.render_procs < 0:
             p.error("--render-procs must be >= 0")
+        if args.render_procs and args.mesh > 1:
+            p.error("--render-procs with --mesh: a rank forms its group, which touches "
+                    "CUDA, before its render workers could fork")
     if args.cmd == "run-sim" and args.engine == "device":
         if args.chunk < 1 or args.prefetch_depth < 1 or args.prefetch_threads < 1:
             p.error("--chunk, --prefetch-depth and --prefetch-threads must be >= 1")

@@ -18,7 +18,10 @@ mapping in the saved session's frame:
 
 The seed is a one-time edit of the loaded state, made in place (the CUDA
 graphs of the PGO solve and of the ICP verification keep their tensors'
-addresses), outside the engine's no-synchronisation check.
+addresses), outside the engine's no-synchronisation check. With a `mesh`
+every rank of the group makes the same edit with no collective (load,
+relocalize, append), so each rank's seeded state equals the single-device
+continuation's bit for bit, and the pipeline returned is a mesh pipeline.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ class ContinuationError(RuntimeError):
 
 def continue_session(checkpoint_path: str, first_xyz, first_intensity=None,
                      stamp: float = 0.0, log_capacity: int = 8192,
-                     device: torch.device | str = "cuda") -> dp.DeviceSlamPipeline:
-    """Load a saved device-engine session on `device` and return a
-    `DeviceSlamPipeline` that continues it.
+                     device: torch.device | str | None = None,
+                     mesh=None) -> dp.DeviceSlamPipeline:
+    """Load a saved device-engine session on `device` (default "cuda", or
+    the mesh's device) and return a `DeviceSlamPipeline` that continues it,
+    over `mesh` (this rank's `parallel.distributed.Mesh`) where one is given.
 
     The returned pipeline has already consumed `first_xyz` (relocalized and
     stored as the first new keyframe); feed the next scans with
@@ -52,7 +57,10 @@ def continue_session(checkpoint_path: str, first_xyz, first_intensity=None,
     placed (no retrieval hit, or the ICP verification failed)."""
     from xchu_slam_tpu_torch.utils.checkpoint import load_checkpoint
 
-    old = load_checkpoint(checkpoint_path, device=device)
+    # loaded single-device: the seed is the same collective-free edit on
+    # every rank
+    old = load_checkpoint(checkpoint_path,
+                          device=mesh.device if device is None and mesh is not None else device)
     if getattr(old, "state", None) is None:
         raise ContinuationError(
             "continuation requires a device-engine checkpoint "
@@ -132,7 +140,7 @@ def continue_session(checkpoint_path: str, first_xyz, first_intensity=None,
         last_stamp=full(float(stamp)), log=log,
         diag=dp._diag_reset().to(dev))
     pipe = dp.DeviceSlamPipeline(cfg, kf_points=old.kf_points, log_capacity=log_capacity,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
     pipe.restore(new_state, 1)
     pipe.continuation = {"matched_kf": int(r.kf_idx),
                          "reloc_pose": np.asarray(r.pose),

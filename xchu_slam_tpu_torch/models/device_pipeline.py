@@ -38,7 +38,30 @@ run, is outside it).
 
 `utils/checkpoint.py` saves and restores this engine's state in the
 reference's layout at a chunk boundary; `models/continue_session.py` seeds
-it from a saved session. Not ported here: `mesh` and `sync_every`.
+it from a saved session.
+
+With a `mesh` (`parallel/distributed.py`: this rank's view of a group of
+processes, one a rank) the engine is one session run by every rank of the
+group, the reference's `make_mesh_fns`: the state is replicated on every
+rank and the hot ops are sharded over the ranks, down the call chain that
+the reference's mesh axis takes. Part A's NDT align shards the scan's
+points (`odometry.step(mesh=)`; insertion, finalize, swap and recentring
+stay replicated); Part B's Scan Context / ISC retrievals shard the
+database, the ICP verification the keyframe cloud and the in-loop solve the
+factors (`icp.align(live=, mesh=)`, `pose_graph.solve(run=, mesh=)`); the
+radius retrieval and the descriptors stay replicated. The seed (keyframe 0
+detects nothing) and `finalize`'s full-strength solve run replicated, with
+no collective. Part A runs eagerly, not as a CUDA graph: the sharded align
+paces its Newton loop from the host, a readback a pass, and a gloo
+collective is a host call. Every host decision comes from bits that are
+equal on every rank; once a chunk, after its readback, the ranks all-gather
+the chunk's log rows (its keyframe flags among them) and raise, naming the
+chunk and the ranks, where they differ, before a divergence could deadlock
+the next collective. `filter.max_points`, `kf_points`, `pgo.max_keyframes`
+and `pgo.max_loops` must divide by the mesh's size.
+
+Not ported: the reference's `sync_every` (a soft synchronisation of its
+relay; `run-sim --sync-every` is refused by name).
 """
 
 from __future__ import annotations
@@ -60,7 +83,7 @@ from xchu_slam_tpu_torch.ops import icp, imu as imu_ops, isc as isc_ops, scancon
 from xchu_slam_tpu_torch.ops.cuda import guess_kernel, ndt_kernel, nn_kernel
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import Cloud, make_cloud
-from xchu_slam_tpu_torch.utils import se3
+from xchu_slam_tpu_torch.utils import collectives, se3
 
 
 class DevSpec(NamedTuple):
@@ -187,18 +210,22 @@ def _sc_radius_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
     return torch.where(found, best[0], -1), found
 
 
-def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
+def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec, mesh=None):
     """Method-dispatched retrieval. Returns (idx, found, yaw) as 0-d tensors
     on the device: yaw is the descriptor-measured relative heading
-    ψ_cand − ψ_query (0 for methods without a rotation estimate)."""
+    ψ_cand − ψ_query (0 for methods without a rotation estimate). With a
+    `mesh` SC and ISC score the database sharded over its ranks; the radius
+    retrieval stays replicated."""
     db = state.db
     dev = db.poses.device
     if spec.method == "sc":
-        res = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k)
+        res = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k,
+                                       mesh=mesh)
         return res.idx, res.found, res.yaw
     if spec.method == "isc":
         res = isc_ops.detect_loop_on_device(db.isc_db[k], db.isc_db, db.count,
-                                            db.poses[:, :3], db.travel, spec.iscspec, cur=k)
+                                            db.poses[:, :3], db.travel, spec.iscspec, cur=k,
+                                            mesh=mesh)
         return res.idx, res.found, res.yaw
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if spec.method == "radius":
@@ -215,13 +242,16 @@ def _masked_put(t: torch.Tensor, q: torch.Tensor, ok: torch.Tensor, val) -> None
     t.index_copy_(0, q, torch.where(ok, new.reshape(old.shape).to(t.dtype), old))
 
 
-def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec) -> DevState:
+def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
+                      mesh=None) -> DevState:
     """ICP-verify the candidate and, on acceptance, add the loop factor and
     re-solve the graph, all decided on the card as the reference's nested
     conds decide it: the 2-D gate is the ICP's `live` flag, acceptance the
     masked loop-table writes and the solve's `run` flag. `cand` (-1 for
     none) and `yaw` are 0-d tensors or host values; `loop_count` and `diag`
-    come back as tensors on the device, and nothing is read back."""
+    come back as tensors on the device, and nothing is read back. With a
+    `mesh` the verification and the solve are sharded over its ranks (they
+    read `live` and `run` back: bits equal on every rank)."""
     db = state.db
     dev = db.poses.device
     cand = _as(cand, torch.int64, dev)
@@ -243,7 +273,7 @@ def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec) -> DevS
         p_init[5] = -yaw
         T_init = se3.pose_to_matrix(p_init)
     res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask, T_init,
-                    spec.icpspec, live=do_verify)
+                    spec.icpspec, live=do_verify, mesh=mesh)
     corr = torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3])
     loop_count = _as(state.loop_count, torch.int64, dev)
     # accept only converged ICP: a verification that hits the iteration cap
@@ -267,17 +297,18 @@ def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec) -> DevS
     run = ok
     if spec.gspec.solve_every > 1:
         run = ok & (loop_count % spec.gspec.solve_every == 0)
-    opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run)
+    opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run, mesh=mesh)
     return state._replace(db=db._replace(opt_poses=opt), loop_count=loop_count, diag=diag)
 
 
 def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
                          stamp: float, travel: float, gps_alt: float,
-                         gps_valid: bool, spec: DevSpec) -> DevState:
+                         gps_valid: bool, spec: DevSpec, mesh=None) -> DevState:
     """Store keyframe `db.count` and, at the detection cadence, look for a
-    loop and verify it. `pose` [6] (on the device), `stamp` and `travel` are
-    the scan's own, as Part A left them in its slot; the gate's scalars were
-    reset by Part A."""
+    loop and verify it (over `mesh` where one is given; the descriptors are
+    computed replicated). `pose` [6] (on the device), `stamp` and `travel`
+    are the scan's own, as Part A left them in its slot; the gate's scalars
+    were reset by Part A."""
     db = state.db
     k = db.count  # new keyframe index
 
@@ -310,11 +341,11 @@ def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
 
     # loop detection every detect_period-th keyframe
     if spec.method != "none" and k >= 1 and k % spec.detect_period == 0:
-        cand, found, yaw = _detect_candidate(state, k, stamp, spec)
+        cand, found, yaw = _detect_candidate(state, k, stamp, spec, mesh)
         cand = torch.where(found, cand, -1)
         diag = torch.cat([torch.stack([cand.to(torch.float32), found.to(torch.float32)]),
                           state.diag[2:]])
-        state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec)
+        state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec, mesh)
     return state
 
 
@@ -344,7 +375,9 @@ def raw_state(spec: DevSpec, cloud0: Cloud, cfg: SlamConfig) -> DevState:
 
 def init_state(spec: DevSpec, cloud0: Cloud, stamp0: float, cfg: SlamConfig) -> DevState:
     """Seed odometry with the first scan and store keyframe 0 (the host
-    pipeline's first-scan path)."""
+    pipeline's first-scan path). Keyframe 0 detects nothing, so under a mesh
+    every rank runs this as it is, with no collective (the reference's
+    `_mesh_seed`)."""
     state = raw_state(spec, cloud0, cfg)
     filt = filter_scan(cloud0, spec.fcfg)
     pose0 = torch.zeros(6, device=cloud0.xyz.device)
@@ -404,14 +437,19 @@ class DeviceSlamPipeline:
     .kf_count/.odom_log/.loops` surface that `io/export.save_run` reads."""
 
     def __init__(self, cfg: SlamConfig, kf_points: int = 4096,
-                 log_capacity: int = 8192, device: torch.device | str = "cuda",
-                 use_graph: bool | None = None, check_sync: bool = False):
-        """`use_graph` (default: on a CUDA device) replays Part A of a scan
+                 log_capacity: int = 8192, device: torch.device | str | None = None,
+                 use_graph: bool | None = None, check_sync: bool = False, mesh=None):
+        """`device` defaults to "cuda", or to the mesh's device. `use_graph`
+        (default: on a CUDA device without a mesh) replays Part A of a scan
         as one CUDA graph, captured after the first scan has run eagerly.
         `check_sync` runs every chunk, Part B included, under
         `torch.cuda.set_sync_debug_mode("error")` but for its one readback:
         it raises on a host synchronisation that PyTorch makes (it cannot see
-        one made through `ctypes`)."""
+        one made through `ctypes`). With `mesh` (this rank's
+        `parallel.distributed.Mesh`) the engine runs the session on every
+        rank of the group, its hot ops sharded (see the module's docstring);
+        the capacities must divide by the mesh's size, and neither
+        `use_graph` nor `check_sync` is taken (the sharded ops read back)."""
         if cfg.loop.method not in ("sc", "isc", "radius", "none"):
             raise ValueError(f"unknown loop.method {cfg.loop.method!r}")
         # the reference's device engine has neither: both run in the host
@@ -423,7 +461,28 @@ class DeviceSlamPipeline:
             raise ValueError("filter.detect_ground: the device engine has no ground path "
                              "(the reference's has none); use the host engine")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device("cuda" if device is None else device)
+        if mesh is not None:
+            if use_graph:
+                raise ValueError("use_graph: Part A under a mesh runs eagerly, not as a CUDA "
+                                 "graph (the sharded align reads back a pass, and a gloo "
+                                 "collective is a host call)")
+            if check_sync:
+                raise ValueError("check_sync: the mesh engine's sharded ops synchronise "
+                                 "with the host (a readback a pass, a trip, a collective)")
+            for name, val in (("filter.max_points", cfg.filter.max_points),
+                              ("kf_points", kf_points),
+                              ("pgo.max_keyframes", cfg.pgo.max_keyframes),
+                              ("pgo.max_loops", cfg.pgo.max_loops)):
+                if val % mesh.size != 0:
+                    raise ValueError(f"{name} ({val}) must be divisible by the mesh size "
+                                     f"({mesh.size}) for sharded compute")
+            if device is not None and self.device.type != mesh.device.type:
+                raise ValueError(f"device {self.device}: the mesh's rank computes on "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            use_graph = False
         self.spec = spec_from_config(cfg, kf_points, log_capacity)
         self.use_graph = (self.device.type == "cuda") if use_graph is None else use_graph
         self.check_sync = check_sync and self.device.type == "cuda"
@@ -471,10 +530,11 @@ class DeviceSlamPipeline:
 
     # ------------------------------------------------------------ Part A -- #
     def _part_a(self, cloud: Cloud, stamp: torch.Tensor, win: GuessWindows | None = None):
-        """One scan's every-scan half, with no host synchronisation: updates
-        Part A's state in place and returns (filtered cloud, row [17]: the log
-        row's 16 columns and the travel). `win` holds the scan's windows where
-        a guess mode is on."""
+        """One scan's every-scan half, with no host synchronisation (under a
+        mesh, but for the sharded align's): updates Part A's state in place
+        and returns (filtered cloud, row [17]: the log row's 16 columns and
+        the travel). `win` holds the scan's windows where a guess mode is
+        on."""
         st, spec = self.state, self.spec
         filt = filter_scan(cloud, spec.fcfg)
         ext_delta = use_ext = None
@@ -483,7 +543,7 @@ class DeviceSlamPipeline:
             ext_delta, use_ext, imu_vel = imu_ops.ext_guess(
                 st.odom.pose, win.imu, win.wheel, st.imu_vel, spec.use_imu, spec.use_odom)
         new_odom, out = odometry.step(st.odom, filt.xyz, filt.mask, spec.ospec,
-                                      ext_delta, use_ext, on_device=True)
+                                      ext_delta, use_ext, on_device=True, mesh=self.mesh)
         pose = out.pose
         if spec.use_imu:
             # reset the IMU velocity from the SLAM delta every scan: pure
@@ -658,6 +718,8 @@ class DeviceSlamPipeline:
         with self._sync_check("default"):
             rows = rows_d.cpu().numpy()
         self.chunk_readbacks += 1
+        if self.mesh is not None:
+            self._check_ranks_agree(rows_d, first, n_real)
         t2 = time.perf_counter()
 
         # Part B, in scan order, for the flagged slots: the keyframe rows and
@@ -672,7 +734,8 @@ class DeviceSlamPipeline:
             self.state = _add_keyframe_branch(
                 self.state._replace(diag=self._diag_reset_dev.clone()), filt,
                 rows_d[j, :6], float(rows[j, 10]), float(rows[j, LOG_COLS]),
-                float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec)
+                float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec,
+                self.mesh)
             self._verifications += self.state.diag[4]
             slot = (self._scans_fed + j) % self.spec.log_capacity
             self.state.log[slot, 11:LOG_COLS] = self.state.diag
@@ -680,6 +743,22 @@ class DeviceSlamPipeline:
         for key, dt in (("part_a_enqueue", t1 - t0), ("readback_wait", t2 - t1),
                         ("part_b", time.perf_counter() - t2)):
             self.stage_seconds[key] += dt
+
+    def _check_ranks_agree(self, rows_d: torch.Tensor, first: int, n_real: int) -> None:
+        """The rank agreement guard of a mesh: the chunk's log rows (its
+        keyframe flags, poses and stamps among them), as bits, all-gathered
+        in one collective and held to rank 0's. Every host decision of Part
+        B comes from them; a rank that disagrees raises here, naming the
+        chunk and the ranks, where it would otherwise deadlock in a later
+        collective."""
+        bits = rows_d.contiguous().view(torch.int32).reshape(1, -1)
+        every = collectives.shard_allgather(bits, self.mesh).cpu()      # [D, n]
+        bad = [r for r in range(1, self.mesh.size) if not torch.equal(every[r], every[0])]
+        if bad:
+            lo = self._scans_fed
+            raise RuntimeError(
+                f"mesh: chunk {self.chunk_readbacks} (scans {lo}-{lo + n_real - first - 1}): "
+                f"ranks {bad} disagree with rank 0 on the chunk's keyframe flags and log rows")
 
     def restore(self, state: DevState, scan_count: int) -> None:
         """Take `state` (a checkpoint's or a continuation's, on this
@@ -713,7 +792,9 @@ class DeviceSlamPipeline:
     def finalize(self) -> None:
         """Final full-strength pose-graph solve and one compact readback of
         the small fields (counters, log, loop table); the keyframe clouds and
-        descriptor stores stay on the device."""
+        descriptor stores stay on the device. Under a mesh every rank runs
+        the single-device solve, with no collective (the reference runs it
+        outside its `shard_map`)."""
         st = self.state
         opt = pg.solve(st.db.opt_poses, st.graph, self.spec.gspec)
         st = st._replace(db=st.db._replace(opt_poses=opt))

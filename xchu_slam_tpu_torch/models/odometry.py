@@ -17,6 +17,12 @@ insertion, swap and recentring take device flags (`ops/voxel_map.py`) and
 leave the grids bit-equal where a flag is false, so the step reads nothing
 back.
 `chunk_step` runs filter + that step over a staged batch of scans.
+
+With a `mesh` (`parallel/distributed.py`; every tensor replicated on each
+rank) the NDT align shards the scan's points over the ranks
+(`ndt.align(mesh=)`), and insertion, finalize, swap and recentring run
+replicated, so every rank's grids stay equal bit for bit with no
+communication.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ class OdomOutput(NamedTuple):
     swapped: bool
 
 
-def chunk_step(state: OdomState, clouds, fcfg, spec: OdomSpec):
+def chunk_step(state: OdomState, clouds, fcfg, spec: OdomSpec, mesh=None):
     """Filter + odometry for a chunk of scans: the on-device step over the
     leading axis of a staged Cloud batch (io/prefetch.DeviceChunkPrefetcher),
     with no readback between the scans.
@@ -87,7 +93,7 @@ def chunk_step(state: OdomState, clouds, fcfg, spec: OdomSpec):
     for s in range(clouds.xyz.shape[0]):
         filt = filter_scan(Cloud(clouds.xyz[s], clouds.intensity[s], clouds.mask[s]),
                            fcfg)
-        state, out = step(state, filt.xyz, filt.mask, spec, on_device=True)
+        state, out = step(state, filt.xyz, filt.mask, spec, on_device=True, mesh=mesh)
         outs.append(out)
     return state, OdomOutput(*(torch.stack(field) for field in zip(*outs)))
 
@@ -134,13 +140,13 @@ def _near_edge(pose, origin, spec: OdomSpec):
 
 
 def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
-                    use_ext=None):
+                    use_ext=None, mesh=None):
     """`step` with its three branches decided on the card. With `ext_delta`
     the guess's delta is `where(use_ext, ext_delta, diff)`, `use_ext` a 0-d
     bool tensor on the state's device (the reference's `_guess`)."""
     g = spec.gspec
     delta = None if ext_delta is None else torch.where(use_ext, ext_delta, state.diff)
-    res = ndt.align(state.grid_a, xyz, mask, _guess(state, delta), g, spec.nspec)
+    res = ndt.align(state.grid_a, xyz, mask, _guess(state, delta), g, spec.nspec, mesh=mesh)
     pose = res.pose
     diff = pose - state.pose
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
@@ -174,16 +180,17 @@ def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
 
 
 def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
-         use_ext: bool = False, on_device: bool = False):
+         use_ext: bool = False, on_device: bool = False, mesh=None):
     """One odometry scan step. Returns (new_state, OdomOutput). With
     `use_ext`, `ext_delta` (float32[6] on the state's device) replaces the
     constant-velocity delta in the NDT guess. With `on_device` the step reads
     nothing back and every output is a tensor; there `use_ext` is a 0-d bool
-    tensor on the state's device, decided on the card."""
+    tensor on the state's device, decided on the card. With a `mesh` the
+    align is sharded over its ranks and the rest runs replicated."""
     if on_device:
-        return _step_on_device(state, xyz, mask, spec, ext_delta, use_ext)
+        return _step_on_device(state, xyz, mask, spec, ext_delta, use_ext, mesh)
     guess = _guess(state, ext_delta if use_ext else None)
-    res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec)
+    res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec, mesh=mesh)
     pose = res.pose
     diff = pose - state.pose
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])

@@ -22,6 +22,10 @@ grid's `fin` in its base form, the counters as int32 (`state.loop_count`,
 `__meta__` with `engine: "device"`, `kf_points`, `log_capacity` and the
 config. The port's own device keyframe counter is not written: it is the
 store's count.
+
+Under a mesh (`DeviceSlamPipeline(mesh=)`) every rank holds the same state:
+rank 0 alone writes the file, in the same layout, and `load_checkpoint(...,
+mesh=)` restores it on every rank of a group as a mesh pipeline.
 """
 
 from __future__ import annotations
@@ -59,7 +63,9 @@ def _flatten(prefix: str, tree) -> dict:
 
 def save_checkpoint(pipe, path: str) -> None:
     """Checkpoint a `SlamPipeline` or, at a chunk boundary, a
-    `DeviceSlamPipeline` to `path` (.npz)."""
+    `DeviceSlamPipeline` to `path` (.npz). A mesh pipeline's state is
+    replicated: its rank 0 writes the file and the other ranks write
+    nothing."""
     if hasattr(pipe, "state"):
         _save_device_checkpoint(pipe, path)
         return
@@ -91,6 +97,8 @@ def save_checkpoint(pipe, path: str) -> None:
 def _save_device_checkpoint(pipe, path: str) -> None:
     if pipe.state is None:
         raise ValueError("device pipeline has no state yet (no scans fed)")
+    if pipe.mesh is not None and pipe.mesh.rank != 0:
+        return
     arrays = _flatten("state", pipe.state)
     del arrays["state.kf_count"]      # the store's count; the reference has none
     meta = {
@@ -162,7 +170,7 @@ def _unflatten(data: dict, path: str, prefix: str, cls, device, extra=None):
     return cls(*vals)
 
 
-def _load_device(data: dict, meta: dict, cfg, path: str, device):
+def _load_device(data: dict, meta: dict, cfg, path: str, device, mesh=None):
     from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline, DevState
 
     for key in ("state.db.count", "state.scan_count"):
@@ -170,7 +178,7 @@ def _load_device(data: dict, meta: dict, cfg, path: str, device):
             raise ValueError(f"checkpoint {path!r} is missing {key!r}: saved by an "
                              "incompatible version of this package")
     pipe = DeviceSlamPipeline(cfg, kf_points=meta["kf_points"],
-                              log_capacity=meta["log_capacity"], device=device)
+                              log_capacity=meta["log_capacity"], device=device, mesh=mesh)
     count = int(data["state.db.count"])
     kf_count = torch.full((), count, dtype=torch.int64, device=pipe.device)
     state = _unflatten(data, path, "state", DevState, pipe.device,
@@ -179,11 +187,14 @@ def _load_device(data: dict, meta: dict, cfg, path: str, device):
     return pipe
 
 
-def load_checkpoint(path: str, device: torch.device | str = "cuda"):
-    """Restore a pipeline on `device` from a checkpoint file that this
-    package or the reference wrote: a `SlamPipeline` from a host-engine file,
-    a `DeviceSlamPipeline` from a device-engine one (ready for its next
-    chunk)."""
+def load_checkpoint(path: str, device: torch.device | str | None = None, mesh=None):
+    """Restore a pipeline on `device` (default "cuda", or the mesh's
+    device) from a checkpoint file that this package or the reference wrote:
+    a `SlamPipeline` from a host-engine file, a `DeviceSlamPipeline` from a
+    device-engine one (ready for its next chunk). With `mesh` (this rank's
+    `parallel.distributed.Mesh`; every rank of the group calls it) a
+    device-engine file becomes a mesh pipeline, its state on this rank's
+    device; a host-engine file is refused."""
     from xchu_slam_tpu_torch.config import SlamConfig
     from xchu_slam_tpu_torch.models import odometry
     from xchu_slam_tpu_torch.models.pipeline import KfDb, LoopRecord, SlamPipeline
@@ -196,8 +207,12 @@ def load_checkpoint(path: str, device: torch.device | str = "cuda"):
     meta = json.loads(bytes(data["__meta__"]).decode())
     cfg = SlamConfig.from_json(meta["config"])
     if meta.get("engine") == "device":
-        return _load_device(data, meta, cfg, path, device)
-    pipe = SlamPipeline(cfg, kf_points=meta["kf_points"], device=device)
+        return _load_device(data, meta, cfg, path, device, mesh)
+    if mesh is not None:
+        raise ValueError(f"checkpoint {path!r} is a host-engine file: only the device "
+                         "engine runs on a mesh")
+    pipe = SlamPipeline(cfg, kf_points=meta["kf_points"],
+                        device="cuda" if device is None else device)
 
     def unflatten(prefix, cls):
         return _unflatten(data, path, prefix, cls, pipe.device)

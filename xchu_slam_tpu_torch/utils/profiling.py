@@ -6,7 +6,9 @@ clock starts and before it stops: the stage is then charged its own device
 work and none of the stage before it. `device_trace` is a torch.profiler
 scope that writes a Chrome trace (chrome://tracing, Perfetto), where the
 reference writes a `jax.profiler` trace; `block_on` waits for the device
-work behind a nested structure of tensors.
+work behind a nested structure of tensors. `count_host_syncs` counts the
+host synchronisations PyTorch makes on the card inside a block (the port's
+own; the mesh engine's readbacks are counted with it).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -108,3 +111,36 @@ def block_on(tree):
     for dev in devices:
         torch.cuda.synchronize(dev)
     return tree
+
+
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def count_host_syncs(enabled: bool = True):
+    """Count the host synchronisations PyTorch makes on CUDA tensors inside
+    the block (a readback, `.item()`, a stream or device synchronise): the
+    block runs under `torch.cuda.set_sync_debug_mode("warn")` and its
+    warnings are counted, not shown. A synchronise made through `ctypes` is
+    not seen. Yields a dict whose `"syncs"` is set on exit (None where not
+    `enabled`); the block's other warnings are shown on exit. The mode and
+    the warnings filter are the process's: threads beside the block are
+    counted too."""
+    out = {"syncs": None}
+    if not enabled:
+        yield out
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield out
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+    finally:
+        others = [w for w in seen if _SYNC_WARNING not in str(w.message)]
+        out["syncs"] = len(seen) - len(others)
+        for w in others:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
