@@ -64,13 +64,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
               group of ranks (`cli.run_on_mesh`: fresh interpreters, gloo
               with the ranks on card 0 where the machine has fewer cards
               than ranks), held to phase 8's single-device run of the
-              circuit, run here first: (a) `run-sim --engine device --chunk
-              16 --mesh 2 --checkpoint-every 200 --out <tmp>` on the circuit
+              circuit (the whole run makes 5c after phase 8 and gives it
+              that run; --mesh-only makes it first): (a) `run-sim --engine
+              device --chunk 16 --mesh 2 --checkpoint-every 200 --out <tmp>`
+              on the circuit
               (ranks agree, keyframes within ±2 of phase 8's, loops ≥ 1,
               aligned ATE < 1.0 m, the export read back), then its
               checkpoint resumed on the mesh for 2 chunks (rows bit-identical
               on both ranks); (b) NCCL D = 1 through `DeviceSlamPipeline(mesh=)`
-              on the first 64 scans (rows within 1e-4 of phase 8's); (c)
+              on the first 32 scans (rows within 1e-4 of phase 8's); (c)
               `--loop-method isc --imu --wheel --gps` at D = 2 (loops ≥ 1, a
               guess launch a scan on every rank); (d) `--continue-session` of
               (a)'s checkpoint at D = 2 over 96 scans (relocalized within 2
@@ -80,8 +82,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
               ATE < 1.0 m). Every rank of every run launches the NDT
               kernel's shard pass on every align and never the align
               kernel, the PGO kernel, and where it verified a loop the NN
-              kernel, icp_partial and icp_solve. Prints each run's launches
-              a rank, host synchronisations (sync debug mode "warn"),
+              kernel, icp_partial and icp_solve with ≥ 1 live ICP trip.
+              Prints each run's launches and live ICP trips a rank, host
+              synchronisations (sync debug mode "warn"),
               collectives and host-staged collectives a scan, scans/s and
               stage seconds beside phase 8's
   6. session  the sensor-aided mapping session through the CLI's functions,
@@ -167,7 +170,8 @@ After phase 9:
               floor, ptxas's figures; (b) the jacobi PGO kernel against
               `solve_ref` with jacobi at 163 and 2048 live (|Δpose| ≤ 1e-4),
               CG trips, ms a launch; (c) `run-sim --engine device --chunk 16`
-              on the circuit with each `--set` of MODE_SETTINGS, twice:
+              on the circuit with each `--set` of MODE_SETTINGS, then again
+              (an NDT mode's first 64 scans, jacobi's whole circuit):
               keyframes, loops, aligned ATE, Newton iterations and trials a
               scan, scans/s, NDT and PGO launches (≥ 1 loop, ATE < 1.0 m, the
               rerun bit-identical)
@@ -1528,6 +1532,7 @@ def phase_device_engine(host_summary: dict) -> dict:
             raise AssertionError("device: --out does not hold the run")
         print(f"device: --out read back: odom_tum {len(stamps)} rows, odom_log "
               f"{log_rows} rows, {len(paths)} files")
+        single = _single_reference(pipe, summary)
     del pipe
     torch.cuda.empty_cache()
 
@@ -1562,7 +1567,7 @@ def phase_device_engine(host_summary: dict) -> dict:
     print(f"device: {DEV_RERUN_SCANS} scans twice, poses bit-identical")
     return {"paths": {"device": dev_counts, "device_radius_gps": radius_counts},
             "profile": prof, "profile_part_a": prof_a, "summary": summary,
-            "chunks": chunks}
+            "chunks": chunks, "single": single}
 
 
 BATCH_SIZES = (1, 4, 8)
@@ -1820,6 +1825,10 @@ NDT_MODES = (("backtrack", "direct1"), ("backtrack", "direct26"), ("backtrack", 
 MODE_SETTINGS = ("ndt.ls_mode=mt_exact", "ndt.ls_mode=ref_clamped", "ndt.neighbor_mode=direct1",
                  "ndt.neighbor_mode=direct26", "ndt.neighbor_mode=kdtree", "pgo.precond=jacobi")
 MODE_SAME_COUNTS = 60     # of the 64 aligns: the plain version's iteration and trial counts
+# an NDT mode's rerun: the circuit's first scans (4 chunks; the runs are
+# prefix-stable), its odometry rows bit for bit against the whole run's; the
+# PGO mode's rerun is the whole circuit, its loops' solves included
+MODE_RERUN_SCANS = 64
 # m and rad, on the aligns whose counts are equal. Where the plain version
 # is not reproducible to it on another device (ref_clamped's fixed trans_eps/2
 # step along a direction taken from a gradient near 0 is rounding-chaotic:
@@ -2034,11 +2043,12 @@ def phase_pgo_jacobi(smi: str, pgo_floor: dict) -> dict:
 
 def phase_mode_circuits() -> dict:
     """(c) The circuit through `run-sim --engine device --chunk 16` once in each
-    mode (MODE_SETTINGS), then again: keyframes, loops, aligned ATE, Newton
-    iterations and line-search trials a scan (the kernel records' trial slots
-    summed on the card, inside Part A's graph), scans/s, the NDT and PGO
-    launches; ≥ 1 loop, ATE < 1.0 m, NDT launches ≥ one a scan, PGO launches
-    for every accepted loop, the rerun bit-identical."""
+    mode (MODE_SETTINGS), then again (an NDT mode's first MODE_RERUN_SCANS
+    scans): keyframes, loops, aligned ATE, Newton iterations and line-search
+    trials a scan (the kernel records' trial slots summed on the card, inside
+    Part A's graph), scans/s, the NDT and PGO launches; ≥ 1 loop, ATE < 1.0
+    m, NDT launches ≥ one a scan, PGO launches for every accepted loop, the
+    rerun bit-identical."""
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
 
@@ -2066,10 +2076,11 @@ def phase_mode_circuits() -> dict:
                                 summary["loops"], _inloop_gn(pipe))
             del pipe
             torch.cuda.empty_cache()
-            again, _summary = cli.run_sim(SCANS, RADIUS, SEED, "cuda", overrides=(setting,),
+            n_again = SCANS if setting.startswith("pgo.") else MODE_RERUN_SCANS
+            again, _summary = cli.run_sim(n_again, RADIUS, SEED, "cuda", overrides=(setting,),
                                           engine="device", chunk=DEV_CHUNK)
-            same = (np.array_equal(again.odometry_trajectory(), traj)
-                    and np.array_equal(again.keyframe_trajectory()[2], kf))
+            same = np.array_equal(again.odometry_trajectory(), traj[:n_again]) and (
+                n_again < SCANS or np.array_equal(again.keyframe_trajectory()[2], kf))
             del again
             torch.cuda.empty_cache()
             row = {"setting": setting, "keyframes": summary["keyframes"],
@@ -2077,7 +2088,8 @@ def phase_mode_circuits() -> dict:
                    "mean_newton_iterations": round(iters, 3),
                    "trials_per_scan": round(trials_per_scan, 3),
                    "scans_per_sec": summary["scans_per_sec"], "ndt_launches": counts["ndt"],
-                   "pgo_launches": counts["pgo"], "rerun_bit_identical": same,
+                   "pgo_launches": counts["pgo"], "rerun_scans": n_again,
+                   "rerun_bit_identical": same,
                    "launches": counts}
             out[setting] = row
             print("mode_circuit: " + json.dumps({k: v for k, v in row.items()
@@ -2241,7 +2253,8 @@ def phase_sources(smi: str) -> dict:
     paths = {}
     dev = {"kind": "run_sim", "scans": SCANS, "radius": RADIUS, "seed": SEED,
            "device": "cuda", "engine": "device", "chunk": 16}
-    # staging threads, then workers (two turns: the whole run's time limit)
+    # staging threads, then workers (two turns, not four: with four the whole
+    # run took 1198.4 s of its 1200 s on one H100 machine)
     procs_run = {**dev, "render_procs": SOURCES_PROCS}
     ab = [_sources_call(name, [run])[0] for name, run in (
         ("device", dev), ("device --render-procs", procs_run))]
@@ -2691,6 +2704,8 @@ MESH_SUPERSTEPS = 8       # slam_superstep on the first scans of those
 MESH_SAME_ITERS = 0.9     # share of aligns with the single-device kernel's Newton count
 MESH_GROUP_TIMEOUT = 300  # s, a group's whole run, interpreters started to results read
 MESH_KERNELS = ("nn", "ndt_pass", "icp_partial", "icp_solve", "pgo")
+# the kernels line's other keys of a path, counted in the mesh groups too
+MESH_PATH_KEYS = ("ndt", "icp_step", "guess", "icp_live_trips")
 # the (backend, ranks) of the groups on one card: several ranks share it over
 # gloo (each collective staged through pinned host memory), NCCL puts one
 # rank on a card
@@ -2707,21 +2722,29 @@ ICP_SPLIT_FLOP_PT = {"partial0": 2 * 8 + 15, "partial1": 2 * 12 + 15, "solve": 2
 
 
 def _mesh_counts() -> dict:
-    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.ops import icp
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                             pgo_kernel)
     from xchu_slam_tpu_torch.utils import collectives
 
-    return {"nn": nn_kernel.launches, "ndt_pass": ndt_kernel.pass_launches,
+    return {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches,
+            "ndt_pass": ndt_kernel.pass_launches, "icp_step": icp_kernel.launches,
             "icp_partial": icp_kernel.partial_launches,
             "icp_solve": icp_kernel.solve_launches, "pgo": pgo_kernel.launches,
+            "guess": guess_kernel.launches, "icp_live_trips": icp.live_trip_count(),
             "collectives": collectives.collectives, "host_staged": collectives.host_staged}
 
 
 def _mesh_reset() -> None:
-    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.ops import icp
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                             pgo_kernel)
     from xchu_slam_tpu_torch.utils import collectives
 
-    nn_kernel.launches = ndt_kernel.pass_launches = pgo_kernel.launches = 0
+    nn_kernel.launches = ndt_kernel.launches = ndt_kernel.pass_launches = 0
+    pgo_kernel.launches = icp_kernel.launches = guess_kernel.launches = 0
     icp_kernel.partial_launches = icp_kernel.solve_launches = 0
+    icp.live_trips.clear()
     collectives.collectives = collectives.host_staged = 0
 
 
@@ -3118,9 +3141,9 @@ def _check_group(name: str, ranks: list, want: dict) -> dict:
             raise AssertionError(f"mesh {name}: slam_superstep on scan {k} differs from its "
                                  f"components: candidate {cand} against ({wdist}, {wbest})")
     launches = ranks[0]["launches"]
-    total = {k: sum(v[k] for v in launches.values()) for k in (*MESH_KERNELS, "collectives",
-                                                                  "host_staged")}
-    missing = [k for k in MESH_KERNELS if total[k] < 1]
+    total = {k: sum(v[k] for v in launches.values())
+             for k in (*MESH_KERNELS, *MESH_PATH_KEYS, "collectives", "host_staged")}
+    missing = [k for k in (*MESH_KERNELS, "icp_live_trips") if total[k] < 1]
     staged = total["host_staged"] > 0
     if missing or staged != (ranks[0]["backend"] == "gloo" and ranks[0]["device"] != "cpu"):
         raise AssertionError(f"mesh {name}: kernels not launched {missing}, host-staged "
@@ -3181,13 +3204,23 @@ def phase_mesh(smi: str, rec: dict) -> dict:
     return {"entry": entry, "groups": records}
 
 
-MESH_ENGINE_D1_SCANS = 64     # (b): NCCL D = 1 through DeviceSlamPipeline(mesh=)
+MESH_ENGINE_D1_SCANS = 32     # (b): NCCL D = 1 through DeviceSlamPipeline(mesh=)
 MESH_ENGINE_D4_SCANS = 32     # (e): the SC circuit's first scans at gloo D = 4
 MESH_ENGINE_CONT_SCANS = 96   # (d): the continued session
 MESH_ENGINE_KITTI_SCANS = 32  # (f): run-kitti's HDL-64-density files
 MESH_ENGINE_TOL = 1e-4        # m and rad: (b)'s rows against phase 8's
 MESH_ENGINE_KF = 2            # keyframes within ±2 of phase 8's
-MESH_ENGINE_TIMEOUT = 600     # s, a launched group of the chip's own rank bodies
+
+
+def _single_reference(pipe, summary: dict) -> dict:
+    """What phase 5c holds its runs to, from phase 8's single-device run of
+    the circuit (`run-sim --engine device --chunk 16`): its summary's
+    keyframes, loops, ATE, rate and stage seconds, its per-scan odometry,
+    and its keyframes over the first MESH_ENGINE_D4_SCANS scans."""
+    return {"summary": {k: summary[k] for k in ("keyframes", "loops", "ate_rmse_m",
+                                                 "scans_per_sec", "stage_seconds")},
+            "odometry": pipe.odometry_trajectory(),
+            "kf_d4": sum(1 for r in pipe.odom_log[:MESH_ENGINE_D4_SCANS] if r["keyframe"])}
 
 
 def _mesh_engine_feed(pipe, first: int, n_scans: int, device) -> None:
@@ -3240,11 +3273,10 @@ def mesh_resume_rank(mesh, ckpt: str, chunks: int) -> dict:
     return {"saved": saved, "odometry": again.odometry_trajectory()}
 
 
-def _mesh_engine_path(counters: dict) -> dict:
-    """A rank's launches as the kernels line's paths hold them."""
-    return {"nn": counters["nn"], "ndt": counters["ndt"], "pgo": counters["pgo"],
-            "icp_step": counters["icp_step"], "guess": counters["guess"], "icp_live_trips": 0,
-            **{k: counters[k] for k in ("ndt_pass", "icp_partial", "icp_solve")}}
+def _mesh_path(counters: dict) -> dict:
+    """A rank's launches and live ICP trips as the kernels line's paths hold
+    them."""
+    return {k: counters[k] for k in (*MESH_KERNELS, *MESH_PATH_KEYS)}
 
 
 def _check_mesh_engine_run(name: str, smi: str, summary: dict, ranks: list, aligns: int,
@@ -3261,9 +3293,7 @@ def _check_mesh_engine_run(name: str, smi: str, summary: dict, ranks: list, alig
                                         "scans_per_sec", "stream_scans_per_sec", "reader")}
     line.update(mesh=summary["mesh"], backend=summary["backend"],
                 ranks_agree=summary["ranks_agree"], pose_hash=summary["pose_hash"],
-                launches_per_rank=[{k: c[k] for k in ("nn", "ndt", "ndt_pass", "icp_step",
-                                                      "icp_partial", "icp_solve", "pgo",
-                                                      "guess")} for c in counters],
+                launches_per_rank=[_mesh_path(c) for c in counters],
                 verifications_per_rank=[c["icp_verifications"] for c in counters],
                 host_syncs_per_scan=[None if c["host_syncs"] is None
                                      else round(c["host_syncs"] / scans, 2) for c in counters],
@@ -3279,38 +3309,40 @@ def _check_mesh_engine_run(name: str, smi: str, summary: dict, ranks: list, alig
         if c["ndt_pass"] < aligns or c["ndt"] != 0:
             raise AssertionError(f"mesh_engine {name}: rank {r} made {c['ndt_pass']} shard "
                                  f"passes over {aligns} aligns and {c['ndt']} align launches")
-        if c["icp_verifications"] and min(c["nn"], c["icp_partial"], c["icp_solve"]) < 1:
+        if c["icp_verifications"] and min(c["nn"], c["icp_partial"], c["icp_solve"],
+                                          c["icp_live_trips"]) < 1:
             raise AssertionError(f"mesh_engine {name}: rank {r} verified "
                                  f"{c['icp_verifications']} loops with launches {c}")
         if c["pgo"] < 1:
             raise AssertionError(f"mesh_engine {name}: rank {r} launched no PGO kernel")
     if not summary["ranks_agree"]:
         raise AssertionError(f"mesh_engine {name}: the ranks disagree")
-    return _mesh_engine_path(counters[0])
+    return _mesh_path(counters[0])
 
 
-def phase_mesh_engine(smi: str) -> dict:
+def phase_mesh_engine(smi: str, single: dict | None) -> dict:
     """The mesh device engine (`DeviceSlamPipeline(mesh=)`) through the
     CLI's functions at run-sim's width, each run a group of ranks started by
     `cli.run_on_mesh` (fresh interpreters; gloo with the ranks sharing card
     0 where the machine has fewer cards than ranks, NCCL a card a rank
-    otherwise), held to phase 8's single-device run of the circuit (run
-    here first). Returns the launches of every run's rank 0 by path."""
+    otherwise), held to phase 8's single-device run of the circuit
+    (`single`, `_single_reference`; with --mesh-only, where phase 8 does not
+    run, that run is made here first). Returns the launches of every run's
+    rank 0 by path."""
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.io import kitti
     from xchu_slam_tpu_torch.parallel import distributed
 
     t_phase = time.perf_counter()
-    (pipe, single), _counts = _count_launches(lambda: cli.run_sim(
-        SCANS, RADIUS, SEED, "cuda", engine="device", chunk=DEV_CHUNK))
-    single_odo = pipe.odometry_trajectory()
-    kf64 = sum(1 for r in pipe.odom_log[:MESH_ENGINE_D4_SCANS] if r["keyframe"])
-    ref = {k: single[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
-                                  "stage_seconds")}
+    if single is None:
+        pipe, summary = cli.run_sim(SCANS, RADIUS, SEED, "cuda", engine="device",
+                                    chunk=DEV_CHUNK)
+        single = _single_reference(pipe, summary)
+        del pipe
+        torch.cuda.empty_cache()
+    ref, single_odo, kf64 = single["summary"], single["odometry"], single["kf_d4"]
     print(f"mesh_engine [{smi}]: phase 8's run (run-sim --engine device --chunk 16, one "
           f"device) " + json.dumps(ref))
-    del pipe
-    torch.cuda.empty_cache()
     gt_rel = cli._gt_in_map_frame(cli._sim_world_and_traj(SCANS, RADIUS, SEED)[1])
     paths = {}
     base = dict(radius=RADIUS, seed=SEED, device="cuda", engine="device", chunk=DEV_CHUNK)
@@ -3348,7 +3380,8 @@ def phase_mesh_engine(smi: str) -> dict:
         backend, dev = cli._mesh_transport(2, "cuda")
         resumed = distributed.launch(2, "chip_smoke:mesh_resume_rank", (ckpt, RESUME_CHUNKS),
                                      backend=backend, device=dev,
-                                     timeout_s=MESH_ENGINE_TIMEOUT, path=(_HERE,))
+                                     timeout_s=cli.mesh_timeout(RESUME_CHUNKS * DEV_CHUNK),
+                                     path=(_HERE,))
         lo = resumed[0]["saved"]
         hi = lo + RESUME_CHUNKS * DEV_CHUNK
         for r, res in enumerate(resumed):
@@ -3363,10 +3396,11 @@ def phase_mesh_engine(smi: str) -> dict:
         t0 = time.perf_counter()
         one = distributed.launch(1, "chip_smoke:mesh_engine_rank", (MESH_ENGINE_D1_SCANS,),
                                  backend="nccl", device="cuda",
-                                 timeout_s=MESH_ENGINE_TIMEOUT, path=(_HERE,))[0]
+                                 timeout_s=cli.mesh_timeout(MESH_ENGINE_D1_SCANS),
+                                 path=(_HERE,))[0]
         err = float(np.abs(one["odometry"] - single_odo[:MESH_ENGINE_D1_SCANS]).max())
         c = one["counters"]
-        paths["mesh_engine library nccl D=1"] = _mesh_engine_path(c)
+        paths["mesh_engine library nccl D=1"] = _mesh_path(c)
         print(f"mesh_engine [{smi}] library nccl D=1: {MESH_ENGINE_D1_SCANS} scans, max "
               f"|Δrow| against phase 8's {err:.3g}; launches {json.dumps(c)}; host syncs "
               f"{c['host_syncs'] / MESH_ENGINE_D1_SCANS:.2f} and collectives "
@@ -3440,8 +3474,14 @@ def main() -> int:
         sources_child(json.loads(sys.argv[sys.argv.index("--sources-child") + 1]))
         return 0
     t0 = time.perf_counter()
+
+    def mark(done: str) -> None:
+        # where the whole run's time limit goes
+        print(f"elapsed after {done}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
     smi = phase_device()
     ptxas = phase_build()
+    mark("build")
     if "--sources-only" in sys.argv[1:]:
         phase_sources(smi)
         return 0
@@ -3455,6 +3495,7 @@ def main() -> int:
     pgo_rec = None if only_device else phase_pgo_kernel(smi)
     icp_rec = None if only_device else phase_icp_kernel(smi)
     guess_rec = None if only_device else phase_guess_kernel(smi)
+    mark("the kernel phases")
     if "--kernels-only" in sys.argv[1:]:
         return 0
     if "--modes-only" in sys.argv[1:]:
@@ -3466,10 +3507,12 @@ def main() -> int:
     run_mesh = mesh_only or not only_device
     record = {} if run_mesh else None
     launches, host_summary = phase_main(record)
+    mark("main")
     mesh = phase_mesh(smi, record) if run_mesh else None
+    mark("mesh")
     del record
-    engine = phase_mesh_engine(smi) if run_mesh else None
     if mesh_only:
+        phase_mesh_engine(smi, None)
         return 0
     if "--extras-only" in sys.argv[1:]:
         phase_extras(smi, launches, host_summary)
@@ -3478,20 +3521,21 @@ def main() -> int:
         phase_device_session(smi, phase_device_engine(host_summary))
         return 0
     # the mesh groups' launches a rank (the single-device kernels' keys too)
-    mesh_paths = {f"mesh {name}": {"nn": g["total"]["nn"], "ndt": 0, "pgo": g["total"]["pgo"],
-                                   "icp_step": 0, "guess": 0, "icp_live_trips": 0,
-                                   **{k: g["total"][k] for k in ("ndt_pass", "icp_partial",
-                                                                 "icp_solve")}}
-                  for name, g in mesh["groups"].items()}
-    # the mesh engine's runs: rank 0's launches
-    mesh_paths.update(engine["paths"])
+    mesh_paths = {f"mesh {name}": _mesh_path(g["total"]) for name, g in mesh["groups"].items()}
     by_path = {"main": launches, **mesh_paths, **phase_session()}
     phase_determinism()
+    mark("session and determinism")
     dev = phase_device_engine(host_summary)
     by_path.update(dev["paths"])
+    mark("device")
+    # the mesh engine's runs, held to phase 8's: rank 0's launches
+    mesh_paths.update(phase_mesh_engine(smi, dev.pop("single"))["paths"])
+    by_path.update(mesh_paths)
+    mark("mesh_engine")
     sess = phase_device_session(smi, dev)
     by_path.update(sess["paths"])
     del dev
+    mark("device_session")
     # the modes: their kernels against their plain versions, then the circuit
     ndt_modes = phase_ndt_modes(smi, ptxas, ndt_rec["floor"])
     pgo_jacobi = phase_pgo_jacobi(smi, pgo_rec["floor"])
@@ -3503,7 +3547,9 @@ def main() -> int:
         setting = f"ndt.ls_mode={ls}" if ls != "backtrack" else f"ndt.neighbor_mode={nb}"
         rec_m["circuit"] = circuits[setting]
     pgo_jacobi["circuit"] = circuits["pgo.precond=jacobi"]
+    mark("modes")
     by_path.update(phase_sources(smi)["paths"])
+    mark("sources")
     by_path.update(phase_extras(smi, launches, host_summary)["paths"])
 
     def per_path(key):

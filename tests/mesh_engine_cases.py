@@ -126,13 +126,24 @@ def _state_arrays(state) -> dict:
 def _recording_align(align, record: list):
     """`align` (`ndt.align`) that, on a mesh, also aligns the same inputs
     through the single-device route and records (mesh iterations,
-    single-device iterations, max |Δpose|) of every call."""
+    single-device iterations, max |Δpose|, max |Δpose| against the
+    single-device route held to the mesh's iteration count) of every call.
+    The last runs the single-device route with no convergence stop
+    (trans_eps 0) for exactly the mesh's Newton iterations; where the two
+    counts agree it is the third."""
     def recording(grid, xyz, mask, init, gspec, nspec, mesh=None):
         res = align(grid, xyz, mask, init, gspec, nspec, mesh=mesh)
         if mesh is not None:
             ref = ndt.align_ref(grid, xyz, mask, init, gspec, nspec)
-            record.append((int(res.iterations), int(ref.iterations),
-                           float((res.pose - ref.pose).abs().max())))
+            its, ref_its = int(res.iterations), int(ref.iterations)
+            dpose = float((res.pose - ref.pose).abs().max())
+            if its != ref_its:
+                held = ndt.align_ref(grid, xyz, mask, init, gspec,
+                                     nspec._replace(max_iterations=its, trans_eps=0.0))
+                held_dpose = float((res.pose - held.pose).abs().max())
+            else:
+                held_dpose = dpose
+            record.append((its, ref_its, dpose, held_dpose))
         return res
 
     return recording

@@ -211,10 +211,17 @@ def _reference_engine(scans, D):
 
 SAME_ITERS = 0.9      # share of aligns with the single-device route's Newton count
 # m and rad, on those aligns: sum orders part an ill-conditioned align of
-# these 3000-point scans by up to ~5e-4 at the same count (the reference's
-# own sharded-align test holds 5e-2 m and 2e-2 rad, to the truth)
+# these 3000-point scans by up to ~5e-4 at the same count, where the one
+# well-conditioned align of tests/test_torch_parallel.py agrees to 1e-4 (the
+# reference's own sharded-align test holds 5e-2 m and 2e-2 rad, to the truth)
 ALIGN_TOL = 1e-3
+# m and rad, on every align against the single-device route held to the
+# mesh's Newton count: the NDT spec's trans_eps, the step its convergence
+# test takes for none (a backtracking trial that flips with the sum order
+# changes one step of the same count)
+HELD_TOL = 1e-2
 KF_TOL_M = 0.15       # the reference test's keyframe bound (tests/test_mesh_engine.py:101)
+ODOM_TOL_M = 0.15     # the reference test's per-scan odometry bound (its :152), at D = 2
 
 
 def _keyframes_at_common_stamps(a_stamps, a_opt, b_stamps, b_opt) -> np.ndarray:
@@ -231,15 +238,16 @@ def test_mesh_engine_matches_reference_and_single(D, revisit, single_run, engine
     log rows, keyframe store and loop table equal bit for bit; against the
     reference's mesh engine at D devices and the port's single-device
     engine, the reference test's bounds: the same scan count, loops ≥ 1 and
-    within ±1, keyframes within ±1, and the loop-closed keyframe poses made
-    at the same scan within 0.15 m. The open odometry chain is held align
-    by align (ROADMAP's rule for chains): each of the session's aligns
-    against the single-device route on the same inputs, the same Newton
-    count on ≥ 90 % and |Δpose| ≤ 1e-3 on those. (Per scan, the chains
-    themselves part by up to 0.12 m at D = 2 and 0.21 m at D = 4, where one
-    align of a non-PD Hessian stops on a short shifted-Newton step; the
-    reference's own mesh engine parts from its single-device engine by
-    0.14 m at D = 2.)"""
+    within ±1, keyframes within ±1, the loop-closed keyframe poses made at
+    the same scan within 0.15 m, and at D = 2 the per-scan odometry within
+    0.15 m. Every align of the session is also held against the
+    single-device route on the same inputs: the same Newton count on ≥ 90 %
+    and |Δpose| ≤ 1e-3 on those, and on every align |Δpose| ≤ 1e-2 against
+    that route held to the mesh's count. (At D = 4 the chain parts from
+    both by 0.21 m, every align of it agreeing to 2.1e-4 at the same count:
+    a state that parted at the last ulp makes an ill-conditioned align stop
+    elsewhere, and the chain carries that on; the reference's own mesh
+    engine parts from its single-device engine by 0.14 m at D = 2.)"""
     scans, _, _ = revisit
     group = engine_runs(D)
     ref = _reference_engine(scans, D)
@@ -263,11 +271,17 @@ def test_mesh_engine_matches_reference_and_single(D, revisit, single_run, engine
         assert abs(mine["loop_count"] - other_loops) <= 1
         d = _keyframes_at_common_stamps(*kf, other_stamps, other_opt)
         assert len(d) > n // 2 and d.max() < KF_TOL_M, d.max()
+    if D == 2:
+        odo = mine["odometry"][:, :3]
+        for other in (single["odometry"], ref.odometry_trajectory()):
+            d = np.linalg.norm(odo - np.asarray(other)[:, :3], axis=1)
+            assert d.max() < ODOM_TOL_M, d.max()
     aligns = np.asarray(ranks[0]["aligns"])
     assert len(aligns) == len(scans) - 1
     same = aligns[:, 0] == aligns[:, 1]
     assert same.mean() >= SAME_ITERS and aligns[same, 2].max() <= ALIGN_TOL, \
         (same.mean(), aligns[same, 2].max())
+    assert aligns[:, 3].max() <= HELD_TOL, aligns[~same].tolist()
 
 
 def test_mesh_checkpoint_resume_is_bit_identical(engine_runs):

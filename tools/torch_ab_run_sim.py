@@ -15,15 +15,13 @@ order first, second, second, first. Each turn is a fresh process that runs
 the circuit twice (the first run holds the cold start: CUDA context, lazy
 kernel loading, the nvcc build; the second is warm). Prints one JSON line per
 process, one with the rates per side and, last, whether the two sides'
-results are bit-identical (a hash of the odometry and optimised keyframe
-poses beside keyframes, loops and ATE) and made the same kernel launches
-(each wrapper's count, set to 0 before a run). Each row also carries
-`chip_smoke.py`'s pose hash (the odometry, and both keyframe trajectories).
-Every side must agree with
-itself in all its turns (keyframes, loops, ATE): two trees may align with
-another arithmetic, and the two engines see scans with different noise (the
-device engine renders each from a generator of its own). The card's name and
-power limit come first.
+results are bit-identical (`chip_smoke.py`'s pose hash, of the odometry and
+both keyframe trajectories, beside keyframes, loops and ATE) and made the
+same kernel launches (each wrapper's count, set to 0 before a run). Every
+side must agree with itself in all its turns (keyframes, loops, ATE): two
+trees may align with another arithmetic, and the two engines see scans with
+different noise (the device engine renders each from a generator of its
+own). The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -47,9 +45,7 @@ for _ in range(2):
     row = {{k: s[k] for k in ("keyframes", "loops", "ate_rmse_m", "scans_per_sec",
                               "stage_seconds") if k in s}}
     row["launches"] = {{k: mod.launches for k, mod in KERNELS.items()}}
-    # the poses themselves: the odometry and the optimised keyframes, bit for bit
-    row["poses_sha256"] = hashlib.sha256(pipe.odometry_trajectory().tobytes()
-                                         + pipe.keyframe_trajectory()[2].tobytes()).hexdigest()[:16]
+    # the poses themselves, bit for bit: the odometry and both keyframe trajectories
     _st, kf_odo, kf_opt = pipe.keyframe_trajectory()
     row["pose_hash"] = hashlib.sha256(pipe.odometry_trajectory().tobytes() + kf_odo.tobytes()
                                       + kf_opt.tobytes()).hexdigest()[:16]
@@ -95,7 +91,7 @@ def main() -> int:
 
     def results(names):
         return {json.dumps({k: r[k] for k in ("keyframes", "loops", "ate_rmse_m",
-                                              "poses_sha256", "pose_hash", "launches")})
+                                              "pose_hash", "launches")})
                 for name in names for both in runs[name] for r in both}
 
     for names in ([name] for name in sides):

@@ -53,8 +53,6 @@ CONFIG = {
 KF_POINTS = 4096
 LOG_CAPACITY = 256
 ODOM_TOL_M = 0.15        # the reference's mesh-engine test bound on an odometry chain
-TIMEOUT_S = 120.0        # a group's start-up, then per scan
-TIMEOUT_PER_SCAN_S = 6.0
 
 
 def _hash(a) -> str:
@@ -103,10 +101,10 @@ def launch(scans: int = 48, radius: float = 12.0, device: str = "cpu",
     """The single-device engine and a group of each size in `worlds` on the
     scenario; returns the comparison (topologies, `procs_agree`, counts,
     hashes, `within_tolerance_of_single`, seconds)."""
-    from xchu_slam_tpu_torch.cli import _mesh_transport
+    from xchu_slam_tpu_torch.cli import _mesh_transport, mesh_timeout
     from xchu_slam_tpu_torch.parallel import distributed
 
-    timeout = TIMEOUT_S + TIMEOUT_PER_SCAN_S * scans
+    timeout = mesh_timeout(scans)
     backend, dev = _mesh_transport(1, device)
     t0 = time.perf_counter()
     single = distributed.launch(1, "torch_run_mp_spmd:run", (scans, radius, False),

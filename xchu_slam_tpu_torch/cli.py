@@ -662,6 +662,11 @@ MESH_TIMEOUT_S = 120.0
 MESH_TIMEOUT_PER_SCAN_S = 3.0
 
 
+def mesh_timeout(n_scans: int) -> float:
+    """The bound of a launched group that feeds `n_scans` scans."""
+    return MESH_TIMEOUT_S + MESH_TIMEOUT_PER_SCAN_S * n_scans
+
+
 def _mesh_transport(world: int, device: str) -> tuple[str, str]:
     """(backend, device) of a group of `world` ranks: NCCL, a card a rank,
     where a CUDA device sees `world` cards; else gloo, on card 0 for a CUDA
@@ -681,12 +686,11 @@ def _mesh_scans(command: str, kwargs: dict) -> int:
 
         n = len(kitti.list_velodyne_dir(kwargs["velodyne_dir"]))
         return min(n, kwargs["max_scans"]) if kwargs.get("max_scans") else n
-    if kwargs.get("scans"):
-        return kwargs["scans"]
     if kwargs.get("trajectory"):
-        with open(kwargs["trajectory"]) as f:
-            return sum(1 for line in f if line.strip() and not line.startswith("#"))
-    return 400
+        from xchu_slam_tpu_torch.utils import sim
+
+        return len(sim.tum_trajectory_poses(kwargs["trajectory"], kwargs.get("scans") or 0)[0])
+    return kwargs.get("scans") or 400
 
 
 def pose_hash(pipe) -> str:
@@ -698,9 +702,11 @@ def pose_hash(pipe) -> str:
 
 
 def rank_counters(pipe) -> dict:
-    """This process's kernel launches (each wrapper's count), collectives and
-    host-staged collectives, and the device engine `pipe`'s chunk readbacks
-    and ICP verifications."""
+    """This process's kernel launches (each wrapper's count), live ICP trips
+    on the card (`icp.live_trip_count`), collectives and host-staged
+    collectives, and the device engine `pipe`'s chunk readbacks and ICP
+    verifications."""
+    from xchu_slam_tpu_torch.ops import icp
     from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
                                              pgo_kernel)
     from xchu_slam_tpu_torch.utils import collectives
@@ -709,7 +715,8 @@ def rank_counters(pipe) -> dict:
             "ndt_pass": ndt_kernel.pass_launches, "icp_step": icp_kernel.launches,
             "icp_partial": icp_kernel.partial_launches,
             "icp_solve": icp_kernel.solve_launches, "pgo": pgo_kernel.launches,
-            "guess": guess_kernel.launches, "collectives": collectives.collectives,
+            "guess": guess_kernel.launches, "icp_live_trips": icp.live_trip_count(),
+            "collectives": collectives.collectives,
             "host_staged": collectives.host_staged,
             "chunk_readbacks": pipe.chunk_readbacks,
             "icp_verifications": pipe.icp_verifications}
@@ -750,13 +757,12 @@ def run_on_mesh(command: str, kwargs: dict, world: int):
     """Run `command` ("run-sim" or "run-kitti", with the keyword arguments
     of `run_sim` / `run_kitti`; `kwargs["device"]` picks the transport, see
     `_mesh_transport`) on a group of `world` ranks started by
-    `parallel/distributed.launch`, bounded by MESH_TIMEOUT_S +
-    MESH_TIMEOUT_PER_SCAN_S a scan. Returns (the summary, every rank's
+    `parallel/distributed.launch`, bounded by `mesh_timeout`. Returns (the summary, every rank's
     result as `mesh_rank` returns it)."""
     from xchu_slam_tpu_torch.parallel import distributed
 
     backend, device = _mesh_transport(world, kwargs.get("device", "cuda"))
-    timeout = MESH_TIMEOUT_S + MESH_TIMEOUT_PER_SCAN_S * _mesh_scans(command, kwargs)
+    timeout = mesh_timeout(_mesh_scans(command, kwargs))
     ranks = distributed.launch(world, "xchu_slam_tpu_torch.cli:mesh_rank", (command, kwargs),
                                backend=backend, device=device, timeout_s=timeout)
     return _mesh_summary(ranks[0]["summary"], [r["pose_hash"] for r in ranks], backend), ranks

@@ -61,8 +61,9 @@ class IcpResult(NamedTuple):
     # moving at the cap is rejected by the loop gate)
 
 
-# ICP iterations the graph route ran, per device (a tensor there, added to
-# after each replay without a readback); `live_trip_count` reads them
+# ICP iterations the card's routes ran, per device (a tensor there: the graph
+# route adds to it after each replay without a readback, the sharded route
+# the trips its host loop ran); `live_trip_count` reads them
 live_trips: dict = {}
 
 
@@ -188,9 +189,11 @@ def _align_sharded_cuda(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec, run
     st = torch.empty(icp_kernel.STATE_FLOATS, dtype=torch.float32, device=dev)
     cur = torch.empty_like(src)
     icp_kernel.init(src, init_T.to(torch.float32).contiguous(), run, st, cur)
+    trips = 0
     for _ in range(spec.max_iterations):
         if not bool(st[slot["live"]] > 0.5):
             break
+        trips += 1
         idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tgt_mask)
         s8 = collectives.shard_allsum(
             icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 0), mesh)
@@ -198,6 +201,9 @@ def _align_sharded_cuda(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec, run
             icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 1, s8), mesh)
         icp_kernel.solve(src, torch.cat([s8, s9]), st, cur, spec.trans_eps,
                          spec.max_iterations)
+    if dev not in live_trips:
+        live_trips[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    live_trips[dev] += trips
     fitness = torch.zeros((), dtype=torch.float32, device=dev)
     if bool(st[slot["live0"]] > 0.5):
         idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tgt_mask)
