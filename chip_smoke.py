@@ -75,11 +75,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
               on the first 32 scans (rows within 1e-4 of phase 8's); (c)
               `--loop-method isc --imu --wheel --gps` at D = 2 (loops ≥ 1, a
               guess launch a scan on every rank); (d) `--continue-session` of
-              (a)'s checkpoint at D = 2 over 96 scans (relocalized within 2
-              m, ≥ 20 new keyframes); (e) the first 32 scans at D = 4
+              (a)'s checkpoint at D = 2 over 64 scans (relocalized within 2
+              m, ≥ 20 new keyframes); (e) the first 16 scans at D = 4
               (keyframes within ±2 of phase 8's); (f) `run-kitti --engine
               device --mesh 2` on 32 HDL-64-density files (native reader,
-              ATE < 1.0 m). Every rank of every run launches the NDT
+              ATE < 1.0 m); (g) `run-sim --mesh 2 --render-procs 3` on the
+              circuit's first 64 scans, each rank forking its workers before
+              it forms its group (rows bit-identical to (a)'s first 64, or to
+              a 64-scan run without workers where the runs are not
+              prefix-stable; no scan rendered inline on either rank; the
+              mean wait a chunk beside (a)'s). Every rank of every run launches the NDT
               kernel's shard pass on every align and never the align
               kernel, the PGO kernel, and where it verified a loop the NN
               kernel, icp_partial and icp_solve with ≥ 1 live ICP trip.
@@ -167,7 +172,12 @@ After phase 9:
               from the CPU to the card on that align, reruns
               bit-identical), ms an align from CUDA-graph
               replays, the bound by bytes (rows gathered × M), the latency
-              floor, ptxas's figures; (b) the jacobi PGO kernel against
+              floor, ptxas's figures; (a') `ndt.regather_dist=0.3` (a launch
+              argument of the default instantiation) against `align_ref` with
+              it on the same 64 aligns (the same Newton count on ≥ 62,
+              |Δpose| ≤ 1e-5 on those), Newton iterations a scan and the last
+              align's ms beside the default's on the same inputs, and
+              direct7_rows bit-equal to direct7 on each; (b) the jacobi PGO kernel against
               `solve_ref` with jacobi at 163 and 2048 live (|Δpose| ≤ 1e-4),
               CG trips, ms a launch; (c) `run-sim --engine device --chunk 16`
               on the circuit with each `--set` of MODE_SETTINGS, then again
@@ -189,12 +199,22 @@ After phase 10:
               scans (camera frame) through `--trajectory --engine device
               --render-procs 3 --imu --wheel` with a checkpoint (≥ 1 loop, a
               guess launch a scan), then `localize --trajectory` against it
-              (≥ 1 found, median error < 1.5 m); `run-kitti` at the default
+              (≥ 1 found, median error < 1.5 m); the reference's "fast"
+              configuration (`--set filter.outlier_method=statistical_approx
+              --render-procs 5 --prefetch-threads 3 --prefetch-depth 6`: pose
+              hash equal to the run with 3 workers', its warm rate beside
+              it); `run-kitti` at the default
               config on 380 `.bin` scans of a closed circuit at HDL-64 density
               (~120,000 points) written to a temporary directory: the host
               engine with and without `defer_sync` (poses identical, scans/s
-              both ways) and the device engine, each closing ≥ 1 loop with the
-              native reader
+              both ways) and the device engine, with the radius filter and
+              with `filter.outlier_method=statistical_bucketed` (buckets of 6
+              voxels, BUCKETED), each closing ≥ 1 loop with the native
+              reader; then on 32 of the files the bucketed filter, with
+              buckets of 4 (the default) and 6 voxels, against the exact one
+              on the card (proven, fallback-fixed and unknown rows, ms a scan
+              of each, the kept flags held to the bucketed rule but for the
+              points within 1e-5 of the threshold, which are counted)
 After phase 11:
  12. extras  the modules the reference runs beside its main path, at
               run-sim's full width on the circuit: (a) `--set
@@ -275,11 +295,13 @@ PTXAS_NAMES = (("nn_kernel_simple", "first version"),
                ("icp_init_kernel", "icp init"),
                ("icp_fitness_kernel", "icp fitness"),
                ("guess_kernel", "guess"))   # the probe kernels are not listed
-# the instantiations that spill registers (ptxas for sm_90a with CUDA 12.8):
-# the backtracking ones and DIRECT7 with More-Thuente, 8-20 bytes; no other
-# kernel may spill
-SPILL_EXEMPT = ("ndt align", "ndt align 1 backtrack", "ndt align 27 backtrack",
-                "ndt align 7 mt_exact")
+# the instantiations that spill registers (ptxas for sm_90a with CUDA 12.8),
+# 12 bytes each: DIRECT7 and DIRECT1 with backtracking, DIRECT7 with
+# More-Thuente and the 27-cube with More-Thuente and the clamped step; ptxas
+# moves such spills between instantiations on small edits; no other kernel
+# may spill
+SPILL_EXEMPT = ("ndt align", "ndt align 1 backtrack", "ndt align 7 mt_exact",
+                "ndt align 27 mt_exact", "ndt align 27 ref_clamped")
 
 
 def phase_device() -> str:
@@ -1836,6 +1858,9 @@ MODE_RERUN_SCANS = 64
 # circuit), the kernel must be no farther from the plain version on the card
 # than the plain version on the CPU is
 MODE_POSE_TOL = 2e-5
+# the neighbourhood frozen within 0.3 (‖Δt‖ + 60·‖Δr‖): the Newton count of
+# the plain version on ≥ 62 of the 64 aligns, |Δpose| ≤ 1e-5 on those
+REGATHER_DIST, REGATHER_SAME, REGATHER_TOL = 0.3, 62, 1e-5
 # block barriers of the jacobi PGO kernel: 11 a CG iteration (2 in the
 # Hessian-vector product, 3 in each dot product, 1 in the preconditioner, 2
 # updates) and 14 outside the loop; FP32 operations a live keyframe: the
@@ -1844,6 +1869,114 @@ MODE_POSE_TOL = 2e-5
 PGO_JAC_BARRIERS_ITER, PGO_JAC_BARRIERS_FIXED = 11, 14
 PGO_JAC_FLOP_FACTOR = 2 * 70
 PGO_JAC_FLOP_ITER = 2 * 188
+
+
+def _mode_scans(cfg) -> list:
+    """The circuit's first NDT_ALIGNS + 1 scans, filtered on the card (the
+    host engine's render order)."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.ops.filter import filter_scan
+    from xchu_slam_tpu_torch.types import make_cloud
+    from xchu_slam_tpu_torch.utils import sim
+
+    _stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
+    rng = np.random.default_rng(SEED)
+    scans = []
+    for i in range(NDT_ALIGNS + 1):
+        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
+        scans.append(filter_scan(make_cloud(xyz, inten, capacity=cfg.filter.max_raw_points,
+                                            device="cuda"), cfg.filter))
+    return scans
+
+
+def phase_ndt_regather(smi: str, ptxas: dict, ndt_rec: dict) -> dict:
+    """(a') The default instantiation `<7, backtrack>` with the neighbourhood
+    frozen within `ndt.regather_dist` = REGATHER_DIST (a launch argument)
+    against `align_ref` with it on the circuit's first 64 aligns, the state
+    carried by the host engine's step with it: the same Newton count on ≥
+    REGATHER_SAME, |Δpose| ≤ REGATHER_TOL on those, reruns bit-identical;
+    Newton iterations a scan beside the default's on the same inputs, the
+    last align's ms from CUDA-graph replays beside the default's on the same
+    inputs and phase 4's, with the bound and the latency floor of its passes
+    and iterations, and direct7_rows bit-equal to direct7 (the same
+    instantiation) on every align."""
+    from xchu_slam_tpu_torch import cli
+    from xchu_slam_tpu_torch.models import odometry
+    from xchu_slam_tpu_torch.ops import ndt
+    from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
+
+    dev = torch.device("cuda")
+    cfg = cli.sim_config()
+    slot = ndt_kernel.RECORD
+    scans = _mode_scans(cfg)
+    ospec = odometry.spec_from_config(cfg.override({"ndt.regather_dist": REGATHER_DIST}))
+    g, nspec = ospec.gspec, ospec.nspec
+    base = nspec._replace(regather_dist=0.0)
+    rows_spec = base._replace(neighbor_mode="direct7_rows")
+    d1, d2 = ndt.gauss_constants(nspec.outlier_ratio, nspec.resolution)
+    state = odometry.init_state(ospec, torch.zeros(6, device=dev), scans[0].xyz,
+                                scans[0].mask)
+    same, max_dpose, beyond, rows, base_rows, refused = 0, 0.0, [], [], [], 0
+    for i in range(1, NDT_ALIGNS + 1):
+        filt = scans[i]
+        guess = odometry._guess(state)
+        grid = state.grid_a
+        args = (grid.fin, grid.origin, filt.xyz, filt.mask, guess, g)
+        rec = ndt_kernel.align_record(*args, nspec, d1, d2)
+        again = ndt_kernel.align_record(*args, nspec, d1, d2)
+        rec0 = ndt_kernel.align_record(*args, base, d1, d2)
+        rec_rows = ndt_kernel.align_record(*args, rows_spec, d1, d2)
+        torch.cuda.synchronize()
+        if not torch.equal(rec, again):
+            raise AssertionError(f"ndt regather align {i}: a rerun is not bit-identical")
+        if not torch.equal(rec0, rec_rows):
+            raise AssertionError(f"ndt direct7_rows align {i}: not the bits of direct7")
+        stats = {}
+        want = ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec, stats=stats)
+        refused += stats["stale_refusals"]
+        rec_h = rec.cpu().numpy()
+        it = int(rec_h[slot["iterations"]])
+        rows.append((it, int(rec_h[slot["trials"]]), int(rec_h[slot["passes"]])))
+        base_rows.append(int(rec0[slot["iterations"]]))
+        if it == int(want.iterations):
+            same += 1
+            dpose = float(np.abs(rec_h[slot["pose"]] - want.pose.cpu().numpy()).max())
+            max_dpose = max(max_dpose, dpose)
+            if dpose > REGATHER_TOL:
+                beyond.append((i, it, dpose))
+        state, _out = odometry.step(state, filt.xyz, filt.mask, ospec)
+    # the last align, with the neighbourhood frozen and gathered every iteration
+    ms = _graph_ms(lambda: ndt_kernel.align_record(*args, nspec, d1, d2), calls=20)
+    ms0 = _graph_ms(lambda: ndt_kernel.align_record(*args, base, d1, d2), calls=20)
+    plain_ms = _host_ms(lambda: ndt.align_ref(grid, filt.xyz, filt.mask, guess, g, nspec),
+                        reps=3)
+    last = rows[-1]
+    n = int(filt.xyz.shape[0])
+    bound_ms, bound_by, _b, _o = ndt_bound_ms(n, last[0], last[1], 7)
+    blocks, _trips = ndt_kernel.plan(n, ndt_kernel.max_blocks(0), ndt_kernel.LANES["direct7"])
+    launch_ms, barrier_ms = _grid_barrier(blocks, ndt_kernel.THREADS)
+    floor = ndt_rec["floor"]
+    floor_ms = (launch_ms + last[2] * (barrier_ms + floor["l2_hop_ms"])
+                + last[0] * floor["control_ms"])
+    rec_m = {"regather_dist": REGATHER_DIST, "aligns": NDT_ALIGNS, "same_counts": same,
+             "max_abs_err": max_dpose, "beyond_tol": beyond,
+             "stale_refusals_plain": refused,
+             "mean_iterations": float(np.mean([r[0] for r in rows])),
+             "mean_iterations_default": float(np.mean(base_rows)),
+             "mean_trials": float(np.mean([r[1] for r in rows])),
+             "ms": ms, "default_ms_same_call": ms0, "phase4_ms": ndt_rec["ms"],
+             "last_align": {"iterations": last[0], "trials": last[1], "passes": last[2],
+                            "default_iterations": base_rows[-1]},
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "latency_floor_ms": floor_ms, "direct7_rows_bit_equal": NDT_ALIGNS,
+             "ptxas": ptxas["ndt align"]}
+    print(f"ndt_modes [{smi}]: backtrack+direct7 regather_dist={REGATHER_DIST}: " +
+          json.dumps(rec_m))
+    if same < REGATHER_SAME or beyond:
+        raise AssertionError(f"ndt regather: the plain version's Newton count on {same} of "
+                             f"{NDT_ALIGNS} (< {REGATHER_SAME}) or |Δpose| beyond "
+                             f"{REGATHER_TOL}: {beyond}")
+    return rec_m
 
 
 def phase_ndt_modes(smi: str, ptxas: dict, floor: dict) -> dict:
@@ -1860,20 +1993,11 @@ def phase_ndt_modes(smi: str, ptxas: dict, floor: dict) -> dict:
     from xchu_slam_tpu_torch.models import odometry
     from xchu_slam_tpu_torch.ops import ndt
     from xchu_slam_tpu_torch.ops.cuda import ndt_kernel
-    from xchu_slam_tpu_torch.ops.filter import filter_scan
-    from xchu_slam_tpu_torch.types import make_cloud
-    from xchu_slam_tpu_torch.utils import sim
 
     dev = torch.device("cuda")
     cfg = cli.sim_config()
-    _stamps, gt, world = cli._sim_world_and_traj(SCANS, RADIUS, SEED)
-    rng = np.random.default_rng(SEED)
     slot = ndt_kernel.RECORD
-    scans = []
-    for i in range(NDT_ALIGNS + 1):
-        xyz, inten = sim.render_scan(world, gt[i], rng, n_points=24_000)
-        scans.append(filter_scan(make_cloud(xyz, inten, capacity=cfg.filter.max_raw_points,
-                                            device=dev), cfg.filter))
+    scans = _mode_scans(cfg)
     out = {}
     for ls, nb in NDT_MODES:
         name = f"{ls}+{nb}"
@@ -2116,6 +2240,129 @@ KITTI_POINTS = 120_000             # HDL-64 density: default_config's 131,072 ca
 KITTI_RANGE, KITTI_BUILDINGS = 40.0, 40
 KITTI_WRITERS = 6
 SOURCES_TIMEOUT_S = 600
+# the reference's "fast" stream configuration (bench.py:340-342)
+FAST = {"overrides": ["filter.outlier_method=statistical_approx"], "prefetch_threads": 3,
+        "prefetch_depth": 6, "render_procs": 5}
+# the bucketed filter on the HDL-64-density files: buckets of 4 voxels (2 m,
+# the default) and of 6 (3 m). At the default only ~20 % of this density's
+# rows are proven, and the rows past the 1024 fallback rows are kept as
+# unknown, outliers among them: run-kitti's loops then fail ICP's gate (on an
+# H100, 0 loops of 68 verifications on the 380 files, where the radius
+# filter closed 2). With 6 voxels the device run closes loops
+BUCKET_MULTS = (4, 6)
+BUCKETED = ("filter.outlier_method=statistical_bucketed", "filter.stat_bucket_mult=6")
+BUCKET_FILES = 32          # the .bin files of the bucketed filter's comparison
+BUCKET_NEAR = 1e-5         # relative: a mean distance this close to µ + m·σ may fall either side
+
+
+def _knn_means(c, k: int, direct: bool) -> torch.Tensor:
+    """Each valid row's mean distance to its k nearest, from all pairs: the
+    direct difference Σ(q − c)² (the bucketed filter's main pass) or the
+    expanded |q|² + |c|² − 2 q·c (the exact filter and the bucketed
+    filter's fallback), so that a row's mean is computed as the filter that
+    decided it computed it."""
+    from xchu_slam_tpu_torch.ops import filter as F
+
+    if not direct:
+        # rows of 1024, the product's shape in the bucketed filter's fallback
+        return F._chunked_pairwise(c.xyz, c.mask, 1024, lambda d2, m: torch.where(
+            m, F._mean_knn(F._k_smallest(d2, k + 1)), torch.nan))
+    out = []
+    for i0 in range(0, c.xyz.shape[0], 1024):
+        d2 = F._sq3(c.xyz[i0:i0 + 1024, None, :] - c.xyz[None, :, :])
+        d2 = torch.where(c.mask[None, :], d2, torch.inf)
+        out.append(torch.where(c.mask[i0:i0 + 1024], F._mean_knn(F._k_smallest(d2, k + 1)),
+                               torch.nan))
+    return torch.cat(out)
+
+
+def _bucketed_against_exact(vdir: str, smi: str) -> dict:
+    """The bucketed statistical filter against the exact one on the card, on
+    the first BUCKET_FILES HDL-64-density files at run-kitti's config with
+    buckets of each of BUCKET_MULTS voxels: the counts of proven,
+    fallback-fixed and unknown rows, ms a scan of each outlier stage between
+    CUDA events (the first file warms up), and the kept masks. Where every
+    row is known the two masks agree but for points whose mean distance lies
+    within BUCKET_NEAR (relative) of the threshold, where the two forms'
+    roundings may fall either side. Unknown rows (past the fallback's rows)
+    are kept and left out of µ and σ, which moves the threshold: so the
+    bucketed mask is held to that rule on all-pairs means (each row's in the
+    form that decided it: proven rows the direct difference, solved-again
+    rows the expanded form; unknown rows kept, the others kept at or below
+    the threshold of the known rows' means, but within BUCKET_NEAR of it),
+    and the flags that differ from the exact filter's are counted."""
+    from xchu_slam_tpu_torch.config import default_config
+    from xchu_slam_tpu_torch.io import kitti
+    from xchu_slam_tpu_torch.ops import filter as F
+    from xchu_slam_tpu_torch.types import make_cloud
+
+    fc = default_config().filter
+    k = fc.stat_outlier_k
+    files = kitti.list_velodyne_dir(vdir)[:BUCKET_FILES]
+    zero = {"proven": 0, "fallback": 0, "unknown": 0}
+    tally = {m: {"rows": dict(zero), "ms": [], "differ": 0, "near": 0, "kept": 0,
+                 "against_exact": 0} for m in BUCKET_MULTS}
+    exact_ms, points, kept_exact = [], 0, 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn, passes):
+        for _ in range(passes):
+            ev[0].record()
+            res = fn()
+            ev[1].record()
+        torch.cuda.synchronize()
+        return res, ev[0].elapsed_time(ev[1])
+
+    for f, path in enumerate(files):
+        passes = 2 if f == 0 else 1
+        raw = kitti.read_velodyne_bin(path)
+        cloud = make_cloud(raw[:, :3], raw[:, 3], capacity=fc.max_raw_points, device="cuda")
+        c = F.voxel_downsample(F.range_crop(cloud, fc.min_range, fc.max_range),
+                               fc.voxel_size, fc.max_points)
+        exact, t = timed(lambda: F.statistical_outlier_removal(c, k, fc.stat_outlier_stddev),
+                         passes)
+        exact_ms.append(t)
+        points += int(c.mask.sum())
+        kept_exact += int(exact.mask.sum())
+        means = {form: _knn_means(c, k, form) for form in (True, False)}
+        for mult in BUCKET_MULTS:
+            rec, classes = tally[mult], {}
+            bucketed, t = timed(lambda: F.statistical_outlier_removal_bucketed(
+                c, k, fc.stat_outlier_stddev, mult * fc.voxel_size, mult ** 3,
+                fc.stat_fallback_rows, classes=classes), passes)
+            rec["ms"].append(t)
+            for key in zero:
+                rec["rows"][key] += int(classes[key].sum())
+            # the threshold of the known rows' means
+            mean_d = torch.where(classes["proven"], means[True], means[False])
+            known = classes["proven"] | classes["fallback"]
+            n = torch.clamp(known.sum(), min=1)
+            mu = torch.sum(torch.where(known, mean_d, 0.0)) / n
+            var = torch.sum(torch.where(known, (mean_d - mu) ** 2, 0.0)) / n
+            t_known = mu + fc.stat_outlier_stddev * torch.sqrt(var)
+            close = known & ((mean_d - t_known).abs() <= BUCKET_NEAR * t_known)
+            rule = classes["unknown"] | (known & (mean_d <= t_known))
+            off = (rule != bucketed.mask) & ~close
+            if bool(off.any()):
+                raise AssertionError(
+                    f"bucketed filter ({mult} voxels), {os.path.basename(path)}: "
+                    f"{int(off.sum())} kept flags off its rule outside the threshold band "
+                    f"(rows {json.dumps({k: int(v.sum()) for k, v in classes.items()})})")
+            rec["differ"] += int((rule != bucketed.mask).sum())
+            rec["near"] += int(close.sum())
+            rec["against_exact"] += int((exact.mask != bucketed.mask).sum())
+            rec["kept"] += int(bucketed.mask.sum())
+    out = {}
+    for mult, rec in tally.items():
+        out[mult] = {"card": smi, "bucket_voxels": mult, "files": len(files), "points": points,
+                     "kept_bucketed": rec["kept"], "kept_exact": kept_exact,
+                     "rows": rec["rows"], "differing_in_band": rec["differ"],
+                     "in_band": rec["near"], "flags_differing_from_exact": rec["against_exact"],
+                     "exact_ms_per_scan": float(np.median(exact_ms)),
+                     "bucketed_ms_per_scan": float(np.median(rec["ms"]))}
+        print("sources: statistical_bucketed against statistical on the card "
+              + json.dumps(out[mult]))
+    return out
 
 
 def _write_kitti(root: str, n_scans: int = KITTI_SCANS) -> dict:
@@ -2274,10 +2521,23 @@ def phase_sources(smi: str) -> dict:
     paths["sources device"] = ab[0]["launches"]
     paths["sources device procs"] = ab[1]["launches"]
 
+    # the reference's realism and "fast" configurations (a fork a fresh
+    # interpreter: the first run initializes CUDA)
     (realism,) = _sources_call("realism", [{**dev, "realism": True, "render_procs": 5,
                                             "prefetch_threads": 3, "prefetch_depth": 6}])
+    (fast,) = _sources_call("fast", [{**dev, **FAST}])
     _check_source_run("realism device --render-procs 5", realism, SCANS)
     paths["sources realism device"] = realism["launches"]
+    _check_source_run("fast (statistical_approx, 5 workers, 3 threads, depth 6)", fast, SCANS,
+                      ate=0.10)
+    print(f"sources: fast ({smi}) warm rate (after chunk 1) "
+          f"{fast['stream_after_chunk1_scans_per_sec']} scans/s beside the run with 3 "
+          f"workers' {ab[1]['stream_after_chunk1_scans_per_sec']}; pose hash "
+          f"{fast['pose_hash']} against {ab[1]['pose_hash']}")
+    if fast["pose_hash"] != ab[1]["pose_hash"]:
+        raise AssertionError("sources: the fast configuration changed the poses: its "
+                             "statistical_approx filter is the exact one")
+    paths["sources fast device"] = fast["launches"]
 
     with tempfile.TemporaryDirectory() as tmp:
         tum = os.path.join(tmp, "lap_tum.txt")
@@ -2310,14 +2570,17 @@ def phase_sources(smi: str) -> dict:
             raise AssertionError(f"sources: the kitti scans are too sparse: {wrote}")
         kit = {"kind": "run_kitti", "velodyne_dir": wrote["velodyne_dir"], "gt": wrote["gt"],
                "device": "cuda", "out": os.path.join(tmp, "kitti")}
-        host_realism, k_defer, k_sync, k_dev = _sources_call("host", [
+        host_realism, k_defer, k_sync, k_dev, k_bucket = _sources_call("host", [
             {"kind": "run_sim", "scans": REALISM_HOST_SCANS, "radius": RADIUS, "seed": SEED,
              "device": "cuda", "realism": True},
             {**kit, "engine": "host"}, {**kit, "engine": "host", "defer_sync": False},
-            {**kit, "engine": "device"}])
+            {**kit, "engine": "device"},
+            {**kit, "engine": "device", "overrides": list(BUCKETED)}])
+        bucket = _bucketed_against_exact(wrote["velodyne_dir"], smi)
     _check_source_run("realism host", host_realism, REALISM_HOST_SCANS, loops=False)
     for name, rec in (("run-kitti host defer_sync", k_defer), ("run-kitti host", k_sync),
-                      ("run-kitti device", k_dev)):
+                      ("run-kitti device", k_dev),
+                      ("run-kitti device statistical_bucketed", k_bucket)):
         _check_source_run(name, rec, KITTI_SCANS)
         if rec["summary"]["reader"] != "native":
             raise AssertionError(f"sources {name}: the reader was {rec['summary']['reader']}")
@@ -2328,7 +2591,15 @@ def phase_sources(smi: str) -> dict:
     paths.update({"sources realism host": host_realism["launches"],
                   "sources kitti host defer": k_defer["launches"],
                   "sources kitti host": k_sync["launches"],
-                  "sources kitti device": k_dev["launches"]})
+                  "sources kitti device": k_dev["launches"],
+                  "sources kitti device bucketed": k_bucket["launches"]})
+    print(f"sources: run-kitti device statistical_bucketed (6 voxels a bucket) "
+          f"{k_bucket['summary']['scans_per_sec']} scans/s beside the radius filter's "
+          f"{k_dev['summary']['scans_per_sec']} ({smi}); the outlier stage alone, with "
+          f"buckets of 4 / 6 voxels, " + " / ".join(
+              f"{bucket[m]['bucketed_ms_per_scan']:.3f}" for m in BUCKET_MULTS)
+          + f" ms a scan against the exact statistical filter's "
+          f"{bucket[BUCKET_MULTS[0]]['exact_ms_per_scan']:.3f}")
     print(f"sources: {time.perf_counter() - t0:.1f} s")
     return {"paths": paths}
 
@@ -3205,9 +3476,12 @@ def phase_mesh(smi: str, rec: dict) -> dict:
 
 
 MESH_ENGINE_D1_SCANS = 32     # (b): NCCL D = 1 through DeviceSlamPipeline(mesh=)
-MESH_ENGINE_D4_SCANS = 32     # (e): the SC circuit's first scans at gloo D = 4
-MESH_ENGINE_CONT_SCANS = 96   # (d): the continued session
+# (e) and (d) are short runs, so that the whole run keeps within its time limit
+MESH_ENGINE_D4_SCANS = 16     # (e): the SC circuit's first scans at gloo D = 4
+MESH_ENGINE_CONT_SCANS = 64   # (d): the continued session
 MESH_ENGINE_KITTI_SCANS = 32  # (f): run-kitti's HDL-64-density files
+MESH_ENGINE_PROCS = 3         # (g): render workers a rank
+MESH_ENGINE_PROCS_SCANS = 64  # (g): the circuit's first scans
 MESH_ENGINE_TOL = 1e-4        # m and rad: (b)'s rows against phase 8's
 MESH_ENGINE_KF = 2            # keyframes within ±2 of phase 8's
 
@@ -3392,6 +3666,28 @@ def phase_mesh_engine(smi: str, single: dict | None) -> dict:
               f"{RESUME_CHUNKS} chunks, rows {lo}-{hi - 1} bit-identical to the "
               f"uninterrupted run's on both ranks ({time.perf_counter() - t0:.1f} s)")
 
+        # (g) the circuit's first scans at D = 2, each rank with its render workers
+        n = MESH_ENGINE_PROCS_SCANS
+        g, ranks = run(f"run-sim --render-procs {MESH_ENGINE_PROCS} D=2", 2, scans=n,
+                       render_procs=MESH_ENGINE_PROCS, **base)
+        against = "(a)'s first rows"
+        want = odo_a[:n]
+        if not np.array_equal(ranks[0]["odometry"], want):
+            # not prefix-stable: the same scans without workers
+            _s, plain = cli.run_on_mesh("run-sim", {**base, "scans": n}, 2)
+            against, want = f"a {n}-scan run without workers", plain[0]["odometry"]
+        for r, res in enumerate(ranks):
+            if not np.array_equal(res["odometry"], want):
+                raise AssertionError(f"mesh_engine (g): rank {r}'s rows differ from {against}")
+        print(f"mesh_engine [{smi}] (g): {n} scans with {MESH_ENGINE_PROCS} render workers a "
+              f"rank, rows bit-identical to {against} on both ranks; inline renders "
+              f"{g['inline_renders']}, {g['render_processes']} render processes on "
+              f"{g['cpu_count']} cores; mean wait a chunk "
+              f"{g['chunk_attribution']['mean_wait_ms']} ms beside (a)'s "
+              f"{a['chunk_attribution']['mean_wait_ms']} ms without workers")
+        if g["inline_renders"] != [0, 0]:
+            raise AssertionError(f"mesh_engine (g): inline renders {g['inline_renders']}")
+
         # (b) NCCL D = 1 through DeviceSlamPipeline(mesh=), against phase 8's rows
         t0 = time.perf_counter()
         one = distributed.launch(1, "chip_smoke:mesh_engine_rank", (MESH_ENGINE_D1_SCANS,),
@@ -3500,6 +3796,7 @@ def main() -> int:
         return 0
     if "--modes-only" in sys.argv[1:]:
         phase_ndt_modes(smi, ptxas, ndt_rec["floor"])
+        phase_ndt_regather(smi, ptxas, ndt_rec)
         phase_pgo_jacobi(smi, pgo_rec["floor"])
         phase_mode_circuits()
         return 0
@@ -3538,6 +3835,7 @@ def main() -> int:
     mark("device_session")
     # the modes: their kernels against their plain versions, then the circuit
     ndt_modes = phase_ndt_modes(smi, ptxas, ndt_rec["floor"])
+    regather = phase_ndt_regather(smi, ptxas, ndt_rec)
     pgo_jacobi = phase_pgo_jacobi(smi, pgo_rec["floor"])
     circuits = phase_mode_circuits()
     for setting, row in circuits.items():
@@ -3546,6 +3844,7 @@ def main() -> int:
         ls, nb = name.split("+")
         setting = f"ndt.ls_mode={ls}" if ls != "backtrack" else f"ndt.neighbor_mode={nb}"
         rec_m["circuit"] = circuits[setting]
+    ndt_modes[f"backtrack+direct7 regather_dist={REGATHER_DIST}"] = regather
     pgo_jacobi["circuit"] = circuits["pgo.precond=jacobi"]
     mark("modes")
     by_path.update(phase_sources(smi)["paths"])

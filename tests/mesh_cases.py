@@ -87,6 +87,11 @@ def parallel_cases(mesh, cases):
     res, k = _count(lambda: ndt.align(grid, _t(c["src"]), _t(c["mask"]), _t(c["init"]),
                                       gspec, nspec, mesh=mesh))
     out["ndt"] = {**_np(res)._asdict(), "collectives": k}
+    if "regather_dist" in c:
+        # the same align with the neighbourhood frozen within regather_dist
+        res = ndt.align(grid, _t(c["src"]), _t(c["mask"]), _t(c["init"]), gspec,
+                        nspec._replace(regather_dist=c["regather_dist"]), mesh=mesh)
+        out["ndt_regather"] = _np(res)._asdict()
 
     c = cases["sc"]
     spec = sc.ScSpec(*c["spec"])

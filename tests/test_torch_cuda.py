@@ -489,8 +489,7 @@ def test_ndt_kernel_takes_only_what_it_checks(cuda):
         ndt_kernel.align_record(grid.fin, grid.origin, src.double(), mask, guess, spec,
                                 nspec, -1.0, 1.0)
     # the modes that stay refused, by name
-    for bad, what in ((dict(regather_dist=0.3), "regather_dist"),
-                      (dict(neighbor_mode="direct7_rows"), "direct7_rows"),
+    for bad, what in ((dict(neighbor_mode="direct9"), "direct9"),
                       (dict(ls_mode="golden"), "golden")):
         with pytest.raises(ValueError, match=what):
             ndt_kernel.align_record(grid.fin, grid.origin, src, mask, guess, spec,

@@ -35,32 +35,85 @@ def _scans(world, n, n_points, seed, max_range=60.0):
 
 # statistical: the run-sim setting; radius on a dense, finely downsampled
 # cloud so that it keeps points (sim scans at 0.5 m voxels are too sparse);
-# a capacity below the voxel count exercises the hashed-key overflow order
+# a capacity below the voxel count exercises the hashed-key overflow order.
+# statistical_approx at the statistical setting (the reference's
+# approx_min_k is exact on the CPU, the port exact everywhere).
+# statistical_bucketed on a dense cloud (0.25 m voxels to 12 m, k = 16) where
+# most rows are proven, with a fallback of 128 rows that leaves rows unknown
 FILTERS = {
     "statistical": FilterConfig(max_raw_points=12000, max_points=2048,
                                 outlier_method="statistical"),
+    "statistical_approx": FilterConfig(max_raw_points=12000, max_points=2048,
+                                       outlier_method="statistical_approx"),
+    "statistical_bucketed": FilterConfig(max_raw_points=22000, max_points=4096,
+                                         voxel_size=0.25, max_range=12.0,
+                                         outlier_method="statistical_bucketed",
+                                         stat_outlier_k=16, stat_fallback_rows=128),
     "radius": FilterConfig(max_raw_points=20000, max_points=4096, voxel_size=0.15,
                            max_range=25.0, outlier_method="radius"),
     "none_overflow": FilterConfig(max_raw_points=12000, max_points=512,
                                   outlier_method="none"),
 }
+# (points a scan, range of the render) where a case needs a denser cloud
+RENDER = {"radius": (18000, 25.0), "statistical_bucketed": (20000, 12.0)}
+
+
+def _bucket_classes(xyz, mask, cfg):
+    """The bucketed filter's row classes computed here in numpy, from its
+    definition: a valid row is proven where none of its 9 x-ranges of the
+    27-bucket cube holds more than 3·cap points and its exact k-th
+    neighbour distance lies below the bucket size (then the k nearest all
+    lie in the cube); the first `stat_fallback_rows` unproven rows are
+    solved again, the rest are unknown."""
+    bucket = cfg.stat_bucket_mult * cfg.voxel_size
+    cap, k = cfg.stat_bucket_mult ** 3, cfg.stat_outlier_k
+    v = np.flatnonzero(mask)
+    p = xyz[v].astype(np.float64)
+    sq = (p * p).sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * p @ p.T
+    kth = np.partition(d2, k, axis=1)[:, k]          # the row itself is the 0th
+    b = np.clip(np.floor(p / bucket).astype(np.int64) + [64, 64, 16], 0, [127, 127, 31])
+    count = np.zeros((130, 130, 34), np.int64)       # a margin of one bucket
+    np.add.at(count, tuple((b + 1).T), 1)
+    overflow = np.zeros(len(v), bool)
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            x, y, z = b[:, 0] + 1, b[:, 1] + 1 + dy, b[:, 2] + 1 + dz
+            overflow |= count[x - 1, y, z] + count[x, y, z] + count[x + 1, y, z] > 3 * cap
+    proven = ~overflow & (kth < bucket * bucket)
+    unproven = v[~proven]
+    return {"proven": int(proven.sum()),
+            "fallback": min(len(unproven), cfg.stat_fallback_rows),
+            "unknown": max(len(unproven) - cfg.stat_fallback_rows, 0)}
 
 
 @pytest.mark.parametrize("name", sorted(FILTERS))
 def test_filter_scan_kept_masks_identical(world, name):
     cfg = FILTERS[name]
-    n_points = 18000 if name == "radius" else 10000
+    n_points, max_range = RENDER.get(name, (10000, 60.0))
     kept = 0
-    for xyz, inten in _scans(world, 3, n_points, seed=1,
-                             max_range=25.0 if name == "radius" else 60.0):
+    classes = {"proven": 0, "fallback": 0, "unknown": 0}
+    for xyz, inten in _scans(world, 3, n_points, seed=1, max_range=max_range):
         j = jfilter.filter_scan(jmake_cloud(xyz, inten, capacity=cfg.max_raw_points), cfg)
-        t = tfilter.filter_scan(tmake_cloud(xyz, inten, capacity=cfg.max_raw_points), cfg)
+        tc = tmake_cloud(xyz, inten, capacity=cfg.max_raw_points)
+        t = tfilter.filter_scan(tc, cfg)
         assert np.array_equal(np.asarray(j.mask), t.mask.numpy())
         np.testing.assert_allclose(t.xyz.numpy(), np.asarray(j.xyz), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(t.intensity.numpy(), np.asarray(j.intensity),
                                    rtol=1e-6, atol=1e-6)
         kept += int(t.mask.sum())
+        if name == "statistical_bucketed":
+            # the outlier stage's input (the stages before it are held to the
+            # reference by test_filter_stages_match_reference)
+            d = tfilter.voxel_downsample(tfilter.range_crop(tc, cfg.min_range, cfg.max_range),
+                                         cfg.voxel_size, cfg.max_points)
+            for key, count in _bucket_classes(d.xyz.numpy(), d.mask.numpy(), cfg).items():
+                classes[key] += count
     assert kept > 0
+    if name == "statistical_bucketed":
+        # every class of row is exercised, and proven rows dominate
+        assert min(classes.values()) > 0, classes
+        assert classes["proven"] > classes["fallback"] + classes["unknown"], classes
 
 
 def test_filter_stages_match_reference(world):

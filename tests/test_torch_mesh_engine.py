@@ -352,8 +352,6 @@ def test_mesh_refuses_graph_and_sync_check_by_name(flag):
 @pytest.mark.parametrize("argv,want", [
     (["run-sim", "--engine", "host", "--mesh", "2"], "--mesh needs --engine device"),
     (["run-kitti", "--velodyne-dir", ".", "--mesh", "2"], "--mesh needs --engine device"),
-    (["run-sim", "--engine", "device", "--mesh", "2", "--render-procs", "2"],
-     "--render-procs with --mesh"),
     (["run-sim", "--engine", "device", "--mesh", "-1"], "--mesh must be >= 0")])
 def test_cli_refuses_mesh_pairs_by_name(argv, want, capsys):
     with pytest.raises(SystemExit) as err:
@@ -366,25 +364,33 @@ def test_cli_refuses_mesh_pairs_by_name(argv, want, capsys):
 SMALL = ["--set", "filter.max_points=4096", "--set", "pgo.max_keyframes=64",
          "--set", "loop.submap_points=4096"]
 CLI_SCANS = 12
+# the circuit's flags of the CLI mesh runs
+CLI_RUN = ["run-sim", "--scans", str(CLI_SCANS), "--radius", "20", "--device", "cpu",
+           "--engine", "device", "--chunk", "5", "--gps", "--loop-method", "radius",
+           "--mesh", "2", *SMALL]
 
 
-def test_cli_run_sim_on_a_mesh_is_the_library_mesh_run(tmp_path, capsys):
-    """`run-sim --engine device --mesh 2 --device cpu` launches two ranks
-    whose every pose equals `DeviceSlamPipeline(mesh=)` fed the same scans
-    and altitudes directly (the pose hash, bit for bit); rank 0 alone wrote
-    the export."""
+@pytest.fixture(scope="module")
+def library_mesh_run():
+    """`DeviceSlamPipeline(mesh=)` on two ranks fed the CLI run's scans and
+    altitudes directly: each rank's result, in the background."""
     overrides = [kv for kv in SMALL if kv != "--set"]
     cfg = cli.sim_config(overrides, "radius", gps=True)
     stamps, gt, world = cli._sim_world_and_traj(CLI_SCANS, 20.0, 0)
     lazy = sim.RenderedScans(world, gt, seed=0, n_points=24_000)
     _windows, alts = cli._sim_feeds(cfg, gt, stamps, np.random.default_rng(0))
-    library = _background(2, "library_run", (cfg.to_json(), [lazy[i] for i in range(len(gt))],
-                                             stamps, alts, 5))
-    cli.main(["run-sim", "--scans", str(CLI_SCANS), "--radius", "20", "--device", "cpu",
-              "--engine", "device", "--chunk", "5", "--gps", "--loop-method", "radius",
-              "--mesh", "2", "--out", str(tmp_path), *SMALL])
+    return _background(2, "library_run", (cfg.to_json(), [lazy[i] for i in range(len(gt))],
+                                          stamps, alts, 5))
+
+
+def test_cli_run_sim_on_a_mesh_is_the_library_mesh_run(library_mesh_run, tmp_path, capsys):
+    """`run-sim --engine device --mesh 2 --device cpu` launches two ranks
+    whose every pose equals `DeviceSlamPipeline(mesh=)` fed the same scans
+    and altitudes directly (the pose hash, bit for bit); rank 0 alone wrote
+    the export."""
+    cli.main([*CLI_RUN, "--out", str(tmp_path)])
     summary = json.loads(capsys.readouterr().out)
-    lib = library.result()
+    lib = library_mesh_run.result()
     assert lib[0]["pose_hash"] == lib[1]["pose_hash"]
     assert summary["mesh"] == 2 and summary["backend"] == "gloo"
     assert summary["ranks_agree"] is True and summary["pose_hash"] == lib[0]["pose_hash"]
@@ -393,6 +399,21 @@ def test_cli_run_sim_on_a_mesh_is_the_library_mesh_run(tmp_path, capsys):
     assert len((tmp_path / "odom_log.jsonl").read_text().splitlines()) == CLI_SCANS
     for name, path in summary["artifacts"].items():
         assert os.path.exists(path), name
+
+
+def test_cli_run_sim_on_a_mesh_with_render_workers(library_mesh_run, capsys):
+    """`run-sim --mesh 2 --render-procs 2`: each rank forks its 2 render
+    workers before it forms its group and renders the whole stream there.
+    The ranks agree, their poses are the run's without workers (the library
+    run fed the same scans, which the CLI run without workers equals, bit for
+    bit), no scan was rendered inline on either rank, and the summary counts
+    the group's render processes beside the host's cores."""
+    cli.main([*CLI_RUN, "--render-procs", "2"])
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["ranks_agree"] is True and summary["mesh"] == 2
+    assert summary["pose_hash"] == library_mesh_run.result()[0]["pose_hash"]
+    assert summary["render_procs"] == 2 and summary["inline_renders"] == [0, 0]
+    assert summary["render_processes"] == 4 and summary["cpu_count"] == os.cpu_count()
 
 
 def test_cli_mesh_1_is_the_single_device_engine(tmp_path, capsys):

@@ -1,6 +1,8 @@
 """The port's NDT modes and the block-Jacobi PCG against the JAX reference:
-the neighbourhoods (DIRECT1, DIRECT7, DIRECT26, KDTREE), the More-Thuente
-functions trial for trial, whole aligns in each non-default mode, an
+the neighbourhoods (DIRECT1, DIRECT7, DIRECT7_ROWS, DIRECT26, KDTREE), the
+More-Thuente functions trial for trial, whole aligns in each non-default
+mode with the neighbourhood gathered every iteration and frozen
+(`regather_dist`), a convergence refused on a stale neighbourhood, an
 odometry chain in mt_exact + kdtree, the jacobi preconditioner, the
 kernel's launch plan at every lane count, and `run-sim` on the CPU with
 each mode set. The modes' kernels are held to these plain versions on the
@@ -29,7 +31,7 @@ from xchu_slam_tpu_torch.utils import sim
 
 torch.set_num_threads(2)
 
-NEIGHBOR_MODES = ("direct1", "direct7", "direct26", "kdtree")
+NEIGHBOR_MODES = ("direct1", "direct7", "direct7_rows", "direct26", "kdtree")
 # the five modes other than the default (backtrack, direct7)
 MODES = (("backtrack", "direct1"), ("backtrack", "direct26"), ("backtrack", "kdtree"),
          ("mt_exact", "direct7"), ("ref_clamped", "direct7"))
@@ -90,10 +92,9 @@ def test_lookup_neighbors_matches_reference_in_every_mode(small_grid, mode):
 
 
 def test_neighbour_modes_refuse_what_is_not_ported():
-    with pytest.raises(ValueError, match="direct7_rows"):
-        tvm.neighbor_offsets("direct7_rows", torch.device("cpu"))
-    for bad, what in ((dict(regather_dist=0.3), "regather_dist"),
-                      (dict(neighbor_mode="direct7_rows"), "direct7_rows"),
+    with pytest.raises(ValueError, match="direct9"):
+        tvm.neighbor_offsets("direct9", torch.device("cpu"))
+    for bad, what in ((dict(neighbor_mode="direct9"), "direct9"),
                       (dict(ls_mode="wolfe"), "wolfe")):
         spec = tndt.NdtSpec(**bad)
         with pytest.raises(ValueError, match=what):
@@ -195,22 +196,51 @@ def graft():
     return grid, np.asarray(src), np.asarray(mask), np.asarray(pose0), gspec
 
 
+def _agrees(tres, jres) -> bool:
+    """The same iteration count and convergence, the pose within 1e-4 and
+    the score within 1e-4 relative."""
+    return (int(tres.iterations) == int(jres.iterations)
+            and bool(tres.converged) == bool(jres.converged)
+            and np.abs(tres.pose.numpy() - np.asarray(jres.pose)).max() <= 1e-4
+            and abs(float(tres.score) - float(jres.score)) <= 1e-4 * abs(float(jres.score)))
+
+
+@pytest.mark.parametrize("regather_dist", [0.0, 0.3])
 @pytest.mark.parametrize("ls_mode,neighbor_mode", MODES)
-def test_align_matches_reference_in_each_mode(graft, ls_mode, neighbor_mode):
-    """Each non-default mode on the graft fixture: the same iteration count,
+def test_align_matches_reference_in_each_mode(graft, ls_mode, neighbor_mode, regather_dist):
+    """Each non-default mode on the graft fixture, the neighbourhood gathered
+    every iteration (0.0) or frozen within 0.3: the same iteration count,
     the pose within 1e-4, as test_torch_ndt holds the default; score,
-    fitness and matched fraction to 1e-4 relative."""
+    fitness and matched fraction to 1e-4 relative.
+
+    A frozen neighbourhood makes some aligns a knife edge: the reference's
+    own More-Thuente and clamped-step aligns here, started 1e-7 m apart in
+    x, end 1.6e-3 m apart (the step after a refused convergence on a stale
+    neighbourhood amplifies the last bits). Where the port is not within
+    the bounds of the reference's result, it must be within them of the
+    reference started 1e-7 m to either side, and the reference itself must
+    have moved past the bounds there: the port took the reference's other
+    branch."""
     grid, src, mask, pose0, gspec = graft
     jspec = jndt.NdtSpec(max_iterations=10, ls_max_trials=5, ls_mode=ls_mode,
-                         neighbor_mode=neighbor_mode)
-    jres = jndt.align(grid, jnp.asarray(src), jnp.asarray(mask), jnp.asarray(pose0),
-                      gspec, jspec)
+                         neighbor_mode=neighbor_mode, regather_dist=regather_dist)
+
+    def ref(p):
+        return jndt.align(grid, jnp.asarray(src), jnp.asarray(mask), jnp.asarray(p),
+                          gspec, jspec)
+
+    jres = ref(pose0)
     ts = tvm.GridSpec(*gspec)
     tgrid = convert.voxel_grid_from_ref(_np_tree(grid), ts)
     tspec = tndt.NdtSpec(max_iterations=10, ls_max_trials=5, ls_mode=ls_mode,
-                         neighbor_mode=neighbor_mode)
+                         neighbor_mode=neighbor_mode, regather_dist=regather_dist)
     stats = {}
     tres = tndt.align_ref(tgrid, _t(src), _t(mask), _t(pose0), ts, tspec, stats=stats)
+    if regather_dist > 0 and not _agrees(tres, jres):
+        branches = [ref(pose0 + np.float32(e) * np.eye(6, dtype=np.float32)[0])
+                    for e in (1e-7, -1e-7)]
+        jres = next(b for b in branches if _agrees(tres, b))
+        assert np.abs(np.asarray(jres.pose) - np.asarray(ref(pose0).pose)).max() > 1e-4
     assert int(tres.iterations) == int(jres.iterations)
     assert bool(tres.converged) == bool(jres.converged)
     np.testing.assert_allclose(tres.pose.numpy(), np.asarray(jres.pose), atol=1e-4)
@@ -224,6 +254,33 @@ def test_align_matches_reference_in_each_mode(graft, ls_mode, neighbor_mode):
     else:
         assert stats["trials"] >= int(tres.iterations)
     assert stats["passes"] == stats["trials"] + int(tres.iterations)
+    if regather_dist == 0.0:
+        assert stats["stale_refusals"] == 0
+
+
+def test_align_refuses_a_stale_convergence_and_gathers_afresh(graft):
+    """The default mode with the neighbourhood frozen within 0.3: steps
+    shorter than trans_eps on a stale neighbourhood are refused as
+    convergences (4 here), each forcing a gather at the next iteration, so
+    the align runs longer than with a gather every iteration, and it still
+    converges where the reference does: the same iteration count, the pose
+    within 1e-4."""
+    grid, src, mask, pose0, gspec = graft
+    ts = tvm.GridSpec(*gspec)
+    tgrid = convert.voxel_grid_from_ref(_np_tree(grid), ts)
+    got = {}
+    for rd in (0.0, 0.3):
+        jres = jndt.align(grid, jnp.asarray(src), jnp.asarray(mask), jnp.asarray(pose0), gspec,
+                          jndt.NdtSpec(ls_max_trials=5, regather_dist=rd))
+        stats = {}
+        tres = tndt.align_ref(tgrid, _t(src), _t(mask), _t(pose0), ts,
+                              tndt.NdtSpec(ls_max_trials=5, regather_dist=rd), stats=stats)
+        assert int(tres.iterations) == int(jres.iterations)
+        assert bool(tres.converged) and bool(jres.converged)
+        np.testing.assert_allclose(tres.pose.numpy(), np.asarray(jres.pose), atol=1e-4)
+        got[rd] = (stats["stale_refusals"], int(tres.iterations))
+    assert got[0.0][0] == 0 and got[0.3][0] >= 1, got
+    assert got[0.3][1] > got[0.0][1], got
 
 
 def test_odometry_chain_mt_exact_kdtree_matches_reference():
@@ -317,12 +374,31 @@ def test_run_sim_device_engine_on_cpu_runs_the_modes(monkeypatch):
 
 
 @pytest.mark.parametrize("setting,what", [
-    ("ndt.regather_dist=0.3", "regather_dist"), ("ndt.neighbor_mode=direct7_rows", "direct7_rows"),
     ("ndt.ls_mode=golden", "golden"), ("pgo.precond=ilu", "ilu")])
 @pytest.mark.parametrize("engine", ["host", "device"])
 def test_run_sim_refuses_what_is_not_ported(setting, what, engine):
     with pytest.raises(ValueError, match=what):
         cli.run_sim(3, 20.0, 0, "cpu", overrides=(*TINY, setting), engine=engine, chunk=4)
+
+
+@pytest.mark.parametrize("setting", ["ndt.regather_dist=0.3", "ndt.neighbor_mode=direct7_rows"])
+@pytest.mark.parametrize("engine", ["host", "device"])
+def test_run_sim_runs_regather_and_direct7_rows(setting, engine, monkeypatch):
+    """`run-sim --device cpu --set <setting>` on both engines, 4 scans: the
+    setting reaches the align's spec, the poses are finite, and direct7_rows
+    (the reference's other data path to the DIRECT7 voxels) gives the bits
+    of direct7."""
+    monkeypatch.setattr(ndt_kernel, "_launch", _no_launch)
+    kw = dict(engine=engine, chunk=4)
+    pipe, summary = cli.run_sim(4, 20.0, 0, "cpu", overrides=(*TINY, setting), **kw)
+    key, val = setting.split("=")
+    assert str(getattr(pipe.cfg.ndt, key.split(".")[1])) == val
+    assert summary["scans"] == 4
+    poses = pipe.odometry_trajectory()
+    assert np.isfinite(poses).all()
+    if "direct7_rows" in setting:
+        base, _ = cli.run_sim(4, 20.0, 0, "cpu", overrides=TINY, **kw)
+        assert np.array_equal(poses, base.odometry_trajectory())
 
 
 def _no_launch(*_a, **_k):

@@ -67,7 +67,8 @@ def _ndt_case():
     init = np.array([0.3, -0.2, 0.0, 0.0, 0.0, 0.02], np.float32)
     return jgrid, {"fin": tgrid.fin.numpy(), "origin": tgrid.origin.numpy(),
                    "stats": tgrid.stats.numpy(), "gspec": tuple(GSPEC),
-                   "nspec": tuple(TNSPEC), "src": src, "mask": mask, "init": init}
+                   "nspec": tuple(TNSPEC), "src": src, "mask": mask, "init": init,
+                   "regather_dist": 0.3}
 
 
 def _sc_case():
@@ -237,6 +238,27 @@ def test_sharded_ndt_matches_jax_and_single_device(cases, ranks, jmesh):
         np.testing.assert_allclose(p_[[0, 1]], 0.0, atol=0.05)
         np.testing.assert_allclose(p_[2], 0.0, atol=0.12)
         np.testing.assert_allclose(p_[3:], 0.0, atol=0.02)
+
+
+def test_sharded_ndt_with_a_frozen_neighbourhood_matches_jax_and_single_device(
+        cases, ranks, jmesh):
+    """The same align with `regather_dist` 0.3 (the neighbourhood gathered
+    again only past 0.3 of motion; the CPU ranks' `newton_align` keeps the
+    gather pose, a CUDA rank's shard pass gathers at it): against the JAX
+    package's mesh branch and the port's single-device align, the same
+    iteration count and convergence and the pose within 1e-4."""
+    c, got = cases["ndt"], ranks[0]["ndt_regather"]
+    args = (cases["jgrid"], jnp.asarray(c["src"]), jnp.asarray(c["mask"]),
+            jnp.asarray(c["init"]))
+    jspec = NSPEC._replace(regather_dist=c["regather_dist"])
+    j = _replicated(lambda *a: jndt.align(*a, GSPEC, jspec, axis="data"), jmesh, 4)(*args)
+    one = tndt.align(mesh_cases._grid(c), _t(c["src"]), _t(c["mask"]), _t(c["init"]),
+                     tvm.GridSpec(*c["gspec"]),
+                     TNSPEC._replace(regather_dist=c["regather_dist"]))
+    for ref in (j, one):
+        assert int(got["iterations"]) == int(ref.iterations)
+        assert bool(got["converged"]) == bool(ref.converged)
+        np.testing.assert_allclose(got["pose"], np.asarray(ref.pose), atol=1e-4)
 
 
 def _jsc(c, q, count, jmesh):

@@ -379,7 +379,7 @@ def test_cli_help(argv, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["run-sim", "--engine", "device", "--mesh", "2", "--render-procs", "2"],
+    ["run-sim", "--engine", "host", "--mesh", "2", "--render-procs", "2"],
     ["run-sim", "--mesh", "4"],
     ["run-sim", "--continue-session", "x.npz"],
     ["run-sim", "--engine", "host", "--render-procs", "2"],
@@ -391,8 +391,10 @@ def test_cli_rejects_what_is_not_ported(argv, capsys):
     not accepted and ignored; so is `--continue-session` with the host
     engine, as in the reference, `--render-procs` with the host engine,
     which draws every scan from one shared generator (the reference ignores
-    it there), `--mesh` with the host engine (the reference ignores it
-    there too) and `--mesh` with `--render-procs`."""
+    it there) and `--mesh` with the host engine (the reference ignores it
+    there too), alone or with `--render-procs`. (`--mesh` with
+    `--render-procs` on the device engine runs: each rank forks its render
+    workers before it forms its group, tests/test_torch_mesh_engine.py.)"""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code == 2

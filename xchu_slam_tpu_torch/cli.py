@@ -58,16 +58,19 @@ interpreter that renders (or reads) its own scans and runs the whole session
 with its `Mesh`: NCCL, a card a rank, where `--device cuda` sees N cards;
 else gloo, every rank on card 0 with each collective staged through pinned
 host memory; gloo on `--device cpu`. Under `torchrun` (its variables set)
-the CLI joins that group instead, and N must equal its world size. Rank 0
-alone writes `--out`, the export and the checkpoints; the summary is rank
-0's, with `"mesh"`, `"backend"` and `"ranks_agree"` (a hash of every pose,
-equal on every rank, or the run fails).
+the CLI joins that group instead, and N must equal its world size. With
+`--render-procs W` each rank forks its own W render workers before it forms
+its group (a process may not fork once CUDA is initialized), each rendering
+the whole stream, since every rank holds the whole state. Rank 0 alone
+writes `--out`, the export and the checkpoints; the summary is rank 0's,
+with `"mesh"`, `"backend"` and `"ranks_agree"` (a hash of every pose, equal
+on every rank, or the run fails), and with workers each rank's
+`"inline_renders"`, the render processes of the group and `os.cpu_count()`.
 
 Every subcommand that computes takes `--device` (default `cuda`, an error
 without a card; `cpu` runs the kernels' plain versions). Refused by name:
-`--sync-every` (not ported), `--mesh` with `--engine host` or with
-`--render-procs` (a rank's group touches CUDA before the workers could
-fork); `--continue-session` and `--render-procs` need `--engine device`.
+`--sync-every` (not ported), `--mesh` with `--engine host`;
+`--continue-session` and `--render-procs` need `--engine device`.
 """
 
 from __future__ import annotations
@@ -347,7 +350,7 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
             prefetch_threads: int = 2, continue_from: str | None = None,
             realism: bool = False, trajectory: str | None = None,
-            render_procs: int = 0, mesh=None):
+            render_procs: int = 0, mesh=None, source=None):
     """Run the circuit, or the TUM `trajectory`, through the host or the
     device engine. Returns (pipeline, summary dict). With `out`, the run's
     artifacts are written there. `timers` (a `StageTimers` for `device`)
@@ -367,12 +370,16 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     continuation, and the summary covers the continued keyframes.
 
     The render workers are forked before anything here touches CUDA, and
-    closed when the run ends, however it ends.
+    closed when the run ends, however it ends. `source` is a scan source
+    that `mesh_rank_setup` made earlier for the same arguments (its workers
+    forked before the process touched CUDA); it is closed here too.
 
     With `mesh` (this rank's `parallel.distributed.Mesh`; every rank of the
     group calls this with the same arguments) the device engine runs the
     session over the mesh on the mesh's device (`device` is then ignored),
-    each rank rendering its own scans; rank 0 alone writes `out`."""
+    each rank rendering its own scans; rank 0 alone writes `out`. A rank
+    forms its group before it gets here, so with `render_procs` it must
+    pass the `source` it made before (`mesh_rank_setup`)."""
     from xchu_slam_tpu_torch.io.export import save_run
     from xchu_slam_tpu_torch.models.pipeline import SlamPipeline
     from xchu_slam_tpu_torch.utils import metrics, se3, sim
@@ -390,29 +397,18 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     if mesh is not None:
         if engine != "device":
             raise ValueError("a mesh runs the device engine only")
-        if render_procs:
-            raise ValueError("render_procs with a mesh: a rank's group has touched CUDA "
-                             "before its render workers could fork")
+        if render_procs and source is None:
+            raise ValueError("render_procs with a mesh: fork the render workers before the "
+                             "rank forms its group and pass them as `source` "
+                             "(cli.mesh_rank_setup)")
         device = str(mesh.device)
     writer = mesh is None or mesh.rank == 0
-    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed, trajectory)
-    index = _world_index(world, trajectory)
-    sensor = dynamics = None
-    if realism:
-        sensor, dynamics = sim.SensorModel(), sim.DynamicObjects(gt[:, :3], seed=seed)
-    lazy = source = None
-    if engine == "device":
-        lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000, index=index,
-                                 sensor=sensor, dynamics=dynamics)
-        if render_procs:
-            from xchu_slam_tpu_torch.io.procsource import ProcessScanSource
-
-            # forked before the first CUDA call of the run (the device check
-            # included); the reference's readahead: what the staging
-            # threads can hold
-            source = ProcessScanSource(
-                lazy, workers=render_procs,
-                readahead=(prefetch_depth + prefetch_threads + 2) * chunk)
+    gt_stamps, gt, world, index, sensor, dynamics, lazy = _sim_inputs(
+        scans, radius, seed, trajectory, realism)
+    if engine == "device" and render_procs and source is None:
+        # forked before the first CUDA call of the run (the device check
+        # included)
+        source = _fork_renders(lazy, render_procs, chunk, prefetch_depth, prefetch_threads)
     try:
         _check_device(device)
         cfg = sim_config(overrides, loop_method, imu, wheel, gps)
@@ -517,6 +513,50 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
         summary["render_procs"] = render_procs
         summary["inline_renders"] = source.inline_renders
     return pipe, summary
+
+
+def _sim_inputs(scans: int, radius: float, seed: int, trajectory: str | None,
+                realism: bool):
+    """A `run_sim` run's stamps, poses, world and its index, sensor model and
+    moving objects (None without `realism`), and its scans as the device
+    engine renders them: lazily, each from a generator of its own."""
+    from xchu_slam_tpu_torch.utils import sim
+
+    gt_stamps, gt, world = _sim_world_and_traj(scans, radius, seed, trajectory)
+    index = _world_index(world, trajectory)
+    sensor = dynamics = None
+    if realism:
+        sensor, dynamics = sim.SensorModel(), sim.DynamicObjects(gt[:, :3], seed=seed)
+    lazy = sim.RenderedScans(world, gt, seed=seed, n_points=24_000, index=index,
+                             sensor=sensor, dynamics=dynamics)
+    return gt_stamps, gt, world, index, sensor, dynamics, lazy
+
+
+def _fork_renders(lazy, render_procs: int, chunk: int, prefetch_depth: int,
+                  prefetch_threads: int):
+    """`render_procs` forked render workers over `lazy`, reading ahead what
+    the staging threads can hold (the reference's readahead)."""
+    from xchu_slam_tpu_torch.io.procsource import ProcessScanSource
+
+    return ProcessScanSource(lazy, workers=render_procs,
+                             readahead=(prefetch_depth + prefetch_threads + 2) * chunk)
+
+
+def mesh_rank_setup(command: str, kwargs: dict):
+    """What a rank of `command` must make before it forms its group: with
+    `render_procs`, run-sim's render workers (`ProcessScanSource`, forked
+    before the process touches CUDA) over the same scans `run_sim` renders
+    for `kwargs`; else None. Passed to `mesh_rank` as its `source`."""
+    if command != "run-sim" or not kwargs.get("render_procs"):
+        return None
+    import inspect
+
+    a = inspect.signature(run_sim).bind_partial(**kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    lazy = _sim_inputs(a["scans"], a["radius"], a["seed"], a["trajectory"], a["realism"])[-1]
+    return _fork_renders(lazy, a["render_procs"], a["chunk"], a["prefetch_depth"],
+                         a["prefetch_threads"])
 
 
 def cmd_run_sim(args):
@@ -722,9 +762,10 @@ def rank_counters(pipe) -> dict:
             "icp_verifications": pipe.icp_verifications}
 
 
-def mesh_rank(mesh, command: str, kwargs: dict) -> dict:
+def mesh_rank(mesh, command: str, kwargs: dict, source=None) -> dict:
     """One rank of `command` ("run-sim" or "run-kitti") over `mesh`: the
-    whole run with this rank's mesh. Returns its summary, its pose hash and
+    whole run with this rank's mesh, and its scans from `source` where
+    `mesh_rank_setup` made one. Returns its summary, its pose hash and
     per-scan odometry, a continuation's record, its counters
     (`rank_counters`, and on a CUDA device the host synchronisations
     PyTorch made, `count_host_syncs`) and its stage timers' report."""
@@ -732,8 +773,9 @@ def mesh_rank(mesh, command: str, kwargs: dict) -> dict:
 
     fn = {"run-sim": run_sim, "run-kitti": run_kitti}[command]
     timers = StageTimers(mesh.device)
+    extra = {} if source is None else {"source": source}
     with count_host_syncs(mesh.device.type == "cuda") as syncs:
-        pipe, summary = fn(**kwargs, timers=timers, mesh=mesh)
+        pipe, summary = fn(**kwargs, **extra, timers=timers, mesh=mesh)
     return {"rank": mesh.rank, "summary": summary, "pose_hash": pose_hash(pipe),
             "odometry": pipe.odometry_trajectory(),
             "continuation": getattr(pipe, "continuation", None),
@@ -741,16 +783,23 @@ def mesh_rank(mesh, command: str, kwargs: dict) -> dict:
             "timers": timers.report()}
 
 
-def _mesh_summary(summary: dict, hashes: list, backend: str) -> dict:
+def _mesh_summary(summary: dict, hashes: list, backend: str,
+                  inline_renders: list | None = None) -> dict:
     """Rank 0's `summary` with the group's size, backend and whether every
     rank ended with rank 0's poses (`hashes`, rank 0's first); a rank that
-    did not is an error."""
+    did not is an error. Where the ranks rendered with workers, each rank's
+    `inline_renders`, the group's render processes and `os.cpu_count()`."""
     bad = [r for r, h in enumerate(hashes) if h != hashes[0]]
     if bad:
         raise RuntimeError(f"mesh of {len(hashes)}: ranks {bad} ended with other poses than "
                            f"rank 0 (pose hashes {hashes})")
-    return {**summary, "mesh": len(hashes), "backend": backend, "ranks_agree": True,
-            "pose_hash": hashes[0]}
+    out = {**summary, "mesh": len(hashes), "backend": backend, "ranks_agree": True,
+           "pose_hash": hashes[0]}
+    if "render_procs" in summary:
+        out.update(inline_renders=list(inline_renders),
+                   render_processes=len(hashes) * summary["render_procs"],
+                   cpu_count=os.cpu_count())
+    return out
 
 
 def run_on_mesh(command: str, kwargs: dict, world: int):
@@ -764,8 +813,11 @@ def run_on_mesh(command: str, kwargs: dict, world: int):
     backend, device = _mesh_transport(world, kwargs.get("device", "cuda"))
     timeout = mesh_timeout(_mesh_scans(command, kwargs))
     ranks = distributed.launch(world, "xchu_slam_tpu_torch.cli:mesh_rank", (command, kwargs),
-                               backend=backend, device=device, timeout_s=timeout)
-    return _mesh_summary(ranks[0]["summary"], [r["pose_hash"] for r in ranks], backend), ranks
+                               backend=backend, device=device, timeout_s=timeout,
+                               setup="xchu_slam_tpu_torch.cli:mesh_rank_setup")
+    inline = [r["summary"].get("inline_renders") for r in ranks]
+    return _mesh_summary(ranks[0]["summary"], [r["pose_hash"] for r in ranks], backend,
+                         inline), ranks
 
 
 def _join_torchrun(command: str, kwargs: dict, world: int) -> None:
@@ -781,17 +833,25 @@ def _join_torchrun(command: str, kwargs: dict, world: int) -> None:
         raise SystemExit(f"--mesh {world}: torchrun started {size} ranks")
     if device == "cuda":
         device = None if backend == "nccl" else "cuda:0"
-    mesh = distributed.initialize(backend, device=device,
-                                  timeout_s=distributed.GROUP_TIMEOUT_S)
+    # forked before the group touches CUDA, closed however the rank ends
+    source = mesh_rank_setup(command, kwargs)
     try:
-        mine = mesh_rank(mesh, command, kwargs)
-        bits = torch.from_numpy(np.frombuffer(bytes.fromhex(mine["pose_hash"]), np.int32)
-                                .copy()).to(mesh.device)
-        every = collectives.shard_allgather(bits[None], mesh).cpu().numpy()
-        summary = _mesh_summary(mine["summary"], [row.tobytes().hex() for row in every],
-                                backend)
+        mesh = distributed.initialize(backend, device=device,
+                                      timeout_s=distributed.GROUP_TIMEOUT_S)
+        try:
+            mine = mesh_rank(mesh, command, kwargs, source)
+            # the pose hash (2 int32) and the inline renders, of every rank
+            row = np.append(np.frombuffer(bytes.fromhex(mine["pose_hash"]), np.int32),
+                            np.int32(mine["summary"].get("inline_renders", 0)))
+            every = collectives.shard_allgather(torch.from_numpy(row)[None].to(mesh.device),
+                                                mesh).cpu().numpy()
+            summary = _mesh_summary(mine["summary"], [r[:2].tobytes().hex() for r in every],
+                                    backend, [int(r[2]) for r in every])
+        finally:
+            torch.distributed.destroy_process_group()
     finally:
-        torch.distributed.destroy_process_group()
+        if source is not None:
+            source.close()
     if mesh.rank == 0:
         print(json.dumps(summary, indent=2))
         print(mine["timers"], file=sys.stderr)
@@ -963,7 +1023,7 @@ def main(argv=None):
     ps.add_argument("--render-procs", type=int, default=0,
                     help="render the scans in N forked worker processes, started "
                     "before the run's first CUDA call (--engine device; 0 = in the "
-                    "staging threads)")
+                    "staging threads; with --mesh, N for each rank)")
     ps.add_argument("--mesh", type=int, default=0,
                     help="run the device engine as one session over N ranks: state "
                     "replicated, NDT points / SC and ISC database / ICP correspondences "
@@ -1049,9 +1109,6 @@ def main(argv=None):
                     "every scan from one shared generator")
         if args.render_procs < 0:
             p.error("--render-procs must be >= 0")
-        if args.render_procs and args.mesh > 1:
-            p.error("--render-procs with --mesh: a rank forms its group, which touches "
-                    "CUDA, before its render workers could fork")
     if args.cmd == "run-sim" and args.engine == "device":
         if args.chunk < 1 or args.prefetch_depth < 1 or args.prefetch_threads < 1:
             p.error("--chunk, --prefetch-depth and --prefetch-threads must be >= 1")

@@ -51,9 +51,11 @@
 //   loop: N ≤ 64 points a resident block): the block's points, loaded once,
 //   and the voxel row each Hessian pass gathered, which the iteration's
 //   line-search trials and the fitness pass share. Only Hessian passes
-//   gather. A larger N runs the same passes on a grid-stride loop with no
-//   state between them: the voxel is recomputed from the iteration's pose
-//   and gathered again, to the same bits.
+//   gather, and only those at which the control step decided to gather
+//   again (`regather_dist` below). A larger N runs the same passes on a
+//   grid-stride loop with no state between them: the voxel is recomputed from
+//   the pose the neighbourhood belongs to and gathered again, to the same
+//   bits.
 // - Every line-search trial also adds the fitness sums, three more lanes of
 //   the same reduction: the accepted trial ran at the align's last pose on
 //   its last neighbourhood, so the separate fitness pass (and its barrier)
@@ -80,6 +82,16 @@
 //   file is compiled with -fmad=false: the thresholds are compared in fp32
 //   as the plain version compares them, without fused multiply-adds; the
 //   passes' pair arithmetic asks for its fused multiply-adds by name.
+// - Regathering (`regather_dist`, a launch argument of every instantiation,
+//   ops/ndt.py::newton_align's rule, the reference's
+//   xchu_slam_tpu/ops/ndt.py:495-531). After each step the control warp
+//   measures how far the pose has moved from the pose the neighbourhood was
+//   gathered at (‖Δt‖ + 60·‖Δr‖); the next Hessian pass gathers again only
+//   past `regather_dist`, else it reuses the rows it holds. A convergence
+//   counts only on an iteration whose neighbourhood was fresh (gathered at
+//   its pose, or the pose had not moved since); a convergence refused on a
+//   stale one forces a gather at the next iteration. At 0, the default,
+//   every iteration that moved gathers and no convergence is refused.
 // - Outputs stay on the card: pose, iterations, converged, φ at the accepted
 //   pose, matched fraction and fitness on the last neighbourhood, the last
 //   Hessian pass's (L, g, H) and the number of passes run. `mode` 1 stops
@@ -161,6 +173,7 @@ struct NdtParams {
   int max_iter, ls_max, mode;
   int kdtree;                  // 27-cube: keep voxels whose mean is within res
   float res2;                  // res² (KDTREE)
+  float regather_dist;         // gather again past this ‖Δt‖ + 60·‖Δr‖
 };
 
 // The ten matrices Z·Y·X a pass needs: R, dR/d(r,p,y), d²R/d(rr,rp,ry,pp,py,yy),
@@ -234,7 +247,7 @@ struct Shared {
   // loop decisions of the first thread, read by the block; one variable per
   // decision, so that the next decision is never written while a warp still
   // reads this one
-  int stop_after_pass, ls_done, more, fit_known;
+  int stop_after_pass, ls_done, more, fit_known, gather;
 };
 
 // (M · q) for the padded 3×3 `m`
@@ -346,6 +359,9 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& bu
   // the trip count is the warp's, so that every lane reaches the shuffles
   // kept: at most kCacheTrips trips, a thread's pairs never change
   const bool kept = items <= stride * Nb::kCacheTrips;
+  // a Hessian pass that does not gather again reads the rows it holds, as
+  // the line-search passes do
+  const bool reuse = kept && !kFresh && (kind != 0 || !sh.gather);
   int trip = 0;         // of the kept trips; one trip (DIRECT1, DIRECT7) is trip 0
   constexpr bool kTrips = Nb::kCacheTrips > 1;
   for (long long base = (long long)blockIdx.x * kThreads + (tid & ~31); base < items;
@@ -369,11 +385,13 @@ __device__ __forceinline__ void pass(const NdtParams& p, Shared<kM>& sh, int& bu
     for (int a = 0; a < 3; ++a)
       pt[a] = q0 * R[3 * a] + q1 * R[3 * a + 1] + q2 * R[3 * a + 2] + sh.eval[a];
     // the voxel's mean in the map frame (c), its inverse covariance, and
-    // whether the pair counts: kept from the last Hessian pass, or gathered
-    // at the point's voxel under the iteration's pose
+    // whether the pair counts: kept from the last gathering pass, or gathered
+    // at the point's voxel under the pose the neighbourhood belongs to
+    // (sh.ctx, which past the kept trips is recomputed every pass, and may be
+    // a stale pose on purpose)
     float c0, c1, c2, xx, xy, xz, yy, yz, zz;
     bool on;
-    if (kept && kind != 0 && !kFresh) {
+    if (reuse) {
       c0 = row[0]; c1 = row[Nb::kRowStride]; c2 = row[2 * Nb::kRowStride];
       xx = row[3 * Nb::kRowStride]; xy = row[4 * Nb::kRowStride];
       xz = row[5 * Nb::kRowStride]; yy = row[6 * Nb::kRowStride];
@@ -614,6 +632,15 @@ __device__ __forceinline__ void newton_direction(const float g[6], const float H
   }
 }
 
+// ‖Δt‖ + 60·‖Δr‖ between two poses, summed as ops/ndt.py::_moved sums it.
+__device__ __forceinline__ float moved(const float a[6], const float b[6]) {
+  float d[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) d[k] = a[k] - b[k];
+  return sqrtf((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+         + 60.0f * sqrtf((d[3] * d[3] + d[4] * d[4]) + d[5] * d[5]);
+}
+
 // What follows a Hessian pass: (L, g, H) from the 28 sums, the Newton
 // direction, its unit vector, slope and first step length. A whole warp calls
 // it, all lanes alike.
@@ -711,6 +738,7 @@ ndt_align_kernel(const NdtParams p) {
   float a_eval = 0.0f, fit_n = 0.0f, fit_d = 0.0f, fit_m = 0.0f;   // the last trial's step and fitness sums
   int iters = 0, trials = 0;
   bool converged = false;
+  bool fresh = true;    // this iteration's neighbourhood was gathered at its pose
   const float mu = 1e-4f, nu = 0.9f;
   // the More-Thuente / clamped steps' range: [trans_eps / 2, step_size]
   const float step_min = 0.5f * p.trans_eps, step_max = p.step_size;
@@ -723,6 +751,7 @@ ndt_align_kernel(const NdtParams p) {
     publish(sh, pose, ctx);
   }
   if (tid >= 32 && tid < 35) sh.origin[tid - 32] = p.origin[tid - 32];
+  if (tid == 35) sh.gather = 1;                    // the first pass gathers at the initial pose
   const long long stride = (long long)gridDim.x * kThreads;
   if ((long long)p.n * Nb::kLanes <= stride * Nb::kCacheTrips && tid >= 64) {
     // at most kCacheTrips trips: the block's points stay in shared memory for
@@ -879,17 +908,28 @@ ndt_align_kernel(const NdtParams p) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) pose[k] = pose[k] + alpha * dir[k];
       ++iters;
-      converged = alpha < p.trans_eps;
+      // a convergence counts on a fresh neighbourhood only; one refused on
+      // a stale neighbourhood makes the next iteration gather
+      const bool conv_raw = alpha < p.trans_eps;
+      converged = conv_raw && fresh;
       const bool more = !converged && iters < p.max_iter;
-      // the next Hessian pass gathers at the new pose; the fitness pass
-      // keeps this iteration's neighbourhood
+      bool gather = false;
       if (more) {
+        // the next Hessian pass gathers at the new pose where it moved past
+        // regather_dist; the fitness pass keeps this iteration's
+        // neighbourhood
+        const float moved0 = moved(pose, ctx);
+        gather = (conv_raw && !fresh) || moved0 > p.regather_dist;
+        fresh = gather || moved0 <= 1e-9f;
+        if (gather) {
 #pragma unroll
-        for (int k = 0; k < 6; ++k) ctx[k] = pose[k];
+          for (int k = 0; k < 6; ++k) ctx[k] = pose[k];
+        }
       }
       publish(sh, pose, ctx);
       if (first) {
         sh.more = more;
+        sh.gather = gather;
         // the accepted trial ran at this very pose, on this neighbourhood
         sh.fit_known = done && alpha == a_eval;
       }
@@ -1091,16 +1131,16 @@ int ndt_max_blocks(int device, int neighbours, int ls) {
 // One align (mode 0) or one Hessian pass at `init_pose` (mode 1) on `stream`,
 // with `neighbours` voxels a point (1, 7 or 27; `kdtree` masks the 27 by
 // distance² < res2 = res²) and line search `ls` (0 backtrack, 1 More-Thuente,
-// 2 the clamped step). `blocks` must not exceed ndt_max_blocks(); `partial` holds
-// 2·blocks·32 floats, `out` 64. Returns the CUDA error code of the launch
-// (0 = success).
+// 2 the clamped step), gathering again past `regather_dist`. `blocks` must
+// not exceed ndt_max_blocks(); `partial` holds 2·blocks·32 floats, `out` 64.
+// Returns the CUDA error code of the launch (0 = success).
 int ndt_align_launch(const void* src, const void* mask, const void* fin,
                      const void* origin, const void* init_pose, void* out,
                      void* partial, int n, int gx, int gy, int gz, float res,
                      float d1, float s, float two_s, float four_s2,
                      float step_size, float trans_eps, int max_iter, int ls_max,
                      int mode, int blocks, int neighbours, int ls, int kdtree,
-                     float res2, void* stream) {
+                     float res2, float regather_dist, void* stream) {
   int dynamic_bytes = 0;
   const AlignKernel k = pick(neighbours, ls, &dynamic_bytes);
   if (k == nullptr || (kdtree && neighbours != 27))
@@ -1117,7 +1157,7 @@ int ndt_align_launch(const void* src, const void* mask, const void* fin,
   p.res = res; p.d1 = d1; p.s = s; p.two_s = two_s; p.four_s2 = four_s2;
   p.step_size = step_size; p.trans_eps = trans_eps;
   p.max_iter = max_iter; p.ls_max = ls_max; p.mode = mode;
-  p.kdtree = kdtree; p.res2 = res2;
+  p.kdtree = kdtree; p.res2 = res2; p.regather_dist = regather_dist;
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(k), dim3(blocks), dim3(kThreads), args,

@@ -20,8 +20,12 @@ its 32 fixed-order sums (the 28 of (L, g, H) or (L, g), and the fitness
 sums at 28-30). Its plain version is `ops/ndt_deriv.py`'s pass on the
 shard.
 The kernel has one instantiation per neighbourhood size and line search
-(`NdtSpec.neighbor_mode` × `ls_mode`: DIRECT1, DIRECT7 or the 27-cube of
-DIRECT26 / KDTREE, × backtrack, mt_exact, ref_clamped); the spec picks it.
+(`NdtSpec.neighbor_mode` × `ls_mode`: DIRECT1, DIRECT7 (and direct7_rows,
+the same voxels) or the 27-cube of DIRECT26 / KDTREE, × backtrack,
+mt_exact, ref_clamped); the spec picks it. `NdtSpec.regather_dist` is a
+launch argument of every instantiation: the kernel gathers the
+neighbourhood again only where the pose has moved more than it since the
+last gather (`ops/ndt.py::newton_align`'s rule).
 `plan` is the launch geometry: a lane per (point, neighbour) pair, `LANES`
 lanes a point (1, 8 or 32), one block of 512 threads an SM. `probe`
 launches the source's probe kernels, which time what an align waits for (a
@@ -53,8 +57,8 @@ THREADS = 512
 # grid-stride loop over which the kernel keeps the gathered rows in shared
 # memory (past them it gathers again every pass)
 NEIGHBOURS = vm.NEIGHBOR_COUNT
-LANES = {"direct1": 1, "direct7": 8, "direct26": 32, "kdtree": 32}
-CACHE_TRIPS = {"direct1": 1, "direct7": 1, "direct26": 4, "kdtree": 4}
+LANES = {"direct1": 1, "direct7": 8, "direct7_rows": 8, "direct26": 32, "kdtree": 32}
+CACHE_TRIPS = {"direct1": 1, "direct7": 1, "direct7_rows": 1, "direct26": 4, "kdtree": 4}
 LINE_SEARCHES = {"backtrack": 0, "mt_exact": 1, "ref_clamped": 2}
 ACC = 28
 ROW = 32        # floats of one block's partial
@@ -85,8 +89,8 @@ def build() -> tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ndt_align_launch.argtypes = ([ptr] * 7 + [i32] * 4 + [f32] * 7 + [i32] * 7 + [f32]
-                                     + [ptr])
+    lib.ndt_align_launch.argtypes = ([ptr] * 7 + [i32] * 4 + [f32] * 7 + [i32] * 7
+                                     + [f32] * 2 + [ptr])
     lib.ndt_align_launch.restype = i32
     lib.ndt_max_blocks.argtypes = [i32] * 3
     lib.ndt_max_blocks.restype = i32
@@ -156,11 +160,8 @@ def check_modes(nspec) -> None:
         raise ValueError(f"unknown ls_mode {nspec.ls_mode!r}; the port runs "
                          f"{tuple(LINE_SEARCHES)}")
     if nspec.neighbor_mode not in NEIGHBOURS:
-        raise ValueError(f"neighbor_mode {nspec.neighbor_mode!r} is not ported; the port "
-                         f"runs {tuple(NEIGHBOURS)} (direct7_rows is refused)")
-    if nspec.regather_dist != 0.0:
-        raise ValueError(f"regather_dist={nspec.regather_dist} is not ported: the port "
-                         "gathers the neighbourhood every Newton iteration (0.0)")
+        raise ValueError(f"unknown neighbor_mode {nspec.neighbor_mode!r}; the port runs "
+                         f"{tuple(NEIGHBOURS)}")
 
 
 def _check(fin, origin, src, mask, pose, gspec):
@@ -200,7 +201,7 @@ def _launch(fin, origin, src, mask, pose, gspec, nspec, d1: float, d2: float,
             nspec.step_size, nspec.trans_eps,
             nspec.max_iterations, nspec.ls_max_trials, mode, blocks,
             NEIGHBOURS[nb], LINE_SEARCHES[nspec.ls_mode], int(nb == "kdtree"),
-            gspec.resolution ** 2, _build.raw_stream(dev.index))
+            gspec.resolution ** 2, nspec.regather_dist, _build.raw_stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"ndt_kernel launch failed: CUDA error {rc}")
     return out

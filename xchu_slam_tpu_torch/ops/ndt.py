@@ -6,9 +6,12 @@ Newton iterations with the reference's three line searches (`ls_mode`):
 More-Thuente search with its loop live) and "ref_clamped" (what the
 reference's binary executes: its More-Thuente loop is dead code, so the step
 is the clamped first trial), over any of its neighbourhoods
-(`neighbor_mode`: direct1, direct7, direct26, kdtree), gathered afresh every
-Newton iteration (`regather_dist=0`; a frozen neighbourhood,
-`regather_dist > 0`, is not ported and is refused by name).
+(`neighbor_mode`: direct1, direct7 or its alias direct7_rows, direct26,
+kdtree). The neighbourhood is gathered again at an iteration's pose when
+the pose has moved more than `regather_dist` (‖Δt‖ + 60·‖Δr‖) from where it
+was last gathered: every moving iteration at the default 0, a frozen
+neighbourhood above it, where a convergence on a stale neighbourhood is
+refused and forces a fresh gather first (the reference's rule, `_moved`).
 
 The reference runs both loops on the device under `lax.while_loop`, for
 both of its engines. So does the port: `align` has one route per device,
@@ -316,6 +319,15 @@ def mt_exact_search(phi_dphi, phi0, dphi0, alpha0, nspec: NdtSpec):
     return a_t, phi_t, t
 
 
+def _moved(pose: torch.Tensor, ctx_pose: torch.Tensor) -> torch.Tensor:
+    """‖Δt‖ + 60·‖Δr‖ between two host float32 poses, summed in the order
+    the kernel sums it (`regather_dist` is compared with it)."""
+    d = pose - ctx_pose
+    t = torch.sqrt((d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+    r = torch.sqrt((d[3] * d[3] + d[4] * d[4]) + d[5] * d[5])
+    return t + _f32(60.0) * r
+
+
 def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec,
                  stats: dict | None = None):
     """Newton + the spec's line search. `prepare(pose)` gathers the
@@ -327,7 +339,16 @@ def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec,
     Returns (pose [6] host, iterations, converged, ctx_final, phi_final).
     With `stats` (a dict), it also receives the φ/∇ passes of the line
     searches ("trials") and all passes ("passes"), as the kernel's record
-    counts them."""
+    counts them, and the convergences refused on a stale neighbourhood
+    ("stale_refusals", 0 at `regather_dist` 0).
+
+    The neighbourhood is gathered again where the pose has moved more than
+    `regather_dist` from its gather pose (`_moved`); convergence counts only
+    on an iteration that gathered, or whose pose had not moved since the
+    gather, and a convergence refused otherwise pushes the gather pose by
+    1e6, so the next iteration gathers (the reference's rule). At
+    `regather_dist` 0 every iteration that moved gathers, so none is
+    refused."""
     check_spec(nspec)
     dev = init_pose.device
 
@@ -337,11 +358,15 @@ def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec,
     pose = init_pose.detach().to("cpu", torch.float32)
     ctx = prepare(init_pose)
     ctx_pose = pose
-    it, trials, converged, phi_fin = 0, 0, False, _f32(math.inf)
+    it, trials, refused, converged, phi_fin = 0, 0, 0, False, _f32(math.inf)
     while not converged and it < nspec.max_iterations:
         pose_d = on_dev(pose)
-        if not torch.equal(pose, ctx_pose):
+        moved0 = _moved(pose, ctx_pose)
+        regather = bool(moved0 > nspec.regather_dist)
+        if regather:
             ctx, ctx_pose = prepare(pose_d), pose
+        # the iteration's gradient is at a freshly gathered neighbourhood
+        fresh = regather or bool(moved0 <= 1e-9)
         L, g, H = _packed(vgh(pose_d, ctx), want_hess=True)
         dp = newton_direction(g, H)
         dpn = torch.linalg.norm(dp) + 1e-12
@@ -368,9 +393,15 @@ def newton_align(vgh, vg, prepare, init_pose: torch.Tensor, nspec: NdtSpec,
             alpha, phi_fin = _backtrack(phi_dphi, L, dphi0, alpha0, nspec)
         pose = pose + alpha * direction
         it += 1
-        converged = bool(alpha < nspec.trans_eps)
+        conv_raw = bool(alpha < nspec.trans_eps)
+        converged = conv_raw and fresh
+        if conv_raw and not fresh:
+            # a convergence on a stale neighbourhood: push the gather pose
+            # away so that the next iteration gathers afresh
+            ctx_pose = ctx_pose + _f32(1e6)
+            refused += 1
     if stats is not None:
-        stats.update(trials=trials, passes=it + trials)
+        stats.update(trials=trials, passes=it + trials, stale_refusals=refused)
     return pose, it, converged, ctx, phi_fin
 
 

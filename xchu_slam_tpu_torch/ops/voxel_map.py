@@ -228,16 +228,20 @@ def recentre(grid: VoxelGrid, new_centre: torch.Tensor, spec: GridSpec,
 # (PCL's 26 neighbours plus the centre). kdtree then keeps the voxels whose
 # mean lies within `resolution` of the point: a centroid that close to the
 # query lies inside the 27-cube, so that is the reference's radius search.
-NEIGHBOR_COUNT = {"direct1": 1, "direct7": 7, "direct26": 27, "kdtree": 27}
+# direct7_rows is direct7 (the reference's per-neighbour row gather of the
+# same voxels, kept there for A/B measurement).
+NEIGHBOR_COUNT = {"direct1": 1, "direct7": 7, "direct7_rows": 7, "direct26": 27,
+                  "kdtree": 27}
 
 
 def neighbor_offsets(mode: str, device) -> torch.Tensor:
     """The mode's offsets [M,3] (int32), built on the device, no host copy."""
     if mode not in NEIGHBOR_COUNT:
-        raise ValueError(f"unknown neighbor mode {mode!r} (direct7_rows is not ported)")
+        raise ValueError(f"unknown neighbor mode {mode!r}; the modes are "
+                         f"{tuple(NEIGHBOR_COUNT)}")
     if mode == "direct1":
         return torch.zeros((1, 3), dtype=torch.int32, device=device)
-    if mode == "direct7":
+    if NEIGHBOR_COUNT[mode] == 7:
         e = torch.eye(3, dtype=torch.int32, device=device)
         return torch.stack([e[0] * 0, e[0], -e[0], e[1], -e[1], e[2], -e[2]])
     r = torch.arange(-1, 2, dtype=torch.int32, device=device)

@@ -190,9 +190,17 @@ def _stamp(run_dir: str, rank: int) -> float:
 
 
 def launch(world: int, target: str, args: tuple = (), backend: str = "gloo",
-           device: str = "cpu", timeout_s: float = 120.0, path: tuple = ()) -> list:
+           device: str = "cpu", timeout_s: float = 120.0, path: tuple = (),
+           setup: str | None = None) -> list:
     """Run `target` ("module:function", called as function(mesh, *args)) on a
     group of `world` ranks and return each rank's result, rank 0's first.
+    With `setup` ("module:function"), each rank first calls function(*args)
+    before it forms its group (before it touches CUDA: where it forks
+    worker processes, say) and then calls the target as function(mesh,
+    *args, made) with what it made; `made` is closed (its `close()`, where it
+    is not None) however the rank ends. A rank killed at `timeout_s` runs no
+    `close()`: what it made must end with it (forked workers see their pipes
+    close).
 
     Each rank is a fresh interpreter (`sys.executable -m` this module) with
     one torch thread, joined through a `file://` store in a fresh temporary
@@ -215,7 +223,7 @@ def launch(world: int, target: str, args: tuple = (), backend: str = "gloo",
         torch.save(tuple(args), os.path.join(run_dir, "args.pt"))
         with open(os.path.join(run_dir, "spec.json"), "w") as f:
             json.dump({"world": world, "target": target, "backend": backend,
-                       "device": device,
+                       "device": device, "setup": setup,
                        "init_method": "file://" + os.path.join(run_dir, "store")}, f)
         env = dict(os.environ, OMP_NUM_THREADS="1")
         env["PYTHONPATH"] = os.pathsep.join(
@@ -272,8 +280,14 @@ def launch(world: int, target: str, args: tuple = (), backend: str = "gloo",
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+def _function(name: str):
+    module, fn = name.split(":")
+    return getattr(importlib.import_module(module), fn)
+
+
 def _rank_main(run_dir: str, rank: int) -> None:
-    """One rank of `launch`: form the group, run the target, save its result."""
+    """One rank of `launch`: make what `setup` makes, form the group, run
+    the target, save its result; close what setup made however it ends."""
     with open(os.path.join(run_dir, "spec.json")) as f:
         spec = json.load(f)
     torch.set_num_threads(1)
@@ -281,13 +295,17 @@ def _rank_main(run_dir: str, rank: int) -> None:
     device = spec["device"]
     if device == "cuda":
         device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    made = None
     try:
+        args = torch.load(os.path.join(run_dir, "args.pt"), weights_only=False)
+        setup = spec.get("setup")
+        if setup:
+            # before the group: initialize() touches CUDA
+            made = _function(setup)(*args)
         mesh = initialize(backend, spec["init_method"], world, rank, device,
                           GROUP_TIMEOUT_S)
         try:
-            module, fn = spec["target"].split(":")
-            args = torch.load(os.path.join(run_dir, "args.pt"), weights_only=False)
-            result = getattr(importlib.import_module(module), fn)(mesh, *args)
+            result = _function(spec["target"])(mesh, *args, *((made,) if setup else ()))
             tmp = os.path.join(run_dir, f"result{rank}.tmp")
             torch.save(result, tmp)
             os.replace(tmp, os.path.join(run_dir, f"result{rank}.pt"))
@@ -298,6 +316,9 @@ def _rank_main(run_dir: str, rank: int) -> None:
         with open(os.path.join(run_dir, f"failed{rank}"), "w") as f:
             f.write(repr(time.time()))
         raise
+    finally:
+        if made is not None:
+            made.close()
 
 
 if __name__ == "__main__":
