@@ -1,0 +1,30 @@
+"""A short run of every cell on the card: the command's last line, correct.
+Marked `cuda`; it decides inside the test whether there is a card."""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import pytest
+
+from slambench import harness
+
+CELLS = [w["name"] for w in harness.load_benchmark()["workloads"]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_on_the_card(name):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the benchmark runs on the card")
+    out = subprocess.run([sys.executable, "slambench/run.py", "--workload", name, "--seed",
+                          "2147483659", "--seconds", "10", "--trace", "0"],
+                         cwd=harness.ROOT, capture_output=True, text=True, timeout=360)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["correct"], res["check"]
+    assert res["device"]["platform"] == "gpu"
