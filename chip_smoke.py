@@ -1449,12 +1449,35 @@ def _profile_window(fn, scans: int) -> dict:
                 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]}}
 
 
+def _check_stage_spans(pipe, summary: dict) -> None:
+    """The device engine's `stage_seconds` against the CLI's attribution:
+    the `chunk` spans cover the chunks' dispatch times, and the three keys
+    the benchmark's first readers read (`OLD_STAGES`, with the seed) lie
+    inside them, near all of them."""
+    from xchu_slam_tpu_torch.models.device_pipeline import OLD_STAGES
+
+    st, att = pipe.stage_seconds, summary["chunk_attribution"]
+    dispatch = 1e-3 * att["mean_dispatch_ms"] * att["chunks"]
+    old = sum(st[k] for k in OLD_STAGES)
+    inside = old + st["session.seed"]
+    if not (abs(st["chunk"] - dispatch) <= 0.02 * dispatch + 0.005
+            and inside <= st["chunk"] and inside >= 0.9 * st["chunk"]):
+        raise AssertionError(f"device: spans {st} against the attribution {att}")
+    for k in OLD_STAGES:
+        if abs(summary["stage_seconds"][k] - st[k]) > 1e-3:
+            raise AssertionError(f"device: stage_seconds[{k!r}] {st[k]} against the "
+                                 f"summary's {summary['stage_seconds'][k]}")
+    print(f"device: spans match the attribution: chunk {st['chunk']:.3f} s against "
+          f"{dispatch:.3f} s dispatched, the three old keys and the seed {inside:.3f} s; "
+          f"Part B by stage " + json.dumps(summary["part_b_stages"]))
+
+
 def phase_device_engine(host_summary: dict) -> dict:
     """The device engine through the CLI's functions at full width, and what
     its Part A costs. Returns the launches of both kernels by path."""
     from xchu_slam_tpu_torch import cli
     from xchu_slam_tpu_torch.io import kitti
-    from xchu_slam_tpu_torch.models.device_pipeline import DeviceSlamPipeline
+    from xchu_slam_tpu_torch.models.device_pipeline import PART_A_PHASES, DeviceSlamPipeline
 
     # the whole circuit, Part B included, under sync debug mode "error" (the
     # chunks staged in this thread: the mode is global): the first chunk
@@ -1496,6 +1519,14 @@ def phase_device_engine(host_summary: dict) -> dict:
           f"{pipe.loop_count} loops; launches " + json.dumps(counts))
     stage = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
     print("device: stage seconds of the checked circuit " + json.dumps(stage))
+    # Part A's phase events, read after each chunk's readback under check_sync
+    samples = pipe.stage_seconds.get("device.samples", 0)
+    phases = {k: pipe.stage_seconds.get(k, 0.0) for k, _a, _b in PART_A_PHASES}
+    if samples != n_chunks or not all(0.0 < v < samples for v in phases.values()):
+        raise AssertionError(f"device: Part A's phase events read {samples} samples over "
+                             f"{n_chunks} chunks: {phases}")
+    print("device: Part A by phase under check_sync, device ms a sampled scan "
+          + json.dumps({k: round(1e3 * v / samples, 4) for k, v in phases.items()}))
     # Part A alone, 16 replays, on the finished engine
     clouds, stamps, _n = chunks[-1]
     one = type(clouds)(*(t[0] for t in clouds))
@@ -1519,6 +1550,7 @@ def phase_device_engine(host_summary: dict) -> dict:
         if pipe.chunk_readbacks != summary["chunk_attribution"]["chunks"]:
             raise AssertionError(f"device: {pipe.chunk_readbacks} readbacks over "
                                  f"{summary['chunk_attribution']['chunks']} chunks")
+        _check_stage_spans(pipe, summary)
         summary.update(icp_verifications=pipe.icp_verifications, ndt_launches=ndt_n,
                        nn_launches=nn_n, pgo_launches=counts["pgo"],
                        icp_step_launches=counts["icp_step"],

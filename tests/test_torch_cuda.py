@@ -657,6 +657,42 @@ def test_part_a_graph_replay_equals_eager_and_does_not_synchronise(cuda):
     assert runs[0][1:] == runs[1][1:] and runs[0][1] > 3
 
 
+def test_part_a_phase_events_read_without_synchronising(cuda):
+    """Part A's graph carries its four phase events: under
+    `set_sync_debug_mode("error")` (`check_sync`) each chunk's readback adds
+    the last replay's filter, align and map intervals (one sample a chunk),
+    and a replay timed by events around it takes no less than its phases;
+    Part B's stages carry timing events only while spans are recorded."""
+    from xchu_slam_tpu_torch.utils import profiling
+
+    cfg = tconfig.default_config().override(_SMALL)
+    scans = _small_scans(24)
+    stager = tprefetch.ChunkStager(8192, 8, n_buffers=3, device=cuda)
+    chunks = [stager.stage(scans[lo:lo + 8]) for lo in (0, 8, 16)]
+    pipe = tdp.DeviceSlamPipeline(cfg, kf_points=1024, log_capacity=64, device=cuda,
+                                  check_sync=True)
+    for c, (clouds, n_real) in enumerate(chunks[:2]):
+        pipe.process_chunk(clouds, 0.1 * (8 * c + np.arange(8)), n_real)
+    with profiling.recording() as rec:
+        pipe.process_chunk(chunks[2][0], 0.1 * (16 + np.arange(8)), chunks[2][1])
+        pipe.finalize()
+    st = pipe.stage_seconds
+    assert st["device.samples"] == 3 and pipe.part_a_replays == 22
+    for key, _a, _b in tdp.PART_A_PHASES:
+        assert 0.0 < st[key] < 1.0, (key, st[key])
+    stages = [r for r in rec.records if r.name.startswith("part_b.")]
+    assert stages and all(r.device_ms is not None and r.device_ms >= 0 for r in stages)
+    assert all(r.device_ms is None for r in rec.records if not r.name.startswith("part_b."))
+    before, after = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before.record()
+    pipe._graph.replay()
+    after.record()
+    after.synchronize()
+    ev = pipe._phase_events
+    phases = sum(ev[a].elapsed_time(ev[b]) for _k, a, b in tdp.PART_A_PHASES)
+    assert 0.0 < phases <= before.elapsed_time(after)
+
+
 def test_part_a_in_other_modes_replays_without_synchronising(cuda):
     """The device engine in mt_exact + kdtree with the jacobi solve: chunks
     under `set_sync_debug_mode("error")` (`check_sync`), Part A's graph

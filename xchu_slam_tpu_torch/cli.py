@@ -16,6 +16,8 @@
                                              --render-procs 3 --out out/traj
   python -m xchu_slam_tpu_torch.cli run-kitti --velodyne-dir .../velodyne --gt 00.txt \\
                                              --out out/kitti00
+  python -m xchu_slam_tpu_torch.cli run-sim  --engine device --trace-chunks 8:11 \
+                                             --out out/trace
   python -m xchu_slam_tpu_torch.cli run-sim  --engine device --mesh 2 --out out/mesh
   torchrun --nproc-per-node 4 -m xchu_slam_tpu_torch.cli run-sim --engine device --mesh 4
   python -m xchu_slam_tpu_torch.cli info
@@ -36,7 +38,13 @@ generator of its own, as the reference's device path does) and copy to the
 card; with `--render-procs N` the scans are rendered by N forked worker
 processes instead (`io/procsource.ProcessScanSource`, forked before the
 run's first CUDA call); its summary adds the streaming rate and the
-per-chunk wait / dispatch attribution. `--realism` renders through the
+per-chunk wait / dispatch attribution and Part B's stage totals;
+`--trace-chunks A:B` traces chunks A to B - 1 with
+`utils/profiling.device_trace` into `<out>/trace.json` (the card's kernels
+and the program's spans, a track a host thread) and adds the trace's idle
+time split among the feeding thread's spans (`idle_by_span`) to the
+summary (the profiler and the trace's writing slow the run's rate).
+`--realism` renders through the
 beam-level sensor model with moving traffic on either engine. Its sensor
 windows are sliced per chunk from the same draws as
 the host engine's, it writes `checkpoint.npz` at chunk boundaries, and
@@ -76,6 +84,7 @@ without a card; `cpu` runs the kernels' plain versions). Refused by name:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -268,26 +277,32 @@ def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
                        prefetch_depth: int, prefetch_threads: int, device: str,
                        timers, verbose: bool, sensor_windows: dict | None = None,
                        checkpoint_every: int = 0, out: str | None = None,
-                       start: int = 0) -> dict:
+                       start: int = 0, trace_chunks: tuple | None = None) -> dict:
     """Stream `scans[start:]` through the device engine in chunks, with the
     sensor windows of each chunk's slots; `checkpoint.npz` is written at the
-    chunk boundaries of the reference's cadence. Returns the per-chunk
+    chunk boundaries of the reference's cadence; chunks [A, B) of
+    `trace_chunks` run inside `device_trace(out)`. Returns the per-chunk
     times: host wait on the prefetcher (render + stage + copy behind) and
     time inside `process_chunk` (Part A's enqueue, the chunk's readback,
-    Part B), with each chunk's scan span."""
+    Part B), with each chunk's scan span, and the trace's summary."""
     from xchu_slam_tpu_torch.io.prefetch import DeviceChunkPrefetcher
     from xchu_slam_tpu_torch.utils.checkpoint import save_checkpoint
+    from xchu_slam_tpu_torch.utils.profiling import device_trace
 
     n_scans = len(scans)
     wait_s, dispatch_s, span, ts = [], [], [], [time.perf_counter()]
     base = start
     feed = scans if start == 0 else _TailView(scans, start)
-    with DeviceChunkPrefetcher(feed, capacity=cfg.filter.max_raw_points,
-                               chunk=chunk, depth=prefetch_depth,
-                               threads=prefetch_threads, device=device) as pf, \
+    trace = None
+    with contextlib.ExitStack() as tracing, \
+            DeviceChunkPrefetcher(feed, capacity=cfg.filter.max_raw_points,
+                                  chunk=chunk, depth=prefetch_depth,
+                                  threads=prefetch_threads, device=device) as pf, \
             timers.time("slam"):
         it = iter(pf)
         while True:
+            if trace_chunks and len(span) == trace_chunks[0]:
+                trace = tracing.enter_context(device_trace(out, device))
             tw = time.perf_counter()
             try:
                 clouds, n_real = next(it)
@@ -310,11 +325,24 @@ def _run_device_engine(pipe, scans, gt_stamps, gps_alts, cfg, chunk: int,
             if verbose:
                 print(f"scan {base}: kf={pipe.state.db.count} "
                       f"loops={int(pipe.state.loop_count)}", file=sys.stderr)
-    return {"wait_s": wait_s, "dispatch_s": dispatch_s, "span": span, "ts": ts}
+            if trace is not None and len(span) == trace_chunks[1]:
+                tracing.close()
+    res = {"wait_s": wait_s, "dispatch_s": dispatch_s, "span": span, "ts": ts}
+    if trace is not None:
+        res["trace"] = {"chunks": [trace_chunks[0], min(trace_chunks[1], len(span))],
+                        "path": trace.path, "spans": len(trace.spans),
+                        "dropped": trace.dropped, "idle_s": round(trace.idle_s, 6),
+                        "idle_by_span": {k: round(v, 6) for k, v in sorted(
+                            trace.idle_by_span.items(), key=lambda kv: -kv[1])}}
+    return res
+
+
+PART_B_STAGES = ("part_b.store", "part_b.retrieve", "part_b.verify", "part_b.solve")
 
 
 def _chunk_attribution(chunks: dict, pipe, n_scans: int) -> dict:
-    """The streaming rate and where the chunks' time went."""
+    """The streaming rate, where the chunks' time went, Part B's stages
+    (host ms in all, self ms, count) and the trace of `--trace-chunks`."""
     ts = chunks["ts"]
     out = {}
     if len(ts) > 2:
@@ -322,8 +350,6 @@ def _chunk_attribution(chunks: dict, pipe, n_scans: int) -> dict:
     wait = 1e3 * np.asarray(chunks["wait_s"])
     disp = 1e3 * np.asarray(chunks["dispatch_s"])
     total = wait + disp
-    ver = np.array([sum(1 for r in pipe.odom_log[lo:hi] if r["loop_verify_ran"])
-                    for lo, hi in chunks["span"]])
 
     def mean(x):
         return round(float(np.mean(x)), 1) if len(x) else None
@@ -331,14 +357,17 @@ def _chunk_attribution(chunks: dict, pipe, n_scans: int) -> dict:
     out["chunk_attribution"] = {
         "chunks": len(total),
         "p50_ms": round(float(np.median(total)), 1),
-        "p95_ms": round(float(np.quantile(total, 0.95)), 1),
         "mean_wait_ms": mean(wait),
         "mean_dispatch_ms": mean(disp),
-        "verify_chunk_mean_ms": mean(total[ver > 0]),
-        "noverify_chunk_mean_ms": mean(total[ver == 0]),
-        "chunks_with_verify": int((ver > 0).sum()),
     }
-    out["stage_seconds"] = {k: round(v, 3) for k, v in pipe.stage_seconds.items()}
+    stage = pipe.stage_seconds
+    out["stage_seconds"] = {k: round(v, 3) for k, v in stage.items()}
+    out["part_b_stages"] = {
+        name: {"ms": round(1e3 * stage[name], 1), "self_ms": round(1e3 * stage[f"self.{name}"], 1),
+               "count": pipe.spans.counts[name]}
+        for name in PART_B_STAGES if name in stage}
+    if "trace" in chunks:
+        out["trace"] = chunks["trace"]
     return out
 
 
@@ -350,7 +379,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             engine: str = "host", chunk: int = 16, prefetch_depth: int = 2,
             prefetch_threads: int = 2, continue_from: str | None = None,
             realism: bool = False, trajectory: str | None = None,
-            render_procs: int = 0, mesh=None, source=None):
+            render_procs: int = 0, mesh=None, source=None,
+            trace_chunks: tuple | None = None):
     """Run the circuit, or the TUM `trajectory`, through the host or the
     device engine. Returns (pipeline, summary dict). With `out`, the run's
     artifacts are written there. `timers` (a `StageTimers` for `device`)
@@ -368,6 +398,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     device-engine session saved in that checkpoint: its config governs the
     run (the config arguments are then ignored), scan 0 seeds the
     continuation, and the summary covers the continued keyframes.
+    `trace_chunks` (A, B) traces chunks A to B - 1 of the device engine into
+    `<out>/trace.json` (`utils/profiling.device_trace`).
 
     The render workers are forked before anything here touches CUDA, and
     closed when the run ends, however it ends. `source` is a scan source
@@ -394,6 +426,7 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     if render_procs and engine != "device":
         raise ValueError("render_procs requires the device engine: the host engine "
                          "draws every scan from one shared generator")
+    _check_trace_chunks(trace_chunks, engine, mesh, out)
     if mesh is not None:
         if engine != "device":
             raise ValueError("a mesh runs the device engine only")
@@ -452,7 +485,8 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
             chunks = _run_device_engine(pipe, lazy if source is None else source, gt_stamps,
                                         gps_alts, cfg, chunk, prefetch_depth, prefetch_threads,
                                         device, timers, verbose, sensor_windows,
-                                        checkpoint_every, out, start=0 if cont is None else 1)
+                                        checkpoint_every, out, start=0 if cont is None else 1,
+                                        trace_chunks=trace_chunks)
         else:
             pipe = SlamPipeline(cfg, kf_points=4096, device=device)
             t0 = time.perf_counter()
@@ -515,6 +549,20 @@ def run_sim(scans: int = 400, radius: float = 55.0, seed: int = 0,
     return pipe, summary
 
 
+def _check_trace_chunks(trace_chunks, engine: str, mesh, out) -> None:
+    """`trace_chunks` is a range (A, B), 0 <= A < B, of a single-device
+    device engine's chunks that writes its trace into `out`."""
+    if trace_chunks is None:
+        return
+    a, b = trace_chunks
+    if not 0 <= a < b:
+        raise ValueError(f"trace_chunks {a}:{b}: needs 0 <= A < B")
+    if engine != "device" or mesh is not None:
+        raise ValueError("trace_chunks traces the single-device device engine")
+    if not out:
+        raise ValueError("trace_chunks needs an output directory")
+
+
 def _sim_inputs(scans: int, radius: float, seed: int, trajectory: str | None,
                 realism: bool):
     """A `run_sim` run's stamps, poses, world and its index, sensor model and
@@ -573,6 +621,7 @@ def cmd_run_sim(args):
     if args.mesh > 1:
         _cmd_on_mesh("run-sim", kwargs, args.mesh)
         return
+    kwargs["trace_chunks"] = args.trace_chunks
     timers = StageTimers(args.device)
     _pipe, summary = run_sim(**kwargs, timers=timers)
     print(json.dumps(summary, indent=2))
@@ -582,7 +631,7 @@ def cmd_run_sim(args):
 def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
               max_scans: int = 0, engine: str = "host", defer_sync: bool = True,
               verbose: bool = False, overrides=(), device: str = "cuda", timers=None,
-              mesh=None):
+              mesh=None, trace_chunks: tuple | None = None):
     """Run the velodyne `.bin` scans of a directory (in name order, the
     first `max_scans` where it is not 0; scan i stamped 0.1·i) at the
     default config with `overrides`, through the host engine (scans staged
@@ -595,7 +644,8 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     (this rank's `parallel.distributed.Mesh`, every rank calling this with
     the same arguments) the device engine runs over the mesh on the mesh's
     device, each rank reading the scans itself; rank 0 alone writes `out`
-    (and so alone reports the ATE)."""
+    (and so alone reports the ATE). `trace_chunks` (A, B) traces the device
+    engine's chunks A to B - 1 into `<out>/trace.json`."""
     from xchu_slam_tpu_torch.config import default_config
     from xchu_slam_tpu_torch.io import kitti, native_loader
     from xchu_slam_tpu_torch.io.export import save_run
@@ -612,6 +662,7 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
     _check_device(device)
     if engine not in ("host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
+    _check_trace_chunks(trace_chunks, engine, mesh, out)
     cfg = _apply_overrides(default_config(), overrides)
     files = kitti.list_velodyne_dir(velodyne_dir)
     if max_scans:
@@ -636,7 +687,7 @@ def run_kitti(velodyne_dir: str, gt: str | None = None, out: str = "out/kitti",
                                   device=device, mesh=mesh)
         t0 = time.perf_counter()
         chunks = _run_device_engine(pipe, scans, stamps, None, cfg, 16, 2, 2, device,
-                                    timers, verbose)
+                                    timers, verbose, out=out, trace_chunks=trace_chunks)
     else:
         pipe = SlamPipeline(cfg, kf_points=4096, device=device)
         pipe.defer_sync = defer_sync
@@ -689,6 +740,7 @@ def cmd_run_kitti(args):
     if args.mesh > 1:
         _cmd_on_mesh("run-kitti", kwargs, args.mesh)
         return
+    kwargs["trace_chunks"] = args.trace_chunks
     timers = StageTimers(args.device)
     _pipe, summary = run_kitti(**kwargs, timers=timers)
     print(json.dumps(summary, indent=2))
@@ -976,6 +1028,21 @@ def _add_device(parser):
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
 
 
+def _chunk_range(text: str) -> tuple:
+    """"A:B" → (A, B)."""
+    try:
+        a, b = (int(x) for x in text.split(":"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{text!r} is not A:B") from None
+    return a, b
+
+
+def _add_trace_chunks(parser):
+    parser.add_argument("--trace-chunks", type=_chunk_range, default=None, metavar="A:B",
+                        help="trace chunks A to B - 1 of the device engine into "
+                        "<out>/trace.json: kernels and the program's spans")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="xchu_slam_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1031,6 +1098,7 @@ def main(argv=None):
     # a flag of the reference's run-sim that is named, so that it is refused
     # by name
     ps.add_argument("--sync-every", default=None, help=argparse.SUPPRESS)
+    _add_trace_chunks(ps)
     _add_device(ps)
     ps.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -1050,6 +1118,7 @@ def main(argv=None):
     pk.add_argument("--mesh", type=int, default=0,
                     help="run the device engine as one session over N ranks (0 or 1 = "
                     "single device; needs --engine device)")
+    _add_trace_chunks(pk)
     _add_device(pk)
     pk.add_argument("--set", action="append", default=[], metavar="key=value",
                     help="config override, e.g. --set ndt.resolution=1.0")
@@ -1101,6 +1170,12 @@ def main(argv=None):
             p.error("--mesh needs --engine device: the host engine runs on one device")
         if getattr(args, "sync_every", None):
             p.error("--sync-every is not ported yet")
+        if args.trace_chunks is not None:
+            a, b = args.trace_chunks
+            if not 0 <= a < b:
+                p.error("--trace-chunks A:B needs 0 <= A < B")
+            if args.engine != "device" or args.mesh > 1:
+                p.error("--trace-chunks traces the device engine on one device")
     if args.cmd == "run-sim":
         if args.continue_session and args.engine != "device":
             p.error("--continue-session requires --engine device")

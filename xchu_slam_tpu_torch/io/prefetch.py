@@ -19,6 +19,12 @@
    item is handed over, so what the consumer enqueues next is ordered after
    the copy. An exception in a worker is re-raised in the consumer.
 
+Inside `utils/profiling.recording()` the staging is kept as timeline spans
+(no totals): `stage.ring_alloc` (a ring's pinned buffers), in the workers
+`stage.job` (chunk id: the job's index) holding `stage.read` (the source's
+reads or renders), `stage.slot_wait` (a slot's last copy), `stage.fill` and
+`stage.upload`, and in the consumer `stage.wait`.
+
 Not ported: the reference's int16 `quantize` staging and its transfer-size
 cap, which answer a slow host link.
 """
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from xchu_slam_tpu_torch.types import Cloud
+from xchu_slam_tpu_torch.utils.profiling import timeline
 
 
 def _unpack(packed: torch.Tensor, n_valid) -> Cloud:
@@ -72,8 +79,9 @@ class _PinnedRing:
     def __init__(self, shapes_dtypes, n_buffers: int, device):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self._bufs = [[torch.zeros(shape, dtype=dtype, pin_memory=self.cuda)
-                       for shape, dtype in shapes_dtypes] for _ in range(n_buffers)]
+        with timeline("stage.ring_alloc"):
+            self._bufs = [[torch.zeros(shape, dtype=dtype, pin_memory=self.cuda)
+                           for shape, dtype in shapes_dtypes] for _ in range(n_buffers)]
         self._events = [None] * n_buffers
         self._next = 0
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
@@ -83,20 +91,22 @@ class _PinnedRing:
         slot = self._next
         self._next = (self._next + 1) % len(self._bufs)
         if self._events[slot] is not None:
-            self._events[slot].synchronize()
+            with timeline("stage.slot_wait"):
+                self._events[slot].synchronize()
         return slot, self._bufs[slot]
 
     def upload(self, slot: int, unpack) -> Staged:
         """Copy the slot's buffers to the device and run `unpack(*device
         tensors)` there; on a CUDA device both on the side stream."""
         bufs = self._bufs[slot]
-        if not self.cuda:
-            cloud = unpack(*(b.clone() for b in bufs))
-            return Staged(cloud, tuple(cloud), None)
-        with torch.cuda.stream(self.stream):
-            cloud = unpack(*(b.to(self.device, non_blocking=True) for b in bufs))
-            event = torch.cuda.Event()
-            event.record(self.stream)
+        with timeline("stage.upload"):
+            if not self.cuda:
+                cloud = unpack(*(b.clone() for b in bufs))
+                return Staged(cloud, tuple(cloud), None)
+            with torch.cuda.stream(self.stream):
+                cloud = unpack(*(b.to(self.device, non_blocking=True) for b in bufs))
+                event = torch.cuda.Event()
+                event.record(self.stream)
         self._events[slot] = event
         return Staged(cloud, tuple(cloud), event)
 
@@ -124,7 +134,8 @@ class ScanStager:
 
     def stage_async(self, xyz: np.ndarray, intensity: np.ndarray | None) -> Staged:
         slot, (buf,) = self._ring.take()
-        n = _fill(buf, xyz, intensity)
+        with timeline("stage.fill"):
+            n = _fill(buf, xyz, intensity)
         return self._ring.upload(slot, lambda packed: _unpack(packed, n))
 
     def stage(self, xyz: np.ndarray, intensity: np.ndarray | None) -> Cloud:
@@ -147,12 +158,13 @@ class ChunkStager:
     def stage_async(self, scans: list) -> Staged:
         slot, (buf, counts) = self._ring.take()
         scans = scans[:self.chunk]
-        for s in range(self.chunk):
-            if s < len(scans):
-                counts[s] = _fill(buf[s], *_split(scans[s]))
-            else:   # empty trailing slot of a short final chunk
-                buf[s].zero_()
-                counts[s] = 0
+        with timeline("stage.fill"):
+            for s in range(self.chunk):
+                if s < len(scans):
+                    counts[s] = _fill(buf[s], *_split(scans[s]))
+                else:   # empty trailing slot of a short final chunk
+                    buf[s].zero_()
+                    counts[s] = 0
         staged = self._ring.upload(slot, _unpack)
         staged.value = (staged.value, len(scans))
         return staged
@@ -195,7 +207,8 @@ class _Prefetcher:
                         return
                     k = self._next_job
                     self._next_job += 1
-                staged = self._stage(k, stager)
+                with timeline("stage.job", chunk=k):
+                    staged = self._stage(k, stager)
                 with self._cv:
                     self._results[k] = staged
                     self._cv.notify_all()
@@ -215,7 +228,7 @@ class _Prefetcher:
 
     def __iter__(self) -> Iterator:
         for k in range(self.n_jobs):
-            with self._cv:
+            with timeline("stage.wait", chunk=k), self._cv:
                 while k not in self._results:
                     if self._error is not None:
                         raise self._error
@@ -255,7 +268,9 @@ class DeviceScanPrefetcher(_Prefetcher):
                           for _ in range(max(1, threads))])
 
     def _stage(self, k: int, stager: ScanStager) -> Staged:
-        return stager.stage_async(*_split(self.scans[k]))
+        with timeline("stage.read"):
+            scan = self.scans[k]
+        return stager.stage_async(*_split(scan))
 
 
 class DeviceChunkPrefetcher(_Prefetcher):
@@ -273,8 +288,9 @@ class DeviceChunkPrefetcher(_Prefetcher):
 
     def _stage(self, k: int, stager: ChunkStager) -> Staged:
         lo = k * self.chunk
-        return stager.stage_async(
-            [self.scans[i] for i in range(lo, min(lo + self.chunk, len(self.scans)))])
+        with timeline("stage.read"):
+            scans = [self.scans[i] for i in range(lo, min(lo + self.chunk, len(self.scans)))]
+        return stager.stage_async(scans)
 
 
 class LazyScans:

@@ -36,6 +36,26 @@ one. With `check_sync` the whole of a chunk but its one readback runs under
 `torch.cuda.set_sync_debug_mode("error")` (the first scan's seed, once a
 run, is outside it).
 
+Spans (`utils/profiling.Spans`, the engine's `spans`; always on, host
+clock, no synchronisation): every `process_chunk` is a `chunk` (its records'
+chunk id: the pipeline's serial and the chunk's index), holding
+`session.seed` (`init_state`, the first chunk only), `part_a_enqueue` (its
+children `part_a.eager`, `part_a.capture`, `part_a.replay`),
+`readback_wait` and `part_b`, which holds for each keyframe `part_b.store`
+(subsample, descriptors, store writes, the between factor),
+`part_b.retrieve` (`_detect_candidate`) and `part_b.verify`
+(`_verify_and_apply`, holding the in-loop solve `part_b.solve`); `finalize`
+holds `finalize.solve` and `finalize.readback`. `stage_seconds` holds their
+totals by name (self seconds under `self.<name>`). Part A's graph holds four
+timing events (filter | guess and NDT align | map update, swap, recentre,
+gate and log row); after each chunk's readback, which has waited for every
+replay, the last replay's three intervals are added as device seconds
+(`device.part_a.filter`, `device.part_a.align`, `device.part_a.map`, with
+`device.samples` the scans sampled). Inside `profiling.recording()` the Part
+B stages also carry timing events, resolved at the next readback. Under a
+mesh the host spans run and the device times are left out (Part A runs
+eagerly there).
+
 `utils/checkpoint.py` saves and restores this engine's state in the
 reference's layout at a chunk boundary; `models/continue_session.py` seeds
 it from a saved session.
@@ -67,7 +87,7 @@ relay; `run-sim --sync-every` is refused by name).
 from __future__ import annotations
 
 import contextlib
-import time
+import itertools
 import warnings
 from typing import NamedTuple
 
@@ -83,7 +103,7 @@ from xchu_slam_tpu_torch.ops import icp, imu as imu_ops, isc as isc_ops, scancon
 from xchu_slam_tpu_torch.ops.cuda import guess_kernel, ndt_kernel, nn_kernel
 from xchu_slam_tpu_torch.ops.filter import filter_scan
 from xchu_slam_tpu_torch.types import Cloud, make_cloud
-from xchu_slam_tpu_torch.utils import collectives, se3
+from xchu_slam_tpu_torch.utils import collectives, profiling, se3
 
 
 class DevSpec(NamedTuple):
@@ -185,6 +205,12 @@ def _diag_reset() -> torch.Tensor:
     return torch.tensor(_DIAG_RESET, dtype=torch.float32)
 
 
+def _span(spans, name: str):
+    """Part B stage `name` of the owner `spans` (none where it is None), with
+    timing events while spans are recorded."""
+    return contextlib.nullcontext() if spans is None else spans.span(name, device=True)
+
+
 def _as(x, dtype, dev) -> torch.Tensor:
     """`x` as a 0-d tensor of `dtype` on `dev`; a host value becomes a fill
     (no copy from host memory)."""
@@ -243,7 +269,7 @@ def _masked_put(t: torch.Tensor, q: torch.Tensor, ok: torch.Tensor, val) -> None
 
 
 def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
-                      mesh=None) -> DevState:
+                      mesh=None, spans=None) -> DevState:
     """ICP-verify the candidate and, on acceptance, add the loop factor and
     re-solve the graph, all decided on the card as the reference's nested
     conds decide it: the 2-D gate is the ICP's `live` flag, acceptance the
@@ -251,7 +277,8 @@ def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
     none) and `yaw` are 0-d tensors or host values; `loop_count` and `diag`
     come back as tensors on the device, and nothing is read back. With a
     `mesh` the verification and the solve are sharded over its ranks (they
-    read `live` and `run` back: bits equal on every rank)."""
+    read `live` and `run` back: bits equal on every rank). The solve is the
+    span `part_b.solve` of `spans`."""
     db = state.db
     dev = db.poses.device
     cand = _as(cand, torch.int64, dev)
@@ -297,55 +324,61 @@ def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
     run = ok
     if spec.gspec.solve_every > 1:
         run = ok & (loop_count % spec.gspec.solve_every == 0)
-    opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run, mesh=mesh)
+    with _span(spans, "part_b.solve"):
+        opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run, mesh=mesh)
     return state._replace(db=db._replace(opt_poses=opt), loop_count=loop_count, diag=diag)
 
 
 def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
                          stamp: float, travel: float, gps_alt: float,
-                         gps_valid: bool, spec: DevSpec, mesh=None) -> DevState:
+                         gps_valid: bool, spec: DevSpec, mesh=None, spans=None) -> DevState:
     """Store keyframe `db.count` and, at the detection cadence, look for a
     loop and verify it (over `mesh` where one is given; the descriptors are
     computed replicated). `pose` [6] (on the device), `stamp` and `travel`
     are the scan's own, as Part A left them in its slot; the gate's scalars
-    were reset by Part A."""
+    were reset by Part A. The stages are spans of `spans` (where given):
+    `part_b.store`, `part_b.retrieve`, `part_b.verify`."""
     db = state.db
     k = db.count  # new keyframe index
 
-    cxyz, cmask, _src_idx = subsample_cloud(filt.xyz, filt.mask, spec.kf_points)
-    # descriptors from the full filtered cloud; the subsample only bounds the
-    # stored ICP submap clouds
-    sc_desc = sc.make_descriptor(filt.xyz, filt.mask, spec.scspec)
-    isc_desc = None
-    if spec.method == "isc":
-        isc_desc = isc_ops.make_descriptor(filt.xyz, filt.intensity, filt.mask,
-                                           spec.iscspec)
-    # the optimized pose chains onto the previous optimized pose by the
-    # odometric increment since the last keyframe (whose odometric pose is
-    # the store's row k-1)
-    if k >= 1:
-        Z = torch.matmul(se3.inverse(se3.pose_to_matrix(db.poses[k - 1])),
-                         se3.pose_to_matrix(pose))
-        opt_pose = se3.matrix_to_pose(
-            torch.matmul(se3.pose_to_matrix(db.opt_poses[k - 1]), Z))
-        state.graph.between_T[k] = Z
-    else:
-        opt_pose = pose
-    db = _add_keyframe(db, pose, stamp, travel, cxyz, cmask, sc_desc, isc_desc,
-                       opt_pose)
-    state.graph.kf_mask[k].fill_(True)
-    if spec.use_gps and gps_valid:
-        state.graph.gps_alt[k].fill_(gps_alt)
-        state.graph.gps_mask[k].fill_(True)
-    state = state._replace(db=db)
+    with _span(spans, "part_b.store"):
+        cxyz, cmask, _src_idx = subsample_cloud(filt.xyz, filt.mask, spec.kf_points)
+        # descriptors from the full filtered cloud; the subsample only bounds
+        # the stored ICP submap clouds
+        sc_desc = sc.make_descriptor(filt.xyz, filt.mask, spec.scspec)
+        isc_desc = None
+        if spec.method == "isc":
+            isc_desc = isc_ops.make_descriptor(filt.xyz, filt.intensity, filt.mask,
+                                               spec.iscspec)
+        # the optimized pose chains onto the previous optimized pose by the
+        # odometric increment since the last keyframe (whose odometric pose
+        # is the store's row k-1)
+        if k >= 1:
+            Z = torch.matmul(se3.inverse(se3.pose_to_matrix(db.poses[k - 1])),
+                             se3.pose_to_matrix(pose))
+            opt_pose = se3.matrix_to_pose(
+                torch.matmul(se3.pose_to_matrix(db.opt_poses[k - 1]), Z))
+            state.graph.between_T[k] = Z
+        else:
+            opt_pose = pose
+        db = _add_keyframe(db, pose, stamp, travel, cxyz, cmask, sc_desc, isc_desc,
+                           opt_pose)
+        state.graph.kf_mask[k].fill_(True)
+        if spec.use_gps and gps_valid:
+            state.graph.gps_alt[k].fill_(gps_alt)
+            state.graph.gps_mask[k].fill_(True)
+        state = state._replace(db=db)
 
     # loop detection every detect_period-th keyframe
     if spec.method != "none" and k >= 1 and k % spec.detect_period == 0:
-        cand, found, yaw = _detect_candidate(state, k, stamp, spec, mesh)
-        cand = torch.where(found, cand, -1)
-        diag = torch.cat([torch.stack([cand.to(torch.float32), found.to(torch.float32)]),
-                          state.diag[2:]])
-        state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec, mesh)
+        with _span(spans, "part_b.retrieve"):
+            cand, found, yaw = _detect_candidate(state, k, stamp, spec, mesh)
+            cand = torch.where(found, cand, -1)
+            diag = torch.cat([torch.stack([cand.to(torch.float32),
+                                           found.to(torch.float32)]), state.diag[2:]])
+        with _span(spans, "part_b.verify"):
+            state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec, mesh,
+                                      spans)
     return state
 
 
@@ -431,6 +464,13 @@ def _assign(dst, src) -> None:
             d.copy_(s)
 
 
+_SERIALS = itertools.count()     # the pipelines of the process, in the spans' chunk ids
+OLD_STAGES = ("part_a_enqueue", "readback_wait", "part_b")
+# Part A's phases: the pairs of its graph's four timing events
+PART_A_PHASES = (("device.part_a.filter", 0, 1), ("device.part_a.align", 1, 2),
+                 ("device.part_a.map", 2, 3))
+
+
 class DeviceSlamPipeline:
     """Host shell around the device step: feed staged clouds, read results at
     the end. After `finalize()` it exposes the `.db/.graph/.loop_count/
@@ -505,9 +545,14 @@ class DeviceSlamPipeline:
         self._eager_scans = 0
         self.part_a_replays = 0
         self.chunk_readbacks = 0
-        # host seconds spent enqueueing Part A, waiting in the chunk's
-        # readback (the card finishing Part A) and in Part B
-        self.stage_seconds = {"part_a_enqueue": 0.0, "readback_wait": 0.0, "part_b": 0.0}
+        # the spans of the engine (module docstring); Part A's timing events
+        # (recorded only while the graph is captured) and their device seconds
+        self.serial = next(_SERIALS)
+        self.spans = profiling.Spans(cuda=self.device.type == "cuda" and mesh is None)
+        self._chunks = 0
+        self._marks = None
+        self._phase_events = None
+        self._device_seconds = {}
         # ICP verifications run: a device counter during the run, a host int
         # after finalize()
         self._verifications = None
@@ -528,6 +573,24 @@ class DeviceSlamPipeline:
         self.odom_log: list[dict] = []
         self.loops: list = []
 
+    @property
+    def stage_seconds(self) -> dict:
+        """Host seconds by span name (`self.<name>`: self seconds), with
+        `OLD_STAGES` always present (Part A's enqueue, the wait in the
+        chunk's readback for the card to finish Part A, Part B's enqueue),
+        and Part A's device seconds by phase with `device.samples` where
+        sampled."""
+        return {**dict.fromkeys(OLD_STAGES, 0.0), **self.spans.totals(),
+                **self._device_seconds}
+
+    def _read_part_a_phases(self) -> None:
+        """Add the last replay's three phase intervals (its events passed: the
+        chunk's readback waited for every replay)."""
+        ev, dev = self._phase_events, self._device_seconds
+        for key, a, b in PART_A_PHASES:
+            dev[key] = dev.get(key, 0.0) + 1e-3 * ev[a].elapsed_time(ev[b])
+        dev["device.samples"] = dev.get("device.samples", 0) + 1
+
     # ------------------------------------------------------------ Part A -- #
     def _part_a(self, cloud: Cloud, stamp: torch.Tensor, win: GuessWindows | None = None):
         """One scan's every-scan half, with no host synchronisation (under a
@@ -536,14 +599,20 @@ class DeviceSlamPipeline:
         the travel). `win` holds the scan's windows where a guess mode is
         on."""
         st, spec = self.state, self.spec
+        marks = self._marks
+        if marks is not None:
+            marks[0].record()
         filt = filter_scan(cloud, spec.fcfg)
+        if marks is not None:
+            marks[1].record()
         ext_delta = use_ext = None
         imu_vel = st.imu_vel
         if spec.use_imu or spec.use_odom:
             ext_delta, use_ext, imu_vel = imu_ops.ext_guess(
                 st.odom.pose, win.imu, win.wheel, st.imu_vel, spec.use_imu, spec.use_odom)
         new_odom, out = odometry.step(st.odom, filt.xyz, filt.mask, spec.ospec,
-                                      ext_delta, use_ext, on_device=True, mesh=self.mesh)
+                                      ext_delta, use_ext, on_device=True, mesh=self.mesh,
+                                      align_event=None if marks is None else marks[2])
         pose = out.pose
         if spec.use_imu:
             # reset the IMU velocity from the SLAM delta every scan: pure
@@ -571,11 +640,15 @@ class DeviceSlamPipeline:
                  travel, torch.where(is_kf, pose, st.last_kf_odom), stamp, imu_vel))
         st.kf_count.add_(is_kf.to(torch.int64))
         st.scan_count.add_(1)
+        if marks is not None:
+            marks[3].record()
         return filt, row
 
-    def _capture(self, like: Cloud, win: GuessWindows | None) -> None:
+    def _capture(self, like: Cloud, win: GuessWindows | None, phase_events: bool = True) -> None:
         """Capture Part A of one scan as a CUDA graph over static inputs (the
-        windows among them where a guess mode is on)."""
+        windows among them where a guess mode is on), with the four timing
+        events of its phases as event nodes (`phase_events`: off only to
+        measure what the nodes cost a replay)."""
         self._in = (Cloud(*(torch.zeros_like(t) for t in like)),
                     torch.zeros((), device=self.device), _map_windows(win, torch.zeros_like))
         counts = {"ndt": ndt_kernel.launches, "nn": nn_kernel.launches,
@@ -586,10 +659,14 @@ class DeviceSlamPipeline:
         torch.cuda.set_sync_debug_mode("default")
         try:
             # thread-local: the staging threads go on copying while this thread captures
+            if phase_events:
+                self._marks = [torch.cuda.Event(enable_timing=True, external=True)
+                               for _ in range(4)]
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._out = self._part_a(*self._in)
         finally:
             torch.cuda.set_sync_debug_mode(mode)
+            self._phase_events, self._marks = self._marks, None
         # a capture records launches, it makes none: a replay makes them
         self._replay_launches = {"ndt": ndt_kernel.launches - counts["ndt"],
                                  "nn": nn_kernel.launches - counts["nn"],
@@ -601,21 +678,23 @@ class DeviceSlamPipeline:
     def _run_part_a(self, cloud: Cloud, stamp: torch.Tensor, win: GuessWindows | None = None):
         """Part A of one scan, eagerly or as a graph replay; returns tensors
         of its own (a replay's outputs are copied out of the graph's)."""
-        if not self.use_graph:
-            return self._part_a(cloud, stamp, win)
-        if self._graph is None:
-            if self._eager_scans < 1:     # the first scan warms every lazy start
-                self._eager_scans += 1
+        if not self.use_graph or (self._graph is None and self._eager_scans < 1):
+            # on a graph engine the first scan runs eagerly: it warms every lazy start
+            self._eager_scans += 1
+            with self.spans.span("part_a.eager"):
                 return self._part_a(cloud, stamp, win)
-            self._capture(cloud, win)
-        _assign(self._in, (cloud, stamp, win))
-        self._graph.replay()
-        self.part_a_replays += 1
-        ndt_kernel.launches += self._replay_launches["ndt"]
-        nn_kernel.launches += self._replay_launches["nn"]
-        guess_kernel.launches += self._replay_launches["guess"]
-        filt, row = self._out
-        return Cloud(*(t.clone() for t in filt)), row.clone()
+        if self._graph is None:
+            with self.spans.span("part_a.capture"):
+                self._capture(cloud, win)
+        with self.spans.span("part_a.replay"):
+            _assign(self._in, (cloud, stamp, win))
+            self._graph.replay()
+            self.part_a_replays += 1
+            ndt_kernel.launches += self._replay_launches["ndt"]
+            nn_kernel.launches += self._replay_launches["nn"]
+            guess_kernel.launches += self._replay_launches["guess"]
+            filt, row = self._out
+            return Cloud(*(t.clone() for t in filt)), row.clone()
 
     # ------------------------------------------------------------- feeds -- #
     def process_scan(self, cloud, intensity=None, stamp: float = 0.0,
@@ -652,24 +731,28 @@ class DeviceSlamPipeline:
             raise ValueError(f"chunk ({chunk}) exceeds log_capacity "
                              f"({self.spec.log_capacity}): rows would be lost mid-feed")
         n_real = int(n_real)
-        first = 0
-        if self.state is None:
-            if n_real < 1:
+        self.spans.chunk = (self.serial, self._chunks)
+        self._chunks += 1
+        with self.spans.span("chunk"):
+            first = 0
+            if self.state is None:
+                if n_real < 1:
+                    return
+                cloud0 = Cloud(*(t[0] for t in clouds))
+                with self.spans.span("session.seed"):
+                    self.state = init_state(self.spec, cloud0, float(stamps[0]), self.cfg)
+                self._scans_fed = 1
+                first = 1
+            self._reserve_log(n_real - first)
+            if n_real <= first:
                 return
-            cloud0 = Cloud(*(t[0] for t in clouds))
-            self.state = init_state(self.spec, cloud0, float(stamps[0]), self.cfg)
-            self._scans_fed = 1
-            first = 1
-        self._reserve_log(n_real - first)
-        if n_real <= first:
-            return
-        stamps_h = torch.from_numpy(stamps)
-        wins_h = self._host_windows(wins, chunk)
-        if self.device.type == "cuda":
-            stamps_h = stamps_h.pin_memory()
-            wins_h = _map_windows(wins_h, lambda t: t.pin_memory())
-        with self._sync_check():
-            self._chunk(clouds, stamps_h, alts, first, n_real, wins_h)
+            stamps_h = torch.from_numpy(stamps)
+            wins_h = self._host_windows(wins, chunk)
+            if self.device.type == "cuda":
+                stamps_h = stamps_h.pin_memory()
+                wins_h = _map_windows(wins_h, lambda t: t.pin_memory())
+            with self._sync_check():
+                self._chunk(clouds, stamps_h, alts, first, n_real, wins_h)
 
     def _host_windows(self, wins: GuessWindows | None, chunk: int) -> GuessWindows | None:
         """The windows of the modes that are on, as contiguous CPU tensors
@@ -708,41 +791,45 @@ class DeviceSlamPipeline:
         # Part A for every real slot, nothing read back
         stamps_d = stamps_h.to(self.device, non_blocking=True)
         wins_d = _map_windows(wins_h, lambda t: t.to(self.device, non_blocking=True))
-        t0 = time.perf_counter()
-        slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s],
-                                  _map_windows(wins_d, lambda t: t[s]))
-                 for s in range(first, n_real)]
-        rows_d = torch.stack([row for _filt, row in slots])
-        # the one readback of the chunk
-        t1 = time.perf_counter()
-        with self._sync_check("default"):
-            rows = rows_d.cpu().numpy()
-        self.chunk_readbacks += 1
-        if self.mesh is not None:
-            self._check_ranks_agree(rows_d, first, n_real)
-        t2 = time.perf_counter()
+        replays = self.part_a_replays
+        with self.spans.span("part_a_enqueue"):
+            slots = [self._run_part_a(Cloud(*(t[s] for t in clouds)), stamps_d[s],
+                                      _map_windows(wins_d, lambda t: t[s]))
+                     for s in range(first, n_real)]
+            rows_d = torch.stack([row for _filt, row in slots])
+        # the one readback of the chunk; after it every event recorded before
+        # it has passed
+        with self.spans.span("readback_wait"):
+            with self._sync_check("default"):
+                rows = rows_d.cpu().numpy()
+                if self._phase_events is not None and self.part_a_replays > replays:
+                    self._read_part_a_phases()
+                rec = profiling.active_recording()
+                if rec is not None:
+                    rec.resolve()
+            self.chunk_readbacks += 1
+            if self.mesh is not None:
+                self._check_ranks_agree(rows_d, first, n_real)
 
         # Part B, in scan order, for the flagged slots: the keyframe rows and
         # stamps are host values from the readback, every decision below the
         # retrieval a tensor on the card
-        if self._verifications is None:
-            self._verifications = torch.zeros((), device=self.device)
-        for j, (filt, _row) in enumerate(slots):
-            if rows[j, 9] <= 0.5:
-                continue
-            s = first + j
-            self.state = _add_keyframe_branch(
-                self.state._replace(diag=self._diag_reset_dev.clone()), filt,
-                rows_d[j, :6], float(rows[j, 10]), float(rows[j, LOG_COLS]),
-                float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec,
-                self.mesh)
-            self._verifications += self.state.diag[4]
-            slot = (self._scans_fed + j) % self.spec.log_capacity
-            self.state.log[slot, 11:LOG_COLS] = self.state.diag
-        self._scans_fed += n_real - first
-        for key, dt in (("part_a_enqueue", t1 - t0), ("readback_wait", t2 - t1),
-                        ("part_b", time.perf_counter() - t2)):
-            self.stage_seconds[key] += dt
+        with self.spans.span("part_b"):
+            if self._verifications is None:
+                self._verifications = torch.zeros((), device=self.device)
+            for j, (filt, _row) in enumerate(slots):
+                if rows[j, 9] <= 0.5:
+                    continue
+                s = first + j
+                self.state = _add_keyframe_branch(
+                    self.state._replace(diag=self._diag_reset_dev.clone()), filt,
+                    rows_d[j, :6], float(rows[j, 10]), float(rows[j, LOG_COLS]),
+                    float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec,
+                    self.mesh, self.spans)
+                self._verifications += self.state.diag[4]
+                slot = (self._scans_fed + j) % self.spec.log_capacity
+                self.state.log[slot, 11:LOG_COLS] = self.state.diag
+            self._scans_fed += n_real - first
 
     def _check_ranks_agree(self, rows_d: torch.Tensor, first: int, n_real: int) -> None:
         """The rank agreement guard of a mesh: the chunk's log rows (its
@@ -795,9 +882,23 @@ class DeviceSlamPipeline:
         descriptor stores stay on the device. Under a mesh every rank runs
         the single-device solve, with no collective (the reference runs it
         outside its `shard_map`)."""
+        self.spans.chunk = (self.serial, None)
+        with self.spans.span("finalize"):
+            self._finalize()
+
+    def _finalize(self) -> None:
         st = self.state
-        opt = pg.solve(st.db.opt_poses, st.graph, self.spec.gspec)
-        st = st._replace(db=st.db._replace(opt_poses=opt))
+        with self.spans.span("finalize.solve"):
+            opt = pg.solve(st.db.opt_poses, st.graph, self.spec.gspec)
+        with self.spans.span("finalize.readback"):
+            self._read_results(st._replace(db=st.db._replace(opt_poses=opt)))
+            rec = profiling.active_recording()
+            if rec is not None:
+                rec.resolve()
+
+    def _read_results(self, st: DevState) -> None:
+        """The compact readback of `finalize` (its counters checked against
+        the host's) into the `save_run` surface."""
         self.state = st
         self.db = st.db
         self.graph = st.graph

@@ -140,13 +140,17 @@ def _near_edge(pose, origin, spec: OdomSpec):
 
 
 def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
-                    use_ext=None, mesh=None):
+                    use_ext=None, mesh=None, align_event=None):
     """`step` with its three branches decided on the card. With `ext_delta`
     the guess's delta is `where(use_ext, ext_delta, diff)`, `use_ext` a 0-d
-    bool tensor on the state's device (the reference's `_guess`)."""
+    bool tensor on the state's device (the reference's `_guess`).
+    `align_event` (a CUDA event) is recorded between the align and the map
+    update."""
     g = spec.gspec
     delta = None if ext_delta is None else torch.where(use_ext, ext_delta, state.diff)
     res = ndt.align(state.grid_a, xyz, mask, _guess(state, delta), g, spec.nspec, mesh=mesh)
+    if align_event is not None:
+        align_event.record()
     pose = res.pose
     diff = pose - state.pose
     diff = torch.cat([diff[:3], se3.wrap_angle(diff[3:])])
@@ -180,15 +184,16 @@ def _step_on_device(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
 
 
 def step(state: OdomState, xyz, mask, spec: OdomSpec, ext_delta=None,
-         use_ext: bool = False, on_device: bool = False, mesh=None):
+         use_ext: bool = False, on_device: bool = False, mesh=None, align_event=None):
     """One odometry scan step. Returns (new_state, OdomOutput). With
     `use_ext`, `ext_delta` (float32[6] on the state's device) replaces the
     constant-velocity delta in the NDT guess. With `on_device` the step reads
     nothing back and every output is a tensor; there `use_ext` is a 0-d bool
-    tensor on the state's device, decided on the card. With a `mesh` the
+    tensor on the state's device, decided on the card, and `align_event`, a
+    CUDA event where given, marks the end of the align. With a `mesh` the
     align is sharded over its ranks and the rest runs replicated."""
     if on_device:
-        return _step_on_device(state, xyz, mask, spec, ext_delta, use_ext, mesh)
+        return _step_on_device(state, xyz, mask, spec, ext_delta, use_ext, mesh, align_event)
     guess = _guess(state, ext_delta if use_ext else None)
     res = ndt.align(state.grid_a, xyz, mask, guess, spec.gspec, spec.nspec, mesh=mesh)
     pose = res.pose
