@@ -5,9 +5,11 @@ version, the oracle entry `nn_launch_simple`; the NDT align kernel to
 scoring, the map export's batched transform, a checkpoint loaded onto the
 card) against the same functions on the CPU; the device engine's Part A
 (CUDA-graph replay against eager, no synchronisation, staging through the
-pinned ring); the loop back end: the PGO kernel's solve and the ICP graph
-route (NN kernel with its `live` flag + `icp_step`) against their plain
-versions, and Part B decided on the card against the CPU; the guess
+pinned ring) and its Part B (the chains' graph replays against eager, bit
+for bit, a restore captured again); the loop back end: the PGO kernel's
+solve and the ICP graph route (NN kernel with its `live` flag +
+`icp_step`) against their plain versions, and Part B decided on the card
+against the CPU; the guess
 kernel against its plain version, Part A with sensor windows under
 `set_sync_debug_mode("error")`, a device-engine checkpoint resumed on the
 card and batched odometry against single steps; the NDT kernel in each
@@ -29,6 +31,7 @@ import torch
 
 import icp_cases
 import nn_cases
+import part_b_cases
 import pgo_cases
 from xchu_slam_tpu_torch import config as tconfig
 from xchu_slam_tpu_torch.models import pipeline as tpipe
@@ -655,6 +658,49 @@ def test_part_a_graph_replay_equals_eager_and_does_not_synchronise(cuda):
                      [r["keyframe"] for r in pipe.odom_log]))
     assert np.array_equal(runs[0][0], runs[1][0])
     assert runs[0][1:] == runs[1][1:] and runs[0][1] > 3
+
+
+@pytest.mark.parametrize("case", ["sc", "radius_gps", "isc"])
+def test_part_b_graph_replay_equals_eager_and_does_not_synchronise(cuda, case):
+    """Part B as replays of its chains' CUDA graphs, the ICP and Gauss-Newton
+    graphs replayed between them, gives the eager route's session bit for
+    bit: the keyframe store, the factor graph, `loop_count`, the
+    diagnostics and the log ring before `finalize`, the odometry log, loop
+    table and optimized poses after it. Neither run synchronises
+    (`check_sync`). Only the graph route replays: one replay a store, four a
+    detection (three with ISC, whose retrieval stays eager) after each
+    chain's first, eager, use; two captures. A
+    `restore()` captures again, and the session it continues ends as the
+    eager one."""
+    cfg = part_b_cases.config(case)
+    chunks = part_b_cases.stage(part_b_cases.scans(), cuda)
+    runs = {}
+    for use_graph in (True, False):
+        pipe = tdp.DeviceSlamPipeline(cfg, kf_points=part_b_cases.KF_POINTS, log_capacity=64,
+                                      device=cuda, use_graph=use_graph, check_sync=True)
+        pgo0 = pgo_kernel.launches
+        part_b_cases.feed(pipe, chunks[:1])
+        saved = (part_b_cases.clone(pipe.state), pipe._scans_fed)
+        part_b_cases.feed(pipe, chunks, first_chunk=1)
+        state = part_b_cases.part_b_state(pipe)
+        pipe.finalize()
+        runs[use_graph] = (pipe, state, part_b_cases.results(pipe), saved,
+                           pgo_kernel.launches - pgo0)
+    (eager, e_state, e_res, _, e_pgo), (graph, g_state, g_res, saved, g_pgo) = \
+        runs[False], runs[True]
+    assert eager.loop_count >= 1 and e_pgo == g_pgo > 0
+    assert eager.part_b_replays == eager.part_b_captures == 0
+    assert graph.part_b_replays == part_b_cases.expected_replays(graph, graph.kf_count) > 0
+    assert graph.part_b_captures == 2
+    part_b_cases.assert_equal(e_state, g_state)
+    part_b_cases.assert_equal(e_res, g_res)
+    assert graph.icp_verifications == eager.icp_verifications >= 1
+
+    graph.restore(*saved)
+    part_b_cases.feed(graph, chunks, first_chunk=1)
+    graph.finalize()
+    assert graph.part_b_captures == 4
+    part_b_cases.assert_equal(e_res, part_b_cases.results(graph))
 
 
 def test_part_a_phase_events_read_without_synchronising(cuda):

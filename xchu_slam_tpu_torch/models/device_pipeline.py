@@ -22,12 +22,26 @@ keeps the reference's results in scan order:
   (`_add_keyframe_branch` with `_detect_candidate` and `_verify_and_apply`),
   decided on the card as the reference's nested `lax.cond`s decide it. The
   host holds only what the readback gave (which slots are keyframes, their
-  stamps and travel) and the store's count; the candidate, the 2-D gate,
-  the ICP verification (its CUDA graph replayed with `live` = the gate),
+  stamps and travel) and the store's count, and decides the detection
+  cadence (`k % detect_period`); the candidate, the 2-D gate, the ICP
+  verification (its CUDA graph replayed with `live` = the gate),
   acceptance, the masked loop-table writes, `loop_count`, the solve's
   cadence and its kernel's `run` flag, the diagnostics (columns 11-15 of
   that scan's log row) and the verification counter are tensors on the
-  card. The counters are read in `finalize`.
+  card. The counters are read in `finalize`. On a CUDA device (no mesh,
+  `use_graph`) Part B is itself CUDA-graph replays (`_PartBGraphs`): the
+  keyframe index is a 0-d tensor on the card set by a fill, the scan's row
+  and cloud are copied on the device, and the store, the retrieval, the
+  verification's set-up, its acceptance and the per-keyframe tail are
+  chains captured per pipeline on the state's tensors (at the first
+  keyframe that runs each, after it ran eagerly; again after `restore`),
+  with the ICP graph and the in-loop solve's Gauss-Newton graph replayed
+  between them: one replay a keyframe that detects nothing, five (four
+  with ISC, whose retrieval stays eager) and those graphs' (ICP once,
+  Gauss-Newton `inloop_gn_iterations` times) a detection keyframe. Every
+  state tensor is updated in place; the results are the eager route's bit
+  for bit. The seed keyframe, the mesh engine, CPU tensors and
+  `use_graph=False` take the eager route.
 
 Part A reads nothing that Part B writes (the keyframe store, the graph): it
 needs only the gate's own scalars, which stay on the card. So the results
@@ -44,8 +58,11 @@ children `part_a.eager`, `part_a.capture`, `part_a.replay`),
 `readback_wait` and `part_b`, which holds for each keyframe `part_b.store`
 (subsample, descriptors, store writes, the between factor),
 `part_b.retrieve` (`_detect_candidate`) and `part_b.verify`
-(`_verify_and_apply`, holding the in-loop solve `part_b.solve`); `finalize`
-holds `finalize.solve` and `finalize.readback`. `stage_seconds` holds their
+(`_verify_and_apply`, holding the in-loop solve `part_b.solve`), on the
+graph route each around its chains' replays (the ICP graph's in
+`part_b.verify`, the Gauss-Newton iterations' and the tail's in
+`part_b.solve`), and `part_b.capture` (the captures); `finalize` holds
+`finalize.solve` and `finalize.readback`. `stage_seconds` holds their
 totals by name (self seconds under `self.<name>`). Part A's graph holds four
 timing events (filter | guess and NDT align | map update, swap, recentre,
 gate and log row); after each chunk's readback, which has waited for every
@@ -219,34 +236,53 @@ def _as(x, dtype, dev) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=dev)
 
 
-def _sc_radius_candidate(state: DevState, k: int, stamp: float, spec: DevSpec):
+def _row(t: torch.Tensor, k) -> torch.Tensor:
+    """Row `k` of `t`: a host int indexes, a 0-d or one-element tensor on the
+    device gathers (no readback; the form a CUDA graph replays)."""
+    if isinstance(k, torch.Tensor):
+        return t.index_select(0, k.reshape(1))[0]
+    return t[k]
+
+
+def _older_than(stamp, dt: float):
+    """`stamp - dt` as the host computes it for a host stamp: in float64, so
+    that a stamp on the device (a float32 tensor) meets the same threshold
+    when compared with float32 stamps."""
+    if isinstance(stamp, torch.Tensor):
+        return stamp.to(torch.float64) - dt
+    return stamp - dt
+
+
+def _sc_radius_candidate(state: DevState, k, stamp, spec: DevSpec):
     """Loop method "radius": the nearest keyframe before `k` (2-D, optimized
     poses) that is at least `min_time_diff` older, if within
-    `radius_search`. Returns (idx or -1, found) as 0-d tensors on the
-    device."""
+    `radius_search`. `k` and `stamp` are host values or 0-d tensors on the
+    device. Returns (idx or -1, found) as 0-d tensors on the device."""
     db = state.db
     K = db.poses.shape[0]
-    pos = db.opt_poses[k, :2]
+    pos = _row(db.opt_poses, k)[:2]
     d = torch.linalg.norm(db.opt_poses[:, :2] - pos[None], dim=-1)
     eligible = (torch.arange(K, device=d.device) < k) \
-        & (db.stamps < stamp - spec.min_time_diff)
+        & (db.stamps < _older_than(stamp, spec.min_time_diff))
     d = torch.where(eligible, d, torch.inf)
     best = torch.argmin(d).reshape(1)
     found = d.gather(0, best)[0] < spec.radius_search
     return torch.where(found, best[0], -1), found
 
 
-def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec, mesh=None):
+def _detect_candidate(state: DevState, k, stamp, spec: DevSpec, mesh=None):
     """Method-dispatched retrieval. Returns (idx, found, yaw) as 0-d tensors
     on the device: yaw is the descriptor-measured relative heading
     ψ_cand − ψ_query (0 for methods without a rotation estimate). With a
     `mesh` SC and ISC score the database sharded over its ranks; the radius
-    retrieval stays replicated."""
+    retrieval stays replicated. `k` and `stamp` may be 0-d tensors on the
+    device for "sc" and "radius"; "isc" scores the rows before `k`, a host
+    int."""
     db = state.db
     dev = db.poses.device
     if spec.method == "sc":
-        res = sc.detect_loop_on_device(db.sc_db[k], db.sc_db, db.count, spec.scspec, cur=k,
-                                       mesh=mesh)
+        res = sc.detect_loop_on_device(_row(db.sc_db, k), db.sc_db, db.count, spec.scspec,
+                                       cur=k, mesh=mesh)
         return res.idx, res.found, res.yaw
     if spec.method == "isc":
         res = isc_ops.detect_loop_on_device(db.isc_db[k], db.isc_db, db.count,
@@ -261,6 +297,13 @@ def _detect_candidate(state: DevState, k: int, stamp: float, spec: DevSpec, mesh
             torch.zeros((), dtype=torch.bool, device=dev), zero)
 
 
+def _candidate_diag(diag: torch.Tensor, cand, found):
+    """(cand or -1, the diagnostics with the retrieval's two columns set)."""
+    cand = torch.where(found, cand, -1)
+    return cand, torch.cat([torch.stack([cand.to(torch.float32), found.to(torch.float32)]),
+                            diag[2:]])
+
+
 def _masked_put(t: torch.Tensor, q: torch.Tensor, ok: torch.Tensor, val) -> None:
     """t[q] = val where `ok`, in place, with q and ok on the device."""
     old = t.index_select(0, q)
@@ -268,39 +311,40 @@ def _masked_put(t: torch.Tensor, q: torch.Tensor, ok: torch.Tensor, val) -> None
     t.index_copy_(0, q, torch.where(ok, new.reshape(old.shape).to(t.dtype), old))
 
 
-def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
-                      mesh=None, spans=None) -> DevState:
-    """ICP-verify the candidate and, on acceptance, add the loop factor and
-    re-solve the graph, all decided on the card as the reference's nested
-    conds decide it: the 2-D gate is the ICP's `live` flag, acceptance the
-    masked loop-table writes and the solve's `run` flag. `cand` (-1 for
-    none) and `yaw` are 0-d tensors or host values; `loop_count` and `diag`
-    come back as tensors on the device, and nothing is read back. With a
-    `mesh` the verification and the solve are sharded over its ranks (they
-    read `live` and `run` back: bits equal on every rank). The solve is the
-    span `part_b.solve` of `spans`."""
-    db = state.db
-    dev = db.poses.device
-    cand = _as(cand, torch.int64, dev)
-    yaw = _as(yaw, torch.float32, dev)
+def _verify_gate(db: KfDb, k, cand: torch.Tensor, yaw: torch.Tensor, spec: DevSpec):
+    """The verification's inputs: the 2-D sanity gate (ICP's `live` flag),
+    the candidate's submap and the initial transform. `k` is a host int or a
+    0-d tensor on the device; `cand` (-1 for none) and `yaw` 0-d tensors.
+    Returns (do_verify, tgt_xyz, tgt_mask, T_init)."""
     c = torch.clamp(cand, min=0).reshape(1)
     opt_c = db.opt_poses.index_select(0, c)[0]
+    opt_k = _row(db.opt_poses, k)
     # 2-D sanity gate
-    d2 = torch.linalg.norm(db.opt_poses[k, :2] - opt_c[:2])
+    d2 = torch.linalg.norm(opt_k[:2] - opt_c[:2])
     do_verify = (cand >= 0) & (d2 <= spec.max_loop_dist)
 
-    tgt_xyz, tgt_mask, _ = build_submap(db, c, c, spec.submap_half_width,
-                                        spec.submap_points)
-    T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(opt_c)),
-                          se3.pose_to_matrix(db.opt_poses[k]))
+    if isinstance(k, torch.Tensor):
+        # a graph's store: its host count is not the replay's; keyframe k is
+        # the newest row
+        db = db._replace(count=k + 1)
+    tgt_xyz, tgt_mask, _ = build_submap(db, c, c, spec.submap_half_width, spec.submap_points)
+    T_init = torch.matmul(se3.inverse(se3.pose_to_matrix(opt_c)), se3.pose_to_matrix(opt_k))
     if spec.use_sc_yaw and spec.method in ("sc", "isc"):
         # heading from the descriptor's rotation estimate (−yaw = the query's
         # heading in cand's frame) instead of the drifted pose difference
         p_init = se3.matrix_to_pose(T_init)
         p_init[5] = -yaw
         T_init = se3.pose_to_matrix(p_init)
-    res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask, T_init,
-                    spec.icpspec, live=do_verify, mesh=mesh)
+    return do_verify, tgt_xyz, tgt_mask, T_init
+
+
+def _accept_loop(state: DevState, k, cand: torch.Tensor, res: icp.IcpResult,
+                 T_init: torch.Tensor, do_verify: torch.Tensor, spec: DevSpec):
+    """Acceptance of a verification and its masked loop-table writes (in
+    place). Returns (loop_count, diag, run): the new loop count and
+    diagnostics, and the in-loop solve's run flag, as tensors on the
+    device."""
+    dev = state.db.poses.device
     corr = torch.linalg.norm(res.T[:3, 3] - T_init[:3, 3])
     loop_count = _as(state.loop_count, torch.int64, dev)
     # accept only converged ICP: a verification that hits the iteration cap
@@ -324,9 +368,42 @@ def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
     run = ok
     if spec.gspec.solve_every > 1:
         run = ok & (loop_count % spec.gspec.solve_every == 0)
+    return loop_count, diag, run
+
+
+def _verify_and_apply(state: DevState, k: int, cand, yaw, spec: DevSpec,
+                      mesh=None, spans=None) -> DevState:
+    """ICP-verify the candidate and, on acceptance, add the loop factor and
+    re-solve the graph, all decided on the card as the reference's nested
+    conds decide it: the 2-D gate is the ICP's `live` flag, acceptance the
+    masked loop-table writes and the solve's `run` flag. `cand` (-1 for
+    none) and `yaw` are 0-d tensors or host values; `loop_count` and `diag`
+    come back as tensors on the device, and nothing is read back. With a
+    `mesh` the verification and the solve are sharded over its ranks (they
+    read `live` and `run` back: bits equal on every rank). The solve is the
+    span `part_b.solve` of `spans`."""
+    db = state.db
+    dev = db.poses.device
+    cand = _as(cand, torch.int64, dev)
+    yaw = _as(yaw, torch.float32, dev)
+    do_verify, tgt_xyz, tgt_mask, T_init = _verify_gate(db, k, cand, yaw, spec)
+    res = icp.align(db.clouds[k], db.cloud_mask[k], tgt_xyz, tgt_mask, T_init,
+                    spec.icpspec, live=do_verify, mesh=mesh)
+    loop_count, diag, run = _accept_loop(state, k, cand, res, T_init, do_verify, spec)
     with _span(spans, "part_b.solve"):
-        opt = pg.solve(db.opt_poses, g, pg.inloop_spec(spec.gspec), run=run, mesh=mesh)
+        opt = pg.solve(db.opt_poses, state.graph, pg.inloop_spec(spec.gspec), run=run,
+                       mesh=mesh)
     return state._replace(db=db._replace(opt_poses=opt), loop_count=loop_count, diag=diag)
+
+
+def _chain_pose(db: KfDb, prev, pose: torch.Tensor):
+    """(Z, optimized pose) of a keyframe at odometric `pose` after keyframe
+    `prev` (a host int or a one-element tensor): the odometric increment
+    since it, and the optimized pose chained onto its optimized pose by
+    that increment."""
+    Z = torch.matmul(se3.inverse(se3.pose_to_matrix(_row(db.poses, prev))),
+                     se3.pose_to_matrix(pose))
+    return Z, se3.matrix_to_pose(torch.matmul(se3.pose_to_matrix(_row(db.opt_poses, prev)), Z))
 
 
 def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
@@ -354,10 +431,7 @@ def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
         # odometric increment since the last keyframe (whose odometric pose
         # is the store's row k-1)
         if k >= 1:
-            Z = torch.matmul(se3.inverse(se3.pose_to_matrix(db.poses[k - 1])),
-                             se3.pose_to_matrix(pose))
-            opt_pose = se3.matrix_to_pose(
-                torch.matmul(se3.pose_to_matrix(db.opt_poses[k - 1]), Z))
+            Z, opt_pose = _chain_pose(db, k - 1, pose)
             state.graph.between_T[k] = Z
         else:
             opt_pose = pose
@@ -373,9 +447,7 @@ def _add_keyframe_branch(state: DevState, filt: Cloud, pose: torch.Tensor,
     if spec.method != "none" and k >= 1 and k % spec.detect_period == 0:
         with _span(spans, "part_b.retrieve"):
             cand, found, yaw = _detect_candidate(state, k, stamp, spec, mesh)
-            cand = torch.where(found, cand, -1)
-            diag = torch.cat([torch.stack([cand.to(torch.float32),
-                                           found.to(torch.float32)]), state.diag[2:]])
+            cand, diag = _candidate_diag(state.diag, cand, found)
         with _span(spans, "part_b.verify"):
             state = _verify_and_apply(state._replace(diag=diag), k, cand, yaw, spec, mesh,
                                       spans)
@@ -464,6 +536,185 @@ def _assign(dst, src) -> None:
             d.copy_(s)
 
 
+def _state_tensors(state: DevState) -> tuple:
+    """The tensors of `state` that Part B's graphs read or write."""
+    return (*state.db[:-1], *state.graph, state.loop_count, state.diag, state.log)
+
+
+def _captured(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
+    """`fn` captured as a CUDA graph on `stream` (thread-local: the staging
+    threads go on copying), in a private memory pool. Unlike
+    `torch.cuda.graph` it neither synchronises the device nor empties the
+    caches: the engine captures in the middle of a session."""
+    graph = torch.cuda.CUDAGraph()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("default")
+    try:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    return graph
+
+
+class _PartBGraphs:
+    """Part B's keyframe branch as chains of CUDA graphs over one state's
+    tensors (the graph route of `DeviceSlamPipeline`). Each chain runs
+    eagerly at its first use and is captured after it; later keyframes
+    replay it. The chains, in a keyframe's order:
+
+    - `store`: the subsample, the descriptors, the between factor and the
+      optimized-pose chain, the store's and the graph's writes (GPS a masked
+      write), the diagnostics reset;
+    - `retrieve` (Scan Context, radius): the retrieval, the candidate and the
+      diagnostics' retrieval columns. ISC's retrieval scores only the rows
+      older than the query, a shape that grows every keyframe, so it stays
+      eager and writes the candidate with `set_candidate`;
+    - `verify`: the 2-D gate, the submap, the initial transform, copied into
+      the ICP graph's static buffers (the ICP graph is replayed next);
+    - `accept`: the ICP result, acceptance, the masked loop-table writes,
+      `loop_count`, the solve's run flag, copied into the Gauss-Newton
+      graph's static buffers (its iterations are replayed next);
+    - `tail`: the solve's poses into `opt_poses`, the diagnostics into the
+      scan's log row, the verification counter.
+
+    The static inputs are set per keyframe by `load` (and `slot`) with
+    device fills and device-to-device copies: the keyframe index `k`, the
+    scan's log row and filtered cloud, the GPS altitude and its valid bit,
+    the log slot. Every state tensor is updated in place, so the graphs stay
+    valid while `bound_to` the state."""
+
+    STORE, DETECT = ("store",), ("retrieve", "verify", "accept", "tail")
+
+    def __init__(self, state: DevState, spec: DevSpec, like: Cloud,
+                 diag_reset: torch.Tensor, verifications: torch.Tensor):
+        dev = like.xyz.device
+        self.st, self.spec = state, spec
+        self._bound = _state_tensors(state)
+        self.diag_reset, self.verifications = diag_reset, verifications
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
+        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.row = torch.zeros(LOG_COLS + 1, device=dev)
+        self.filt = Cloud(*(torch.zeros_like(t) for t in like))
+        self.gps = torch.zeros((), device=dev)
+        self.gps_ok = torch.zeros((), dtype=torch.bool, device=dev)
+        self.cand = torch.zeros((), dtype=torch.int64, device=dev)
+        self.yaw = torch.zeros((), device=dev)
+        self.icp = self.gn = None
+        if spec.method != "none":
+            self.icp = icp.align_graph(state.db.clouds.shape[1], spec.submap_points,
+                                       spec.icpspec, dev)
+            self.gn = pg.gn_graph(state.graph, pg.inloop_spec(spec.gspec), dev)
+            icp.live_counter(dev)
+        self.graphs = {}
+        self._handed = {}        # what a chain hands the next: verify's, accept's
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def bound_to(self, state: DevState) -> bool:
+        return all(a is b for a, b in zip(self._bound, _state_tensors(state)))
+
+    def variants(self, detect: bool) -> list:
+        """The chains a keyframe runs, a variant each: the store, and at a
+        detection keyframe the detection chain (less ISC's retrieval)."""
+        if not detect:
+            return [self.STORE]
+        return [self.STORE, self.DETECT[1:] if self.spec.method == "isc" else self.DETECT]
+
+    def load(self, k: int, filt: Cloud, row: torch.Tensor, gps_alt: float,
+             gps_valid: bool) -> None:
+        """The keyframe's static inputs: `k` a fill, its log row and filtered
+        cloud copies on the device, the GPS altitude and valid bit fills."""
+        self.k.fill_(k)
+        self.row.copy_(row)
+        self.filt.xyz.copy_(filt.xyz)
+        self.filt.mask.copy_(filt.mask)
+        if self.spec.method == "isc":
+            self.filt.intensity.copy_(filt.intensity)
+        if self.spec.use_gps:
+            self.gps.fill_(gps_alt)
+            self.gps_ok.fill_(gps_valid)
+
+    def step(self, name: str) -> bool:
+        """Chain `name`: a replay once captured (True), else run eagerly."""
+        graph = self.graphs.get(name)
+        if graph is None:
+            getattr(self, "_" + name)()
+            return False
+        graph.replay()
+        return True
+
+    def capture(self, chain) -> None:
+        for name in chain:
+            self.graphs[name] = _captured(getattr(self, "_" + name), self._stream)
+
+    # the chains: the eager route's helpers on the static inputs
+    def _store(self) -> None:
+        st, spec, filt, row = self.st, self.spec, self.filt, self.row
+        k = self.k.reshape(1)
+        pose = row[:6]
+        cxyz, cmask, _src_idx = subsample_cloud(filt.xyz, filt.mask, spec.kf_points)
+        sc_desc = sc.make_descriptor(filt.xyz, filt.mask, spec.scspec)
+        isc_desc = None
+        if spec.method == "isc":
+            isc_desc = isc_ops.make_descriptor(filt.xyz, filt.intensity, filt.mask,
+                                               spec.iscspec)
+        Z, opt_pose = _chain_pose(st.db, k - 1, pose)
+        st.graph.between_T.index_copy_(0, k, Z[None])
+        _add_keyframe(st.db, pose, row[10], row[LOG_COLS], cxyz, cmask, sc_desc, isc_desc,
+                      opt_pose, k=k)
+        st.graph.kf_mask.index_fill_(0, k, True)
+        if spec.use_gps:
+            _masked_put(st.graph.gps_alt, k, self.gps_ok, self.gps)
+            _masked_put(st.graph.gps_mask, k, self.gps_ok, True)
+        st.diag.copy_(self.diag_reset)
+
+    def _retrieve(self) -> None:
+        self.set_candidate(*_detect_candidate(self.st, self.k, self.row[10], self.spec))
+
+    def set_candidate(self, cand, found, yaw) -> None:
+        cand, diag = _candidate_diag(self.st.diag, cand, found)
+        self.cand.copy_(cand)
+        self.yaw.copy_(yaw)
+        self.st.diag.copy_(diag)
+
+    def _verify(self) -> None:
+        db, k = self.st.db, self.k
+        do_verify, tgt_xyz, tgt_mask, T_init = _verify_gate(db, k, self.cand, self.yaw,
+                                                            self.spec)
+        self.icp.load(_row(db.clouds, k), _row(db.cloud_mask, k), tgt_xyz, tgt_mask, T_init,
+                      do_verify)
+        self._handed["verify"] = (T_init, do_verify)
+
+    def _accept(self) -> None:
+        st = self.st
+        T_init, do_verify = self._handed["verify"]
+        loop_count, diag, run = _accept_loop(st, self.k, self.cand, self.icp.result(), T_init,
+                                             do_verify, self.spec)
+        st.loop_count.copy_(loop_count)
+        st.diag.copy_(diag)
+        self.gn.load(st.db.opt_poses, st.graph, run)
+        self._handed["accept"] = run
+
+    def _tail(self) -> None:
+        st = self.st
+        opt_poses = st.db.opt_poses
+        opt_poses.copy_(self.gn.result(opt_poses, st.graph, self._handed["accept"]))
+        self.verifications.add_(st.diag[4])
+        slot = self.slot.reshape(1)
+        row = st.log.index_select(0, slot)
+        row[0, 11:LOG_COLS] = st.diag
+        st.log.index_copy_(0, slot, row)
+
+
 _SERIALS = itertools.count()     # the pipelines of the process, in the spans' chunk ids
 OLD_STAGES = ("part_a_enqueue", "readback_wait", "part_b")
 # Part A's phases: the pairs of its graph's four timing events
@@ -481,7 +732,9 @@ class DeviceSlamPipeline:
                  use_graph: bool | None = None, check_sync: bool = False, mesh=None):
         """`device` defaults to "cuda", or to the mesh's device. `use_graph`
         (default: on a CUDA device without a mesh) replays Part A of a scan
-        as one CUDA graph, captured after the first scan has run eagerly.
+        as one CUDA graph, captured after the first scan has run eagerly,
+        and Part B as its chains' graphs (`_PartBGraphs`; counted by
+        `part_b_replays` and `part_b_captures`).
         `check_sync` runs every chunk, Part B included, under
         `torch.cuda.set_sync_debug_mode("error")` but for its one readback:
         it raises on a host synchronisation that PyTorch makes (it cannot see
@@ -544,6 +797,14 @@ class DeviceSlamPipeline:
         self._replay_launches = {}
         self._eager_scans = 0
         self.part_a_replays = 0
+        # Part B as CUDA graphs (same condition as Part A's: a CUDA device,
+        # no mesh, use_graph), bound to the state; the replays of its own
+        # graphs and its captures (a variant a capture: the store, the
+        # detection chain)
+        self._graph_part_b = self.use_graph and self.device.type == "cuda"
+        self._part_b = None
+        self.part_b_replays = 0
+        self.part_b_captures = 0
         self.chunk_readbacks = 0
         # the spans of the engine (module docstring); Part A's timing events
         # (recorded only while the graph is captured) and their device seconds
@@ -817,19 +1078,71 @@ class DeviceSlamPipeline:
         with self.spans.span("part_b"):
             if self._verifications is None:
                 self._verifications = torch.zeros((), device=self.device)
-            for j, (filt, _row) in enumerate(slots):
+            for j, (filt, _r) in enumerate(slots):
                 if rows[j, 9] <= 0.5:
                     continue
                 s = first + j
+                slot = (self._scans_fed + j) % self.spec.log_capacity
+                gps_alt, gps_valid = float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s]))
+                if self._graph_part_b and self.state.db.count >= 1:
+                    self._keyframe_on_graphs(filt, rows_d[j], float(rows[j, 10]), gps_alt,
+                                             gps_valid, slot)
+                    continue
                 self.state = _add_keyframe_branch(
                     self.state._replace(diag=self._diag_reset_dev.clone()), filt,
                     rows_d[j, :6], float(rows[j, 10]), float(rows[j, LOG_COLS]),
-                    float(np.nan_to_num(alts[s])), bool(np.isfinite(alts[s])), self.spec,
-                    self.mesh, self.spans)
+                    gps_alt, gps_valid, self.spec, self.mesh, self.spans)
                 self._verifications += self.state.diag[4]
-                slot = (self._scans_fed + j) % self.spec.log_capacity
                 self.state.log[slot, 11:LOG_COLS] = self.state.diag
             self._scans_fed += n_real - first
+
+    def _keyframe_on_graphs(self, filt: Cloud, row: torch.Tensor, stamp: float,
+                            gps_alt: float, gps_valid: bool, slot: int) -> None:
+        """Part B of one keyframe (k ≥ 1) as replays of `_PartBGraphs`' chains
+        with the ICP and Gauss-Newton graphs replayed between them: one replay
+        a store-only keyframe, five (four with ISC) and the ICP and
+        Gauss-Newton graphs' a detection keyframe. A chain's first use runs
+        eagerly; the variants it completes are captured after it (span
+        `part_b.capture`). The results are the eager route's bit for bit: the
+        same helpers on the same values, in the same order. A store-only
+        keyframe skips the eager route's diagnostics write and counter add:
+        they rewrite Part A's reset values and add 0."""
+        spec, spans = self.spec, self.spans
+        st = self.state
+        b = self._part_b
+        if b is None or not b.bound_to(st):
+            b = self._part_b = _PartBGraphs(st, spec, filt, self._diag_reset_dev,
+                                            self._verifications)
+        k = st.db.count
+        detect = spec.method != "none" and k % spec.detect_period == 0
+        with _span(spans, "part_b.store"):
+            b.load(k, filt, row, gps_alt, gps_valid)
+            self._part_b_step(b, "store")
+        self.state = st._replace(db=st.db._replace(count=k + 1))
+        if detect:
+            b.slot.fill_(slot)
+            with _span(spans, "part_b.retrieve"):
+                if spec.method == "isc":
+                    b.set_candidate(*_detect_candidate(self.state, k, stamp, spec))
+                else:
+                    self._part_b_step(b, "retrieve")
+            with _span(spans, "part_b.verify"):
+                self._part_b_step(b, "verify")
+                b.icp.replay()
+                self._part_b_step(b, "accept")
+                with _span(spans, "part_b.solve"):
+                    b.gn.iterate(pg.inloop_spec(spec.gspec).gn_iterations)
+                    self._part_b_step(b, "tail")
+        todo = [chain for chain in b.variants(detect) if chain[0] not in b.graphs]
+        if todo:
+            with spans.span("part_b.capture"):
+                for chain in todo:
+                    b.capture(chain)
+                    self.part_b_captures += 1
+
+    def _part_b_step(self, b: _PartBGraphs, name: str) -> None:
+        if b.step(name):
+            self.part_b_replays += 1
 
     def _check_ranks_agree(self, rows_d: torch.Tensor, first: int, n_real: int) -> None:
         """The rank agreement guard of a mesh: the chunk's log rows (its
@@ -851,11 +1164,15 @@ class DeviceSlamPipeline:
         """Take `state` (a checkpoint's or a continuation's, on this
         pipeline's device) at a chunk boundary after `scan_count` scans: the
         host's count of scans fed follows it, and the ring's rows older than
-        its capacity are not in it. The next chunk seeds nothing."""
+        its capacity are not in it. The next chunk seeds nothing, and captures
+        Part A's and Part B's graphs again."""
         self.state = state
         self._scans_fed = scan_count
         self._archived = max(0, scan_count - self.spec.log_capacity)
         self._log_archive = []
+        # the graphs hold the old state's addresses: captured again on it
+        self._graph = None
+        self._part_b = None
 
     def _reserve_log(self, n_new: int) -> None:
         """Archive device log rows to the host before a feed of `n_new` scans

@@ -97,9 +97,21 @@ def subsample_cloud(xyz: torch.Tensor, mask: torch.Tensor, n_out: int):
 
 
 def _add_keyframe(db: KfDb, pose6, stamp, travel, cloud_xyz, cloud_mask,
-                  sc_desc, isc_desc, opt_pose6) -> KfDb:
+                  sc_desc, isc_desc, opt_pose6, k: torch.Tensor | None = None) -> KfDb:
     """Write keyframe `db.count` in place; returns the db with count + 1.
-    `isc_desc=None` leaves the row's ISC image at its zeros."""
+    `isc_desc=None` leaves the row's ISC image at its zeros. With `k` (a
+    one-element int64 tensor on the store's device, the row `db.count`
+    holds) the row is written by `index_copy_` with no host index, as a
+    CUDA graph replays it; `stamp` and `travel` are then 0-d tensors."""
+    if k is not None:
+        rows = [(db.poses, pose6), (db.opt_poses, opt_pose6), (db.stamps, stamp),
+                (db.travel, travel), (db.clouds, cloud_xyz), (db.cloud_mask, cloud_mask),
+                (db.sc_db, sc_desc)]
+        if isc_desc is not None:
+            rows.append((db.isc_db, isc_desc))
+        for t, v in rows:
+            t.index_copy_(0, k, v.reshape(1, *t.shape[1:]).to(t.dtype))
+        return db._replace(count=db.count + 1)
     k = db.count
     db.poses[k] = pose6
     db.opt_poses[k] = opt_pose6

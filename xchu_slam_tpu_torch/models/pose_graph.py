@@ -475,20 +475,42 @@ class _GnGraph:
         self.launches = pgo_kernel.launches - warm
         pgo_kernel.launches = counts
 
-    def solve(self, poses6, graph: GraphData, gn_iterations: int, run) -> torch.Tensor:
+    def load(self, poses6, graph: GraphData, run) -> None:
+        """Copy a solve's inputs into the static buffers."""
         for dst, src in zip(self.graph, graph):
             dst.copy_(src)
         self.run.copy_(run)
         self.Ts.copy_(se3.pose_to_matrix(poses6))
+
+    def iterate(self, gn_iterations: int) -> None:
+        """Replay `gn_iterations` Gauss-Newton iterations from the loaded
+        transforms, each replay's result copied back into them."""
         for _ in range(gn_iterations):
             self.cuda_graph.replay()
             pgo_kernel.launches += self.launches
             self.Ts.copy_(self.out)
+
+    def result(self, poses6, graph: GraphData, run) -> torch.Tensor:
         return torch.where((graph.kf_mask & run)[:, None], se3.matrix_to_pose(self.Ts),
                            poses6)
 
+    def solve(self, poses6, graph: GraphData, gn_iterations: int, run) -> torch.Tensor:
+        self.load(poses6, graph, run)
+        self.iterate(gn_iterations)
+        return self.result(poses6, graph, run)
+
 
 _gn_graphs: dict = {}
+
+
+def gn_graph(graph: GraphData, spec: GraphSpec, dev: torch.device) -> _GnGraph:
+    """The Gauss-Newton iteration's graph of the store's shapes and `spec`
+    on `dev`, captured at its first use."""
+    key = (tuple(t.shape for t in graph), spec._replace(gn_iterations=0), str(dev))
+    g = _gn_graphs.get(key)
+    if g is None:
+        g = _gn_graphs[key] = _GnGraph(graph, spec, dev)
+    return g
 
 
 def sharded_gn_solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
@@ -559,8 +581,4 @@ def solve(poses6: torch.Tensor, graph: GraphData, spec: GraphSpec,
     dev = poses6.device
     if run is None:
         run = torch.ones((), dtype=torch.bool, device=dev)
-    key = (tuple(t.shape for t in graph), spec._replace(gn_iterations=0), str(dev))
-    g = _gn_graphs.get(key)
-    if g is None:
-        g = _gn_graphs[key] = _GnGraph(graph, spec, dev)
-    return g.solve(poses6, graph, spec.gn_iterations, run)
+    return gn_graph(graph, spec, dev).solve(poses6, graph, spec.gn_iterations, run)

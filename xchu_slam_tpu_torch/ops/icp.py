@@ -67,6 +67,14 @@ class IcpResult(NamedTuple):
 live_trips: dict = {}
 
 
+def live_counter(dev: torch.device) -> torch.Tensor:
+    """The live-trip counter of `dev`, made at its first use (before any
+    capture that adds to it: made inside one, a replay would zero it)."""
+    if dev not in live_trips:
+        live_trips[dev] = torch.zeros((), dtype=torch.int64, device=dev)
+    return live_trips[dev]
+
+
 def live_trip_count() -> int:
     """The live ICP iterations of every replay so far, on all devices (one
     readback each)."""
@@ -201,9 +209,7 @@ def _align_sharded_cuda(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec, run
             icp_kernel.partial(src, src_mask, tgt, idx, d2, st, max_d2, 1, s8), mesh)
         icp_kernel.solve(src, torch.cat([s8, s9]), st, cur, spec.trans_eps,
                          spec.max_iterations)
-    if dev not in live_trips:
-        live_trips[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-    live_trips[dev] += trips
+    live_counter(dev).add_(trips)
     fitness = torch.zeros((), dtype=torch.float32, device=dev)
     if bool(st[slot["live0"]] > 0.5):
         idx, d2 = nn_kernel.nearest_neighbor(cur, tgt, tgt_mask)
@@ -282,27 +288,38 @@ class _IcpGraph:
         _idx, d2 = nn_kernel.nearest_neighbor(self.cur, self.tgt, self.tgt_mask, live=live0)
         icp_kernel.fitness(self.src_mask, d2, self.st, max_d2)
 
-    def run(self, src, src_mask, tgt, tgt_mask, init_T, live) -> IcpResult:
+    def load(self, src, src_mask, tgt, tgt_mask, init_T, live) -> None:
+        """Copy a verification's inputs into the static buffers."""
         for dst, s in ((self.src, src), (self.src_mask, src_mask), (self.tgt, tgt),
                        (self.tgt_mask, tgt_mask), (self.init_T, init_T), (self.live, live)):
             dst.copy_(s)
+
+    def replay(self) -> None:
         self.graph.replay()
         nn_kernel.launches += self.nn_launches
         icp_kernel.launches += self.step_launches
+
+    def result(self) -> IcpResult:
+        """The last replay's result, its live trips added to `live_trips`
+        (on the card: capture-safe once the counter exists)."""
         slot = icp_kernel.STATE
         st = self.st
         iters = st[slot["iterations"]].to(torch.int32)
-        dev = st.device
-        if dev not in live_trips:
-            live_trips[dev] = torch.zeros((), dtype=torch.int64, device=dev)
-        live_trips[dev] += iters
+        live_counter(st.device).add_(iters)
         return IcpResult(T=st[slot["T"]].reshape(4, 4).clone(),
                          fitness=st[slot["fitness"]].clone(), iterations=iters,
                          converged=st[slot["converged"]] > 0.5)
 
+    def run(self, src, src_mask, tgt, tgt_mask, init_T, live) -> IcpResult:
+        self.load(src, src_mask, tgt, tgt_mask, init_T, live)
+        self.replay()
+        return self.result()
+
 
 @functools.lru_cache(maxsize=8)
-def _graph(n: int, m: int, spec: IcpSpec, dev: torch.device) -> _IcpGraph:
+def align_graph(n: int, m: int, spec: IcpSpec, dev: torch.device) -> _IcpGraph:
+    """The verification's graph of (N, M, spec) on `dev`, captured at its
+    first use."""
     return _IcpGraph(n, m, spec, dev)
 
 
@@ -322,5 +339,5 @@ def align(src, src_mask, tgt, tgt_mask, init_T, spec: IcpSpec,
         return align_ref(src, src_mask, tgt, tgt_mask, init_T, spec, live)
     if live is None:
         live = torch.ones((), dtype=torch.bool, device=dev)
-    g = _graph(src.shape[0], tgt.shape[0], spec, dev)
+    g = align_graph(src.shape[0], tgt.shape[0], spec, dev)
     return g.run(src, src_mask, tgt, tgt_mask, init_T.to(torch.float32), live)

@@ -191,7 +191,9 @@ def detect_loop_on_device(query, db, db_count: int, spec: ScSpec,
                           cur: int | None = None, mesh=None) -> DeviceCandidate:
     """Best loop candidate for `query` among the entries at least
     `num_exclude_recent` keyframes older than the query keyframe `cur`
-    (default `db_count-1`), as tensors on the device. With a `mesh`
+    (default `db_count-1`; a host int, or a 0-d int64 tensor on the
+    database's device, where eligibility is a comparison on the card), as
+    tensors on the device. With a `mesh`
     (`parallel/distributed.py`), the database is sharded over its ranks
     (`best_on_mesh`) and every rank returns the same candidate."""
     cur = db_count - 1 if cur is None else cur
