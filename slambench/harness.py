@@ -9,9 +9,11 @@ cell, a configuration, a mix or a metric: adding one is adding its files and
 its entries.
 
 A run: set-up (the lap rendered by spawned workers while the card starts,
-the window's scans drawn from it, one short warm session of the cell's own
-shapes), then the measured window (whole sessions back to back, every one
-handed the same drawn scans, each a new `DeviceSlamPipeline` fed by a
+the sensor feeds that the configuration turns on drawn along the session
+(`gen/feeds.py`), the window's scans drawn from the lap, one short warm
+session of the cell's own shapes), then the measured window (whole sessions
+back to back, every one handed the same drawn scans and feeds, each a new
+`DeviceSlamPipeline` fed by a
 `DeviceChunkPrefetcher` in a closed loop, a `finalize` and the optimized
 keyframe trajectory read back at its end), then, with the window closed,
 the peak memory read, the program's state freed and session 0 judged
@@ -144,7 +146,7 @@ class Driver:
     """Sessions of the cell's traffic through the program, in a closed loop."""
 
     def __init__(self, cell: Cell, seed: int, lap: list, device: str, prog_overrides=None):
-        from slambench.gen import drive
+        from slambench.gen import drive, feeds
 
         self.cell, self.seed, self.lap, self.device = cell, seed, lap, device
         self.cfg = program_config(cell.config, prog_overrides)
@@ -152,6 +154,30 @@ class Driver:
         self.lap_index = drive.session_lap_index(cell.mix, len(lap))
         self.period = cell.config["route"]["scan_period_s"]
         self.chunk = self.engine["chunk"]
+        # the sensor feeds of every session (each hands in the same scans),
+        # None where the configuration turns no mode on
+        self.feeds = feeds.session_feeds(
+            cell.config, dict(cell.config["program"], **(prog_overrides or {})),
+            drive.lap_poses(cell.config["route"])[self.lap_index], seed)
+
+    def feed_args(self, idx: np.ndarray) -> dict:
+        """`process_chunk`'s keyword arguments for the chunk's slots `idx`:
+        the altitudes and the windows of each mode that is on, none where
+        every mode is off."""
+        f = self.feeds
+        if f is None:
+            return {}
+        from xchu_slam_tpu_torch.models.device_pipeline import GuessWindows
+        from xchu_slam_tpu_torch.ops.imu import ImuWindow, OdomWindow
+
+        out = {}
+        if f.gps_alts is not None:
+            out["gps_alts"] = f.gps_alts[idx]
+        if f.imu is not None or f.wheel is not None:
+            out["wins"] = GuessWindows(
+                imu=None if f.imu is None else ImuWindow(*(a[idx] for a in f.imu)),
+                wheel=None if f.wheel is None else OdomWindow(*(a[idx] for a in f.wheel)))
+        return out
 
     def scans(self, session: int):
         from slambench.gen import drive
@@ -188,7 +214,7 @@ class Driver:
                 clouds, n_real = next(it)
                 td = time.perf_counter()
                 idx = np.minimum(base + np.arange(clouds.xyz.shape[0]), n - 1)
-                pipe.process_chunk(clouds, stamps[idx], n_real)
+                pipe.process_chunk(clouds, stamps[idx], n_real, **self.feed_args(idx))
                 tr = time.perf_counter()
                 late = deadline is not None and tr > deadline
                 s.chunks.append({"first": base, "n": n_real, "wait_s": td - tw,
@@ -212,7 +238,8 @@ class Driver:
 def _session_record(s: Session, samples_kf: list | None = None) -> dict:
     """What the check reads of session `s`'s finalized pipeline, on the host:
     the odometry log, the keyframe store's poses, the loop table, the
-    counters and the keyframe clouds the check samples."""
+    counters, each keyframe's GPS fix and the keyframe clouds the check
+    samples."""
     pipe = s.pipe
     rows = np.array([[*r["pose"], r["iterations"], r["fitness"], r["matched_frac"],
                       float(r["keyframe"]), r["stamp"], r["loop_cand"], float(r["loop_found"]),
@@ -226,6 +253,8 @@ def _session_record(s: Session, samples_kf: list | None = None) -> dict:
            "kf_opt": np.asarray(kf_opt), "loop_count": L,
            "loop_i": g.loop_i[:L].cpu().numpy(), "loop_j": g.loop_j[:L].cpu().numpy(),
            "loop_T": g.loop_T[:L].cpu().numpy(), "loop_info": g.loop_info[:L].cpu().numpy(),
+           "gps_alt": g.gps_alt[:pipe.kf_count].cpu().numpy(),
+           "gps_mask": g.gps_mask[:pipe.kf_count].cpu().numpy(),
            "kf_count": pipe.kf_count, "scan_count": pipe.scan_count,
            "icp_verifications": pipe.icp_verifications, "kf_clouds": {}}
     for k in samples_kf or []:
@@ -321,11 +350,12 @@ def program_counters() -> dict:
     """The program's own counters: kernel launches by wrapper and live ICP
     trips (one readback)."""
     from xchu_slam_tpu_torch.ops import icp
-    from xchu_slam_tpu_torch.ops.cuda import icp_kernel, ndt_kernel, nn_kernel, pgo_kernel
+    from xchu_slam_tpu_torch.ops.cuda import (guess_kernel, icp_kernel, ndt_kernel, nn_kernel,
+                                              pgo_kernel)
 
     return {"nn": nn_kernel.launches, "ndt": ndt_kernel.launches,
             "icp_step": icp_kernel.launches, "pgo": pgo_kernel.launches,
-            "icp_live_trips": icp.live_trip_count()}
+            "guess": guess_kernel.launches, "icp_live_trips": icp.live_trip_count()}
 
 
 # --------------------------------------------------------------------- run --
@@ -425,7 +455,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     tc = time.perf_counter()
     scans0 = drv.scans(0)
     verdict = check.judge(cell, seed, s0.record, scans0, drv.lap_index, lap_poses(cell),
-                          plan, device, mode=check_mode)
+                          plan, device, mode=check_mode, feeds=drv.feeds)
     verdict["seconds"] = time.perf_counter() - tc
 
     ctx["verdict"] = verdict

@@ -13,18 +13,23 @@ scans everything the program derived from them:
 - Part A at aligns drawn from the seed: the voxel map rebuilt from the
   reference's own filter of the scans the map held, at the logged poses
   (inserts, swaps and recentring replayed from the poses), the scan's own
-  filter, the constant-velocity guess from the two logged poses before it,
-  the reference's Newton align; against the logged pose and iteration count
-  (`ndt_pose_gap_m`, `ndt_rot_gap_rad`, `ndt_iter_mismatch`);
+  filter, the guess from the two logged poses before it (the constant
+  velocity, or with IMU or wheel windows fed the reference's integration of
+  the scan's windows, `imu.py`), the reference's Newton align; against the
+  logged pose and iteration count (`ndt_pose_gap_m`, `ndt_rot_gap_rad`,
+  `ndt_iter_mismatch`);
 - the filter's kept points: the program's stored keyframe clouds against the
   reference's filter of the same scans (`kf_cloud_outlier_pct`);
+- with GPS altitudes fed, the fix each keyframe stored against the feed's
+  at its scan (`gps_mismatch`);
 - Part B over every keyframe in order: the optimized poses chained from the
-  logged odometric poses, the reference's Scan Context retrieval at every
-  detection (`sc_mismatch`) and its 2-D gate (`verify_mismatch`), the
-  reference's ICP at verifications drawn from the seed (`icp_fitness_gap`,
-  `icp_T_gap_m`, `accept_mismatch`), the in-loop solve after every loop the
-  program accepted, with the program's loop factors (the state it
-  followed), then the full solve (`pgo_gap_m`);
+  logged odometric poses, the reference's retrieval at every detection, Scan
+  Context or ISC (`isc.py`) as the configuration runs (`sc_mismatch`), and
+  its 2-D gate (`verify_mismatch`), the reference's ICP at verifications
+  drawn from the seed (`icp_fitness_gap`, `icp_T_gap_m`, `accept_mismatch`),
+  the in-loop solve after every loop the program accepted, with the
+  program's loop factors (the state it followed) and the feed's altitude
+  factors, then the full solve (`pgo_gap_m`);
 - the end result: the program's optimized keyframes against the generator's
   ground truth (`ate_m`), read and reported but compared in no cell: the
   TF32 control reads the same as sound runs.
@@ -42,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from slambench.reference import filt, geom, loop, lowp, ndt, pgo, se3, voxel
+from slambench.reference import filt, geom, imu, isc, loop, lowp, ndt, pgo, se3, voxel
 
 ALIGN_SAMPLES = 12
 CATCH_UP_GN = 4          # Gauss-Newton steps that bring the replayed graph up to date
@@ -182,9 +187,11 @@ def build_map(ops, start, rows, scans: Scans, gspec, device) -> voxel.VoxelGrid:
         return grid._replace(fin=voxel.finalize_stats(grid.stats, gspec))
 
 
-def guess(rows: np.ndarray, k: int, device) -> torch.Tensor:
-    """The constant-velocity guess of scan k from the logged poses of scans
-    k−1 and k−2 (roll and pitch held, yaw wrapped)."""
+def guess(rows: np.ndarray, k: int, device, feeds=None) -> torch.Tensor:
+    """The guess of scan k from the logged poses of scans k−1 and k−2 (roll
+    and pitch held, yaw wrapped): the constant-velocity delta, or, where
+    `feeds` holds IMU or wheel windows, the external delta over scan k's
+    windows wherever each window in use holds a sample."""
     p1 = torch.as_tensor(rows[k - 1, :6].astype(np.float32), device=device)
     if k >= 2:
         p2 = torch.as_tensor(rows[k - 2, :6].astype(np.float32), device=device)
@@ -192,11 +199,17 @@ def guess(rows: np.ndarray, k: int, device) -> torch.Tensor:
         d = torch.cat([d[:3], se3.wrap_angle(d[3:])])
     else:
         d = torch.zeros_like(p1)
+    if feeds is not None and (feeds.imu is not None or feeds.wheel is not None):
+        vel = (imu.imu_velocity(rows, k, feeds.imu, device) if feeds.imu is not None
+               else torch.zeros(3, device=device))
+        delta, use = imu.ext_guess(p1, imu.window(feeds.imu, k, device),
+                                   imu.window(feeds.wheel, k, device), vel)
+        d = torch.where(use, delta, d)
     g = p1 + d
     return torch.cat([g[:3], p1[3:5], se3.wrap_angle(g[5:6])])
 
 
-def align_at(k, rows, seen, scans: Scans, prog, device):
+def align_at(k, rows, seen, scans: Scans, prog, device, feeds=None):
     """The reference's align of scan k from the program's state: (pose [6],
     iterations)."""
     gspec, nspec = voxel.spec_from_config(prog), ndt.spec_from_config(prog)
@@ -204,7 +217,7 @@ def align_at(k, rows, seen, scans: Scans, prog, device):
     grid = build_map(ops, start, rows, scans, gspec, device)
     c = scans.filtered(k)
     with lowp.tf32(scans.lowp):
-        res = ndt.align_ref(grid, c.xyz, c.mask, guess(rows, k, device), gspec, nspec)
+        res = ndt.align_ref(grid, c.xyz, c.mask, guess(rows, k, device, feeds), gspec, nspec)
     return res.pose.cpu().numpy().astype(np.float64), int(res.iterations)
 
 
@@ -217,6 +230,18 @@ class BackEnd:
         rows = rec["rows"]
         self.kf_scan = np.nonzero(rows[:, 9] > 0.5)[0]
         self.scspec = loop.sc_spec(prog)
+        self.isc = prog["loop.method"] == "isc"
+        if self.isc:
+            # ISC's gates read each keyframe's odometric position and the
+            # odometric travel at its scan, a float32 sum over the scans
+            self.iscspec = isc.isc_spec(prog)
+            f32 = rows[:, :3].astype(np.float32)
+            p = torch.as_tensor(f32, device=device)
+            step = torch.linalg.norm(p[1:, :2] - p[:-1, :2], dim=-1).cpu().numpy()
+            travel = np.add.accumulate(np.concatenate([[0.0], step]).astype(np.float32))
+            self.positions = p[self.kf_scan]
+            self.travel = torch.as_tensor(travel[self.kf_scan], device=device)
+        self.num_sector = (self.iscspec if self.isc else self.scspec).num_sector
         self.desc = {}
         self.clouds = {}
 
@@ -224,10 +249,19 @@ class BackEnd:
         if k not in self.desc:
             c = self.scans.filtered(int(self.kf_scan[k]))
             with lowp.tf32(self.scans.lowp):
-                self.desc[k] = loop.make_descriptor(c.xyz, c.mask, self.scspec)
+                if self.isc:
+                    self.desc[k] = isc.make_descriptor(c.xyz, c.intensity, c.mask, self.iscspec)
+                else:
+                    self.desc[k] = loop.make_descriptor(c.xyz, c.mask, self.scspec)
                 xyz, mask, _ = loop.subsample_cloud(c.xyz, c.mask, self.rec["kf_points"])
             self.clouds[k] = (xyz, mask)
         return self.desc[k]
+
+    def detect_isc(self, k: int) -> isc.Scores:
+        """Every entry older than keyframe k scored against it."""
+        db = torch.stack([self.keyframe(i) for i in range(k + 1)])
+        with lowp.tf32(self.scans.lowp):
+            return isc.score_all(db[k], db, self.positions, self.travel, k, self.iscspec)
 
     def detect(self, k: int):
         """(candidate or −1, found, distance and shift of every eligible
@@ -267,14 +301,15 @@ def _T(pose6, dtype, device):
     return se3.pose_to_matrix(torch.as_tensor(np.asarray(pose6), dtype=dtype, device=device))
 
 
-def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_state=False):
+def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_state=False,
+                    gps=None):
     """The reference's Part B over every keyframe, following the program's
     accepted loops. The optimized poses chain from the logged odometric
     poses; the graph is solved (float64, exact) before each sampled
     verification, with the loops accepted so far, and at the end with every
-    loop. Returns the comparisons and the final transforms [n,4,4].
-    `lowp_state` rounds the solve's state to TF32 after every update (the
-    control)."""
+    loop, and with the altitude factors of `gps` (`gps_factors`). Returns
+    the comparisons and the final transforms [n,4,4]. `lowp_state` rounds
+    the solve's state to TF32 after every update (the control)."""
     rows = rec["rows"]
     dtype = torch.float64
     be = BackEnd(rec, scans, prog, device)
@@ -286,6 +321,12 @@ def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_st
                              + [1.0 / prog["pgo.odom_noise_rot"]] * 3, dtype=dtype, device=device)
     rnd = (lambda T: lowp.round_tf32(T.to(torch.float32)).to(dtype)) if lowp_state else None
     accepted = {int(j): q for q, j in enumerate(rec["loop_j"])}
+    gps_t = None
+    if gps is not None:
+        alt, valid = gps
+        gps_t = (torch.as_tensor(np.where(valid, alt, 0.0), dtype=dtype, device=device),
+                 torch.as_tensor(np.where(valid, 1.0 / prog["pgo.gps_noise_alt"], 0.0),
+                                 dtype=dtype, device=device))
     opt = T_odo[:1].clone()
     loops, solved = [], 0
     out = {"sc_mismatch": 0, "verify_mismatch": 0, "accept_mismatch": 0,
@@ -298,7 +339,7 @@ def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_st
         nonlocal opt, solved
         t = time.perf_counter()
         opt = pgo.solve(opt, loops, odom_info, prog["pgo.cauchy_k"], iterations,
-                        between[:k + 1], rnd)
+                        between[:k + 1], rnd, gps_t)
         solved = len(loops)
         out["solve_s"] += time.perf_counter() - t
 
@@ -306,29 +347,28 @@ def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_st
         opt = torch.cat([opt, torch.matmul(opt[k - 1], between[k])[None]])
         if method == "none" or k % period:
             continue
-        if method != "sc":
-            raise ValueError(f"the reference replays Scan Context loops, not {method!r}")
+        if method not in ("sc", "isc"):
+            raise ValueError(f"the reference replays Scan Context and ISC loops, not {method!r}")
         row = rows[be.kf_scan[k]]
         p_cand, p_found, p_ran = int(row[11]), row[12] > 0.5, row[15] > 0.5
         p_ok = k in accepted
         sampled = p_ran and k in verify_sample
         if sampled and solved < len(loops):
             catch_up(k, CATCH_UP_GN)
-        cand, found, dist, shift = be.detect(k)
         out["detections"] += 1
         # a retrieval differs where the two sides take different decisions
-        # that rounding cannot decide: a found flag away from the
-        # threshold, or a candidate whose distance is not within rounding
-        # of the best
-        if dist is not None:
-            best = float(dist[cand if found else int(torch.argmin(dist))])
-            if found != p_found and abs(best - thresh) > SC_ROUNDING:
-                out["sc_mismatch"] += 1
-            elif found and p_found and cand != p_cand and \
-                    float(dist[p_cand]) - best > SC_ROUNDING:
-                out["sc_mismatch"] += 1
-        elif p_found:
-            out["sc_mismatch"] += 1
+        # that rounding cannot decide
+        if be.isc:
+            scores = be.detect_isc(k)
+            ok = (scores.margin_m > 0) & (scores.margin_score > 0)
+            found = bool(ok.any())
+            cand = int(torch.argmax(torch.where(ok, scores.total, -torch.inf))) if found else -1
+            shift = scores.shift
+            differs = _isc_differs(scores, p_found, p_cand)
+        else:
+            cand, found, dist, shift = be.detect(k)
+            differs = _sc_differs(dist, cand, found, p_cand, p_found, thresh)
+        out["sc_mismatch"] += int(differs)
         c = p_cand if p_found else cand
         if c >= 0:
             d2 = float(torch.linalg.norm(opt[k, :2, 3] - opt[c, :2, 3]))
@@ -341,7 +381,7 @@ def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_st
             out["icp_runs"] += 1
             T_init = torch.matmul(se3.inverse(opt[c]), opt[k]).to(torch.float32)
             if prog["loop.use_sc_yaw"]:
-                yaw = loop.shift_yaw(shift[c], be.scspec.num_sector)
+                yaw = loop.shift_yaw(shift[c], be.num_sector)
                 p_init = se3.matrix_to_pose(T_init)
                 p_init[5] = -yaw
                 T_init = se3.pose_to_matrix(p_init)
@@ -383,6 +423,47 @@ def replay_back_end(rec, scans: Scans, prog, device, verify_sample: set, lowp_st
     return out, opt
 
 
+def _sc_differs(dist, cand: int, found: bool, p_cand: int, p_found: bool,
+                thresh: float) -> bool:
+    """Whether the program's Scan Context retrieval takes a decision that
+    rounding cannot: a found flag away from the threshold, or a candidate
+    whose distance is not within rounding of the best (`dist` None: no
+    entry was eligible)."""
+    if dist is None:
+        return p_found
+    best = float(dist[cand if found else int(torch.argmin(dist))])
+    if found != p_found:
+        return abs(best - thresh) > SC_ROUNDING
+    return found and cand != p_cand and float(dist[p_cand]) - best > SC_ROUNDING
+
+
+def _isc_differs(scores: isc.Scores, p_found: bool, p_cand: int) -> bool:
+    """Whether the program's ISC retrieval takes a decision that rounding
+    cannot: no candidate where an entry passes every gate and threshold by
+    more than rounding, a candidate that fails one by more, or a candidate
+    whose score such an entry beats by more than rounding."""
+    sure = (scores.margin_m > GATE_ROUNDING_M) & (scores.margin_score > SC_ROUNDING)
+    if not p_found:
+        return bool(sure.any())
+    if not 0 <= p_cand < len(scores.total):
+        return True
+    if float(scores.margin_m[p_cand]) < -GATE_ROUNDING_M or \
+            float(scores.margin_score[p_cand]) < -SC_ROUNDING:
+        return True
+    return bool((sure & (scores.total > scores.total[p_cand] + SC_ROUNDING)).any())
+
+
+def gps_factors(feeds, kf_scan: np.ndarray):
+    """(altitude, valid) of every keyframe from the feed at its scan, or
+    None without GPS. The seed keyframe takes no fix: it holds the gauge."""
+    if feeds is None or feeds.gps_alts is None:
+        return None
+    alt = feeds.gps_alts[kf_scan].astype(np.float32)
+    valid = np.isfinite(alt)
+    valid[:1] = False
+    return alt, valid
+
+
 # ------------------------------------------------------------------- judge --
 def _sample(rng, pool, size):
     pool = list(pool)
@@ -391,11 +472,12 @@ def _sample(rng, pool, size):
 
 
 def readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, device,
-             lowp_on: bool) -> dict:
+             lowp_on: bool, feeds=None) -> dict:
     """Every number compared, for the program (`lowp_on` false: the
     reference in float32 judges the program's outputs) or for the control
     (true: the reference in TF32 takes the program's place and the float32
-    reference judges it)."""
+    reference judges it). `feeds` (`gen/feeds.py`) are the sensor feeds the
+    program was handed, None where the configuration feeds none."""
     rows = rec["rows"]
     nums, info = {}, {}
     nums["scans_missing"] = float(abs(rec["scans_fed"] - len(rows)))
@@ -423,9 +505,9 @@ def readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, devi
     iter_mis = 0
     t0 = time.perf_counter()
     for k in samples:
-        p_ref, it_ref = align_at(k, rows, seen, ref, prog, device)
+        p_ref, it_ref = align_at(k, rows, seen, ref, prog, device, feeds)
         if lowp_on:
-            p_out, it_out = align_at(k, rows, seen, sub, prog, device)
+            p_out, it_out = align_at(k, rows, seen, sub, prog, device, feeds)
         else:
             p_out, it_out = rows[k, :6], int(rows[k, 6])
         pose_gap = _worst(pose_gap, float(np.linalg.norm(p_out[:3] - p_ref[:3])))
@@ -463,17 +545,28 @@ def readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, devi
     info["filters_s"] = time.perf_counter() - t0 - info["part_a_s"]
     info["filtered_points_mean"] = float(np.mean(counts)) if counts else None
 
+    # the fixes the keyframes stored (the control stores the feed's)
+    gps = gps_factors(feeds, kf_scan)
+    if gps is not None:
+        n_kf = len(kf_scan)
+        alt, valid = gps
+        p_valid = np.asarray(rec["gps_mask"][:n_kf], bool)
+        p_alt = np.asarray(rec["gps_alt"][:n_kf], np.float32)
+        differs = (p_valid != valid) | (valid & (p_alt != alt))
+        nums["gps_mismatch"] = 0.0 if lowp_on else float(differs.sum())
+        info["gps_keyframes"] = int(valid.sum())
+
     # Part B
     t0 = time.perf_counter()
     verified = [k for k in range(len(kf_scan)) if rows[kf_scan[k], 15] > 0.5]
     vs = set(_sample(np.random.default_rng([13, seed]), verified, VERIFY_SAMPLES))
     src = sub if lowp_on else ref
-    b_out, opt = replay_back_end(rec, src, prog, device, vs, lowp_state=lowp_on)
+    b_out, opt = replay_back_end(rec, src, prog, device, vs, lowp_state=lowp_on, gps=gps)
     if lowp_on:
         # the control in the program's place: its decisions against the
         # reference's on the same keyframes, its poses against the
         # reference's
-        b_cmp, opt_ref = replay_back_end(rec, ref, prog, device, vs)
+        b_cmp, opt_ref = replay_back_end(rec, ref, prog, device, vs, gps=gps)
         for key in ("sc_mismatch", "verify_mismatch", "accept_mismatch"):
             b_out[key] = abs(b_out[key] - b_cmp[key])
         final = opt
@@ -496,21 +589,25 @@ def readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, devi
     return {"numbers": nums, "info": info}
 
 
-def judge(cell, seed, rec, scans_src, lap_index, lap_poses, plan_, device, mode="program"):
+def judge(cell, seed, rec, scans_src, lap_index, lap_poses, plan_, device, mode="program",
+          feeds=None):
     """The program's numbers, each beside the cell's limit, and `correct`;
     with `mode="control"` also the control's numbers and whether the
-    limits fail it."""
+    limits fail it. `feeds`: the sensor feeds the program was handed."""
     lowp.fp32_matmul_off()
     prog = dict(cell.config["program"])
     prog.update(rec.get("prog_overrides", {}))
     rec = dict(rec, kf_points=cell.config["engine"]["kf_points"])
-    r = readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, device, False)
+    r = readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, device, False,
+                 feeds)
     limits = cell.limits.get("numbers", {})
     out = {"numbers": {}, "correct": True, "info": r["info"],
            "filtered_points_mean": r["info"]["filtered_points_mean"],
            "counts": {"scans": int(len(rec["rows"])), "keyframes": int(rec["kf_count"]),
                       "loops": int(rec["loop_count"]),
-                      "verifications": int(rec["icp_verifications"])}}
+                      "verifications": int(rec["icp_verifications"]),
+                      "retrievals_found": int(np.sum((rec["rows"][:, 9] > 0.5)
+                                                     & (rec["rows"][:, 12] > 0.5)))}}
     for name, v in r["numbers"].items():
         if name not in limits:
             out["info"][name] = v       # read, not compared in this cell
@@ -522,7 +619,8 @@ def judge(cell, seed, rec, scans_src, lap_index, lap_poses, plan_, device, mode=
     if not out["numbers"]:
         out["correct"] = False          # a cell with no limits judges nothing
     if mode == "control":
-        c = readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, device, True)
+        c = readings(rec, scans_src, prog, cell, seed, lap_poses, lap_index, plan_, device, True,
+                     feeds)
         fails = [n for n, v in c["numbers"].items() if n in limits and v > limits[n]["limit"]]
         out["control"] = {"numbers": c["numbers"], "fails": fails, "info": c["info"]}
     return out

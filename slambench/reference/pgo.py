@@ -2,9 +2,10 @@
 keyframes with a dense Cholesky solve of each iteration's normal equations
 (float64 by default), the port's model (`models/pose_graph.py`): between
 factors of the odometric increments with diagonal information, loop factors
-with their information under the Cauchy IRLS weight, node 0 held fixed,
-right-multiplied tangent updates. The port solves each iteration by a
-preconditioned CG to a relative tolerance; this solves it exactly."""
+with their information under the Cauchy IRLS weight, GPS altitude factors
+on the z of the keyframes with a fix, node 0 held fixed, right-multiplied
+tangent updates. The port solves each iteration by a preconditioned CG to a
+relative tolerance; this solves it exactly."""
 
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ def _jacobians(Ti, Tj, Z):
 
 
 def solve(T: torch.Tensor, loops: list, odom_info: torch.Tensor, cauchy_k: float,
-          iterations: int, between: torch.Tensor, round_state=None) -> torch.Tensor:
+          iterations: int, between: torch.Tensor, round_state=None, gps=None) -> torch.Tensor:
     """T [n,4,4] (the live keyframes' transforms), `between` [n,4,4] (row k:
     Z of edge (k−1, k); row 0 unused), `loops` [(i, j, Z [4,4], info)]:
     `iterations` Gauss-Newton steps; returns the new [n,4,4].
-    `round_state` (the control's) rounds the transforms after each step."""
+    `round_state` (the control's) rounds the transforms after each step.
+    `gps` (altitudes [≥n], information [≥n], 0 where a keyframe has no fix)
+    adds the factor z_k − altitude_k, whose Jacobian under the update
+    T·exp(v, w) is (R[2,:], 0)."""
     n = T.shape[0]
     if n < 2:
         return T
@@ -73,6 +77,12 @@ def solve(T: torch.Tensor, loops: list, odom_info: torch.Tensor, cauchy_k: float
             wl = linfo / (1.0 + s / (cauchy_k * cauchy_k))
             Jli, Jlj = _jacobians(Ti, Tj, lZ)
             add(li, lj, Jli, Jlj, wl, rl)
+        if gps is not None:
+            alt, gw = (x[:n].to(dev, dt) for x in gps)
+            A = T[:, 2, :3]
+            g[:, :3] += (gw * (T[:, 2, 3] - alt))[:, None] * A
+            nodes = torch.arange(n, device=dev)
+            H[nodes, :3, nodes, :3] += gw[:, None, None] * A[:, :, None] * A[:, None, :]
         Hm = H.reshape(6 * n, 6 * n)[6:, 6:]
         L = torch.linalg.cholesky(0.5 * (Hm + Hm.T))
         x = torch.cholesky_solve(-g.reshape(-1)[6:, None], L)[:, 0].reshape(n - 1, 6)

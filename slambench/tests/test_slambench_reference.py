@@ -89,3 +89,68 @@ def test_trace_reduction():
     assert abs(out["kernels"]["k1"] - 20e-6) < 1e-12
     assert out["idle_gaps"][0][0] == "aten::copy_"
     assert abs(out["idle_gaps"][0][1] - 30e-6) < 1e-12
+
+
+def test_gps_factor_pulls_z_by_its_information():
+    # node 1 one metre ahead of the fixed node 0, its altitude fixed 1 m up:
+    # at equal information on the chain's z and the fix, z settles half-way
+    T = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
+    T[1, 0, 3] = 1.0
+    Z = torch.cat([torch.eye(4, dtype=torch.float64)[None], T[1:]])
+    info = torch.tensor([1e3] * 6, dtype=torch.float64)
+    gps = (torch.tensor([0.0, 1.0]), torch.tensor([0.0, 1e3]))
+    out = pgo.solve(T, [], info, 1.0, 8, Z, gps=gps)
+    assert abs(float(out[1, 2, 3]) - 0.5) < 1e-9 and abs(float(out[1, 0, 3]) - 1.0) < 1e-9
+    assert torch.equal(pgo.solve(T, [], info, 1.0, 8, Z, gps=(gps[0], 0 * gps[1])), T)
+
+
+def test_isc_copy_scores_as_the_port():
+    from xchu_slam_tpu_torch.config import default_config
+    from xchu_slam_tpu_torch.ops import isc as port
+
+    from slambench.reference import isc
+
+    cfg = default_config()
+    spec = isc.isc_spec({f"isc.{k}": v for k, v in vars(cfg.isc).items()})
+    pspec = port.spec_from_config(cfg.isc)
+    descs = []
+    for s in range(12):
+        xyz, inten = _scan(4000, s % 4)          # revisits of four places
+        xyz, inten = torch.as_tensor(xyz), torch.as_tensor(inten)
+        mask = torch.ones(len(xyz), dtype=torch.bool)
+        a = isc.make_descriptor(xyz, inten, mask, spec)
+        assert torch.equal(a, port.make_descriptor(xyz, inten, mask, pspec))
+        descs.append(a)
+    db = torch.stack(descs)
+    positions = torch.tensor([[float(s % 4), 0.0, 0.0] for s in range(12)])
+    travel = 30.0 * torch.arange(12, dtype=torch.float32)
+    cur = 11
+    sc = isc.score_all(db[cur], db, positions, travel, cur, spec)
+    total, shift = port._gated_scores(db[cur], db, 0, cur, positions, travel, cur, pspec)
+    ok = (sc.margin_m > 0) & (sc.margin_score > 0)
+    assert ok.any() and not ok.all()
+    assert torch.equal(torch.where(ok, sc.total, -torch.inf), total)
+    assert torch.equal(sc.shift, shift)
+
+
+def test_ext_guess_copy_is_the_ports_chain():
+    from xchu_slam_tpu_torch.ops import imu as port
+
+    from slambench.reference import imu
+
+    g = torch.Generator().manual_seed(3)
+    stamps = torch.linspace(0.0, 0.1, 16)
+    mask = torch.ones(16, dtype=torch.bool)
+    mask[-2:] = False
+    w_imu = (stamps, 0.3 * torch.randn(16, 3, generator=g),
+             torch.randn(16, 3, generator=g) + torch.tensor([0.0, 0.0, 9.8]), mask)
+    w_wheel = (stamps, torch.randn(16, 3, generator=g), 0.3 * torch.randn(16, 3, generator=g),
+               mask)
+    pose0 = torch.tensor([1.0, -2.0, 0.1, 0.01, -0.02, 3.0])
+    vel = torch.tensor([9.0, 1.0, 0.0])
+    for use_imu, use_odom in ((True, False), (False, True), (True, True)):
+        d, use = imu.ext_guess(pose0, w_imu if use_imu else None,
+                               w_wheel if use_odom else None, vel)
+        pd, puse, _v = port.ext_guess_ref(pose0, port.ImuWindow(*w_imu),
+                                          port.OdomWindow(*w_wheel), vel, use_imu, use_odom)
+        assert torch.equal(d, pd) and bool(use) == bool(puse)
